@@ -1,0 +1,431 @@
+"""Simulation driver: module wiring + adaptive-dt main loop.
+
+Port of the reference's ``src/streamer.f90`` along the path of a fixed
+mesh: module initialization (initialize_modules ``:429-458``), the initial
+conditions with the initial field solve (set_initial_conditions
+``:460-519``), and the main loop (``:177-415``) with output cadence, step
+rejection and retry (up to 10 attempts) and the per-N-step restriction of
+the densities.
+
+The mesh is refined uniformly up to ``refine_max_dx`` at setup and then
+held fixed, which is what the JAX package does with ``refine_adx = 1e99``
+and ``refine_init_time = -1``. A configuration that would change the mesh
+later, or that asks for another module this package does not hold, raises
+NotImplementedError naming that module.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from . import DEFAULT_DTYPE
+from . import constants as uc
+from .core import ghostcell as gc
+from .core import prolong_restrict as pr
+from .core.batch import BoxBatch, capacity
+from .core.levels import MeshPlans
+from .core.tree import Tree
+from .io.output import Output
+from .ops.limiters import LIMITER_MC
+from .physics import advance as adv
+from .physics.chemistry import Chemistry
+from .physics.dt_control import DtConfig
+from .physics.field import FieldSolver
+from .physics.fluid import FluidModel, FluidIndices
+from .physics.gas import Gas
+from .physics.init_cond import InitCond
+from .physics.model import Model
+from .physics.streamer import (Registry, StreamerSettings,
+                               bc_species_neumann_zero,
+                               bc_species_dirichlet_zero)
+from .physics.transport_data import TransportData
+from .physics.user_methods import UserMethods, load_user_module
+from .utils.config import CFG
+from .utils.table_data import TableDataSettings
+
+MAX_ATTEMPTS_PER_TIME_STEP = 10  # streamer.f90:27
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device of the simulation state; ``cuda`` requires a card."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device=cuda but CUDA is not available "
+                           "(pass -device=cpu to run on the CPU)")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return device
+
+
+def _fixed_mesh_level(cfg, tree: Tree) -> tuple:
+    """(level of the uniform mesh, refine_per_steps) of a configuration
+    whose refinement criterion never changes the mesh after setup
+    (RefineSettings / default_refinement, ``m_refine.f90:198-298``).
+
+    With refine_adx >= 1e99 no cell is flagged for refinement, with
+    refine_init_time < 0 the seeds are not refined, and the uniform mesh
+    at the first level with dx <= refine_max_dx is never derefined (its
+    parents are too coarse)."""
+    max_dx = cfg.add_get("refine_max_dx", 1.0e-3,
+                         "The grid spacing will always be smaller than this "
+                         "value (m)")
+    adx = cfg.add_get("refine_adx", 1.0,
+                      "Refine if alpha*dx is larger than this value")
+    init_time = cfg.add_get("refine_init_time", 10e-9,
+                            "Refine around initial conditions up to this "
+                            "time")
+    per_steps = cfg.add_get("refine_per_steps", 2,
+                            "The number of steps after which the mesh is "
+                            "updated")
+    regions_dr = cfg.add_get("refine_regions_dr", [1.0e99],
+                             "Refine regions up to this grid spacing (m)",
+                             dynamic=True)
+    if (adx < 1e99 or init_time >= 0.0
+            or any(float(x) < 1e99 for x in regions_dr)):
+        raise NotImplementedError(
+            "physics/refine.py: live refinement (this package needs "
+            "refine_adx = 1e99, refine_init_time = -1 and no refine regions)")
+    lvl = 1
+    while np.any(tree.lvl_dr(lvl) > max_dx) and lvl < 29:
+        lvl += 1
+    return lvl, per_steps
+
+
+def _refuse(cfg, user):
+    """NotImplementedError for the modules of the JAX package that this
+    package does not hold."""
+    checks = [
+        ("gas%dynamics", False, "physics/gas_dynamics.py"),
+        ("use_electrode", False, "solvers/lsf.py (electrodes)"),
+        ("use_dielectric", False, "physics/dielectric.py"),
+        ("plasma_region_enabled", False, "physics/fluid.py plasma region"),
+        ("photoi%enabled", False, "physics/photoi.py"),
+        ("compiled%enabled", False, "parallel/compiled.py"),
+    ]
+    for key, default, module in checks:
+        if cfg.add_get(key, default, "Not available in this package"):
+            raise NotImplementedError(module)
+    if cfg.add_get("fixes%source_factor", "none",
+                   "Not available in this package") != "none":
+        raise NotImplementedError("physics/fluid.py: fixes%source_factor")
+    if cfg.add_get("restart_from_file", "UNDEFINED",
+                   "Not available in this package") != "UNDEFINED":
+        raise NotImplementedError("io/checkpoint.py")
+    hooks = [k for k, v in vars(user).items() if v is not None]
+    if hooks:
+        raise NotImplementedError(
+            f"physics/user_methods.py: user hooks {hooks}")
+
+
+class Simulation:
+    def __init__(self, argv: Optional[List[str]] = None,
+                 cfg: Optional[CFG] = None, ndim: Optional[int] = None):
+        if cfg is None:
+            cfg = CFG()
+            if argv:
+                cfg.update_from_arguments(argv)
+        self.cfg = cfg
+        if ndim is None:
+            ndim = cfg.add_get("ndim", 2, "Number of spatial dimensions")
+        if ndim != 2:
+            raise NotImplementedError(f"ndim={ndim}: only 2D is ported")
+        self.ndim = ndim
+        self.device = resolve_device(cfg.add_get(
+            "device", "cuda", "Device of the simulation state (cuda, cpu)"))
+        self.dtype = DEFAULT_DTYPE
+
+        # ---- module initialization (initialize_modules order)
+        self.model = Model(cfg)
+        if self.model.has_energy_equation:
+            raise NotImplementedError("physics/model.py: energy model ee53")
+        self.user = UserMethods()
+        load_user_module(cfg, self)
+        self.dt_cfg = DtConfig(cfg)
+        if adv.REQUIRES_IMPLICIT[self.dt_cfg.integrator]:
+            raise NotImplementedError(
+                f"physics/advance.py: {self.dt_cfg.integrator}")
+        _refuse(cfg, self.user)
+        table_settings = TableDataSettings(cfg)
+        self.gas = Gas(cfg)
+        self.td = TransportData(cfg, self.gas, table_settings, False)
+        self.chem = Chemistry(self.gas, self.td, self.td.file,
+                              table_settings, False, cfg)
+        self.st = StreamerSettings(cfg, ndim)
+
+        # ---- variable registration (ST_initialize / chemistry_initialize)
+        reg = Registry()
+        self.registry = reg
+        n_copies = self.dt_cfg.num_steps + 1
+        self.species_cc: List[int] = [reg.add_cc(name, n_copies=n_copies)
+                                      for name in self.chem.species_list]
+        self.all_densities = list(self.species_cc)
+        self.i_electron = self.species_cc[self.chem.species_list.index("e")]
+        # first positive ion: charge exactly +1 (m_streamer.f90:226-235)
+        pos = [i for i, q in enumerate(self.chem.species_charge) if q == 1]
+        if not pos:
+            raise ValueError("No positive ion species present")
+        self.i_1pos_ion = self.species_cc[pos[0]]
+        self.i_phi = reg.add_cc("phi", n_copies=2)
+        self.i_electric_fld = reg.add_cc("electric_fld")
+        self.i_rhs = reg.add_cc("rhs")
+        self.i_tmp = reg.add_cc("tmp")
+
+        # face-centered variables: electron flux, mobile-ion fluxes, E
+        self.fc_flux: List[int] = [reg.add_fc("flux_elec")]
+        self.flux_species = [self.i_electron]
+        self.flux_charge_sign = [-1]
+        for nm in self.td.mobile_ion_names:
+            six = self.chem.species_list.index(nm)
+            self.flux_species.append(self.species_cc[six])
+            self.flux_charge_sign.append(
+                1 if self.chem.species_charge[six] > 0 else -1)
+            self.fc_flux.append(reg.add_fc(f"flux_{nm}"))
+        self.fc_E = reg.add_fc("electric_fld")
+
+        # ---- tree, refined once to the fixed mesh
+        self.tree = Tree(ndim, self.st.box_size, self.st.domain_len,
+                         self.st.coarse_grid_size, periodic=self.st.periodic,
+                         coord=self.st.coord, r_min=self.st.domain_origin)
+        n1 = self.tree.highest_id
+        lvl, self.refine_per_steps = _fixed_mesh_level(cfg, self.tree)
+        self.tree.refine_up_to_lvl(lvl)
+        self.mesh = MeshPlans(self.tree, self.device)
+
+        # ---- species BCs
+        if self.st.species_boundary_condition == "neumann_zero":
+            self.bc_species = bc_species_neumann_zero
+        elif self.st.species_boundary_condition == "dirichlet_zero":
+            self.bc_species = lambda iv, d, c, p: bc_species_dirichlet_zero(
+                iv, d, c, p, ndim=ndim)
+        else:
+            raise ValueError("Unknown species_boundary_condition")
+
+        # ---- field solver
+        ch_ix, ch_q = self.chem.charged_species
+        charged_cc = [self.species_cc[i] for i in ch_ix]
+        self.field = FieldSolver(cfg, self.mesh, self.st, self.i_phi,
+                                 self.i_rhs, self.i_electric_fld, self.fc_E,
+                                 charged_cc, ch_q)
+
+        # ---- storage
+        batch = BoxBatch(self.tree, reg.n_cc, reg.n_fc,
+                         capacity(n1, self.tree.highest_id), self.dtype,
+                         self.device)
+        self.cc, self.fc = batch.cc, batch.fc
+
+        self.init_cond = InitCond(cfg, self.st, reg, self.i_electron,
+                                  self.i_1pos_ion)
+        for names, attr in ((self.init_cond.seed1_species_names,
+                             "seed1_species"),
+                            (self.init_cond.background_species_names,
+                             "background_species")):
+            setattr(self.init_cond, attr,
+                    [reg.cc_names.index(nm) for nm in names])
+        self.output = Output(cfg)
+
+        # ---- fluid model
+        idx = FluidIndices(
+            i_electron=self.i_electron,
+            i_electric_fld=self.i_electric_fld, fc_E=self.fc_E,
+            flux_species=self.flux_species, flux_fc=self.fc_flux,
+            flux_charge_sign=np.asarray(self.flux_charge_sign, np.float64),
+            all_densities=self.all_densities, species_cc=self.species_cc)
+        self.fluid = FluidModel(self.mesh, idx, self.chem, self.td, self.gas,
+                                self.bc_species, self.dt_cfg,
+                                prolong_limiter=LIMITER_MC)
+        self.fluid.field_compute = self.field.compute
+
+        # runtime state
+        self.it = 0
+        self.out_cnt = 0
+        self.global_time = 0.0
+        self.global_dt = self.dt_cfg.dt_min
+        self.dt_limits = np.full(4, 1e100)
+        self.global_rates = np.zeros(self.chem.n_reactions)
+        self.global_JdotE = 0.0
+        self.global_JdotE_current = 0.0
+        self.global_displ_current = 0.0
+        self.refine_prepulse_time = cfg.add_get(
+            "refine_prepulse_time", 1.0e-9,
+            "Start refining electrode some time before the next pulse")
+        self.setup_initial_conditions()
+
+    # ------------------------------------------------- initial conditions
+    def setup_initial_conditions(self):
+        """set_initial_conditions (streamer.f90:460-519) on the fixed mesh:
+        initial densities on every box, then the initial field solve."""
+        allids = np.concatenate([np.asarray(i) for i in self.tree.lvl_ids])
+        self.cc = self.init_cond.apply(self.cc, self.tree, allids)
+        self.cc, self.fc = self.field.compute(self.cc, self.fc, 0, 0.0, False)
+        self.output_write(0)
+
+    def output_write(self, out_cnt: int):
+        if self.output.regression_test:
+            self.output.regression_log(self, out_cnt)
+
+    def restrict_and_gc_densities(self):
+        """Restrict + ghost-fill all densities (streamer.f90:383-386)."""
+        self.cc = pr.restrict_tree(self.cc, self.mesh.pr_all(),
+                                   self.all_densities)
+        for lvl in range(1, self.tree.highest_lvl + 1):
+            gc.fill_ghosts_lvl(self.cc, self.mesh.gc(lvl), self.all_densities,
+                               gc.RB_INTERP_LIM, self.bc_species)
+
+    # -------------------------------------------------------- main loop
+    def _substep(self, cc, fc, dt, dt_lim, time, s_deriv, s_prev, w_prev,
+                 s_out, i_step, n_steps, params):
+        self.cc, self.fc = cc, fc
+        return self.fluid.forward_euler(cc, fc, dt, dt_lim, time, s_deriv,
+                                        s_prev, w_prev, s_out, i_step,
+                                        n_steps, params)
+
+    def run(self, end_time: Optional[float] = None,
+            max_steps: Optional[int] = None):
+        """The main time loop (streamer.f90:177-415)."""
+        st = self.st
+        end_time = end_time if end_time is not None else st.end_time
+        n_states = self.dt_cfg.num_steps
+        dt = self.global_dt
+        time = self.global_time
+        out_cnt = self.out_cnt
+        time_last_output = time
+        t_start = _time.time()
+        time_last_print = -1e10
+        field_energy_prev = self.field.compute_energy(self.cc)
+        field_energy_prev_time = time
+        fraction_steps_rejected = 0.0
+        n_steps_rejected = 0
+
+        while True:
+            self.it += 1
+            if time >= end_time:
+                break
+            if max_steps is not None and self.it > max_steps:
+                break
+            wc_time = _time.time() - t_start
+            if wc_time - time_last_print > self.output.status_delay:
+                self.output.status(self, wc_time)
+                time_last_print = wc_time
+
+            # pulse-train bookkeeping (streamer.f90:216-234)
+            time_until_next_pulse = (self.field.field_pulse_period
+                                     - np.mod(time,
+                                              self.field.field_pulse_period))
+            self.field.set_voltage(time)
+            if (abs(self.field.current_voltage) > 0.0
+                    or time_until_next_pulse < self.refine_prepulse_time):
+                current_output_dt = self.output.dt
+            else:
+                current_output_dt = (self.output.dt
+                                     * self.output.dt_factor_pulse_off)
+
+            write_out = (time + dt >= time_last_output + current_output_dt)
+            if write_out:
+                dt = max(0.0, time_last_output + current_output_dt - time)
+
+            # make sure to capture the start of the next pulse
+            start_of_new_pulse = dt >= time_until_next_pulse
+            if start_of_new_pulse:
+                dt = max(time_until_next_pulse, self.dt_cfg.dt_min)
+
+            # attempt loop with state copy/rejection (streamer.f90:251-288)
+            params = {"voltage": self.field.current_voltage}
+            dt_lim = uc.huge_real
+            step_accepted = False
+            for attempt in range(MAX_ATTEMPTS_PER_TIME_STEP):
+                self._copy_state(n_states)
+                cc, fc, dt_lim_step, time_new, diag = adv.advance(
+                    self.cc, self.fc, dt, time, self.dt_cfg.integrator,
+                    self._substep, params)
+                self.cc, self.fc = cc, fc
+                dt_lim_step = float(dt_lim_step)
+                dt_lim = min(dt_lim, dt_lim_step)
+                if dt <= dt_lim_step:
+                    step_accepted = True
+                    time = time_new
+                    break
+                n_steps_rejected += 1
+                print(f"{self.it} Step rejected (#{n_steps_rejected}) "
+                      f"(dt, dt_lim) = {dt:.4E} {dt_lim:.4E}")
+                dt = self.dt_cfg.safety_factor * dt_lim_step
+                time = self.global_time
+                write_out = False
+                self._restore_state(n_states, params)
+            fraction_steps_rejected = 0.99 * fraction_steps_rejected
+            if attempt > 0:
+                fraction_steps_rejected += 0.01
+            if not step_accepted:
+                raise RuntimeError("All time steps were rejected")
+
+            # global rate accounting
+            if self.chem.n_reactions:
+                self.global_rates = (self.global_rates
+                                     + diag["rates"].cpu().numpy() * dt)
+            jdote = float(diag["JdotE"])
+            self.global_JdotE += jdote * dt
+
+            # electric current (Sato) every N steps (streamer.f90:296-317)
+            if self.it % st.current_update_per_steps == 0:
+                fe = self.field.compute_energy(self.cc)
+                d_fe = ((fe - field_energy_prev)
+                        / max(time - field_energy_prev_time, 1e-300))
+                field_energy_prev, field_energy_prev_time = fe, time
+                if abs(self.field.current_voltage) > 0:
+                    self.global_JdotE_current = (
+                        jdote / self.field.current_voltage)
+                    self.global_displ_current = (
+                        d_fe / self.field.current_voltage)
+
+            # field for the latest state
+            self.cc, self.fc = self.field.compute(self.cc, self.fc, 0, time,
+                                                  True)
+
+            # new time step (streamer.f90:338-343)
+            tmp = self.dt_cfg.max_growth_factor
+            if fraction_steps_rejected > 0.1:
+                tmp = 1.0
+            dt = min(tmp * self.global_dt,
+                     self.dt_cfg.safety_factor * min(dt_lim,
+                                                     self.dt_cfg.dt_max))
+            if start_of_new_pulse:
+                # start a new pulse with a small time step
+                dt = self.dt_cfg.dt_min
+            self.global_dt = dt
+            self.global_time = time
+            self.dt_limits = diag["dt_limits"].cpu().numpy()
+
+            if self.global_dt < self.dt_cfg.dt_min:
+                self.output.status(self, _time.time() - t_start)
+                raise RuntimeError(f"dt too small: {self.global_dt}")
+
+            if write_out:
+                out_cnt += 1
+                self.out_cnt = out_cnt
+                time_last_output = self.global_time
+                self.output_write(out_cnt)
+
+            # the densities are restricted and ghost-filled at every
+            # refinement check (streamer.f90:380-411); the mesh stays fixed
+            if self.it % self.refine_per_steps == 0:
+                self.restrict_and_gc_densities()
+
+        self.output.status(self, _time.time() - t_start)
+        return out_cnt
+
+    def _copy_state(self, n_states: int):
+        """copy_current_state (streamer.f90:571-583)."""
+        for iv in self.all_densities:
+            self.cc[iv + n_states] = self.cc[iv]
+        self.cc[self.i_phi + 1] = self.cc[self.i_phi]
+
+    def _restore_state(self, n_states: int, params):
+        """restore_previous_state (streamer.f90:586-599)."""
+        for iv in self.all_densities:
+            self.cc[iv] = self.cc[iv + n_states]
+        self.cc[self.i_phi] = self.cc[self.i_phi + 1]
+        self.cc, self.fc = self.field.from_potential(self.cc, self.fc,
+                                                     params)

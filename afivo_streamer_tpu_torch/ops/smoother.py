@@ -1,0 +1,344 @@
+"""The multigrid smoother kernels (2D) and their runtime tables.
+
+One half red-black sweep of the reference's gsrb_boxes
+(``afivo/src/m_af_multigrid.f90:648-687``) on the level-local block arrays
+``[n, nc+2, nc+2]`` of the block V-cycle (solvers/mg_blocks.py) is built
+from three kernels:
+
+* K2 ``sweep_2d``: the red-black update on the blocks' current ghosts;
+* K3 ``fill_2d``: rebuild the four side ghosts of every block from the
+  uniform linear form ``W0*nb_slab + W1*f1 + W2*f2 + A`` (corners kept),
+  which covers same-level copies, physical boundaries and the
+  mg_sides_rb refinement-boundary scheme;
+* K1 ``fill_sweep_2d``: K3 then K2 in one kernel.
+
+Each wrapper launches the hand-written CUDA kernel (csrc/smoother.cu) for
+a CUDA tensor, and takes the plain PyTorch version beside it only for a
+tensor that lies on the CPU. Every wrapper counts its kernel launches in
+its ``launches`` attribute.
+
+``SmootherTables`` builds the per-level runtime tables the kernels read
+(neighbor rows ``g``, ghost weights ``W``, the stencil blocks ``cs``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..core import ghostcell as gc
+from ..core.tree import neighb_dim, neighb_low
+
+_PKG = Path(__file__).resolve().parent.parent
+KERNEL_SOURCE = _PKG / "csrc" / "smoother.cu"
+BUILD_DIR = _PKG / "build"
+
+_MODE_SWEEP, _MODE_FILL, _MODE_FILL_SWEEP = 0, 1, 2
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is not None:
+        cand = Path(CUDA_HOME) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or PATH")
+    return found
+
+
+def build_library() -> tuple:
+    """Compile csrc/smoother.cu for sm_90a into build/ (once per source
+    content). Returns (path of the shared library, compiler log)."""
+    src = KERNEL_SOURCE.read_bytes()
+    tag = hashlib.sha256(src).hexdigest()[:12]
+    out = BUILD_DIR / f"libafs_smoother_{tag}.so"
+    log_path = out.with_suffix(".log")
+    if out.exists():
+        return out, log_path.read_text() if log_path.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", str(tmp), str(KERNEL_SOURCE)]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    os.replace(tmp, out)
+    log_path.write_text(log)
+    return out, log
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    path, _ = build_library()
+    lib = ctypes.CDLL(str(path))
+    fn = lib.afs_smoother_2d
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
+    """Validate device, dtype, shape and contiguity before a launch."""
+    if phi3.dim() != 3 or phi3.shape[1] != phi3.shape[2]:
+        raise ValueError(f"phi3 must be [n, C, C], got {tuple(phi3.shape)}")
+    if phi3.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {phi3.dtype}")
+    n, C = phi3.shape[0], phi3.shape[1]
+    nc = C - 2
+    spec = {"R": (R, (n, nc, nc), phi3.dtype),
+            "mask": (mask, (nc, nc), torch.float32),
+            "A": (A, (n, 4, nc), phi3.dtype),
+            "g": (g, (n, 5), torch.int32),
+            "W": (W, (n, 4, 8), phi3.dtype),
+            "cs": (cs, (n, 6, nc, nc), phi3.dtype)}
+    for name, (t, shape, dtype) in [("phi3", (phi3, tuple(phi3.shape),
+                                              phi3.dtype))] + list(spec.items()):
+        if t is None:
+            continue
+        if t.device != phi3.device:
+            raise ValueError(f"{name} on {t.device}, phi3 on {phi3.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return n, nc
+
+
+def _launch(mode, phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
+    if phi3.device.type != "cuda":
+        raise ValueError(f"no smoother kernel for device {phi3.device}")
+    n, nc = _check(phi3, R, mask, A, g, W, cs)
+    out = torch.empty_like(phi3)
+    stream = torch.cuda.current_stream(phi3.device).cuda_stream
+    err = _library().afs_smoother_2d(
+        mode, int(phi3.dtype == torch.float64), _ptr(phi3), _ptr(R),
+        _ptr(mask), _ptr(A), _ptr(g), _ptr(W), _ptr(cs), _ptr(out), n, nc,
+        stream)
+    if err != 0:
+        raise RuntimeError(f"smoother kernel launch failed: CUDA error {err}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path and the reference of the kernels)
+# ---------------------------------------------------------------------------
+def _sweep_blocks(B, R, mask, cs):
+    """Red-black update of own blocks B [n, C, C]."""
+    nc = B.shape[-1] - 2
+    B0 = B[:, 1:nc + 1, 1:nc + 1]
+    # difference form (see solvers/multigrid.LevelOp): no |phi|-scale
+    # cancellation in the residual
+    lphi = (cs[:, 5] * B0
+            + cs[:, 1] * (B[:, 0:nc, 1:nc + 1] - B0)
+            + cs[:, 2] * (B[:, 2:nc + 2, 1:nc + 1] - B0)
+            + cs[:, 3] * (B[:, 1:nc + 1, 0:nc] - B0)
+            + cs[:, 4] * (B[:, 1:nc + 1, 2:nc + 2] - B0))
+    new = B0 + (R - lphi) / cs[:, 0]
+    out = B.clone()
+    out[:, 1:nc + 1, 1:nc + 1] = torch.where(mask > 0, new, B0)
+    return out
+
+
+def _fill_blocks(phi3, A, g, W):
+    """Own blocks phi3[g[:, 0]] with rebuilt side ghosts."""
+    nc = phi3.shape[-1] - 2
+    gl = g.long()
+    B = phi3[gl[:, 0]]
+    out = B.clone()
+    inner = slice(1, nc + 1)
+    for d in range(4):
+        nb = phi3[gl[:, 1 + d]]
+        if d == 0:
+            slab, f1, f2 = nb[:, nc, inner], B[:, 1, inner], B[:, 2, inner]
+        elif d == 1:
+            slab, f1, f2 = nb[:, 1, inner], B[:, nc, inner], B[:, nc - 1, inner]
+        elif d == 2:
+            slab, f1, f2 = nb[:, inner, nc], B[:, inner, 1], B[:, inner, 2]
+        else:
+            slab, f1, f2 = nb[:, inner, 1], B[:, inner, nc], B[:, inner, nc - 1]
+        w = W[:, d]
+        ghost = (w[:, 0:1] * slab + w[:, 1:2] * f1 + w[:, 2:3] * f2
+                 + A[:, d])
+        if d == 0:
+            out[:, 0, inner] = ghost
+        elif d == 1:
+            out[:, nc + 1, inner] = ghost
+        elif d == 2:
+            out[:, inner, 0] = ghost
+        else:
+            out[:, inner, nc + 1] = ghost
+    return out
+
+
+def sweep_2d_plain(phi3, R, mask, g, cs):
+    """Plain version of K2 (afivo_streamer_tpu/ops/pallas_smoother.py
+    _sweep_2d)."""
+    return _sweep_blocks(phi3[g.long()[:, 0]], R, mask, cs)
+
+
+def fill_2d_plain(phi3, A, g, W):
+    """Plain version of K3 without parity-swap terms (pallas_smoother.py
+    _fill_2d, has_swap=False)."""
+    return _fill_blocks(phi3, A, g, W)
+
+
+def fill_sweep_2d_plain(phi3, R, mask, A, g, W, cs):
+    """Plain version of K1 (pallas_smoother.py _fill_sweep_2d)."""
+    return _sweep_blocks(_fill_blocks(phi3, A, g, W), R, mask, cs)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+def sweep_2d(phi3, R, mask, g, cs):
+    """K2: one red-black half sweep on the blocks' current ghosts."""
+    if phi3.device.type == "cpu":
+        return sweep_2d_plain(phi3, R, mask, g, cs)
+    out = _launch(_MODE_SWEEP, phi3, R=R, mask=mask, g=g, cs=cs)
+    sweep_2d.launches += 1
+    return out
+
+
+def fill_2d(phi3, A, g, W):
+    """K3: side-ghost exchange of every block."""
+    if phi3.device.type == "cpu":
+        return fill_2d_plain(phi3, A, g, W)
+    out = _launch(_MODE_FILL, phi3, A=A, g=g, W=W)
+    fill_2d.launches += 1
+    return out
+
+
+def fill_sweep_2d(phi3, R, mask, A, g, W, cs):
+    """K1: side-ghost exchange, then a red-black half sweep on the filled
+    blocks."""
+    if phi3.device.type == "cpu":
+        return fill_sweep_2d_plain(phi3, R, mask, A, g, W, cs)
+    out = _launch(_MODE_FILL_SWEEP, phi3, R=R, mask=mask, A=A, g=g, W=W,
+                  cs=cs)
+    fill_sweep_2d.launches += 1
+    return out
+
+
+sweep_2d.launches = 0
+fill_2d.launches = 0
+fill_sweep_2d.launches = 0
+
+KERNELS = {"fill_sweep_2d": fill_sweep_2d, "sweep_2d": sweep_2d,
+           "fill_2d": fill_2d}
+PLAIN = {"fill_sweep_2d": fill_sweep_2d_plain, "sweep_2d": sweep_2d_plain,
+         "fill_2d": fill_2d_plain}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# runtime tables of one level
+# ---------------------------------------------------------------------------
+class SmootherTables:
+    """Neighbor-row and ghost-weight tables of one level's blocks
+    (afivo_streamer_tpu PackSmoother2D.__init__, without padded rows).
+
+    ``bc_recipe`` lists (direction, bc type, gamma) for the physical
+    boundaries, whose values the A constants fold in at every level visit
+    (solvers/mg_blocks.build_A_blocks); ``rb_dirs`` the directions with
+    refinement boundaries, whose coarse strips do the same."""
+
+    def __init__(self, tree, lvl: int, plan, tb, bc_fn, i_phi: int, device):
+        self.nc = tree.nc
+        ids = np.asarray(tb.ids, np.int64)
+        n = len(ids)
+        self.n = n
+        pos = np.full(int(tree.highest_id) + 1, -1, np.int64)
+        pos[ids] = np.arange(n)
+
+        g = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, 5))
+        W = np.zeros((n, 4, 8))
+        bc_recipe, rb_dirs = [], []
+        self.bc_pos = [None] * 4
+        self.rb_pos = [None] * 4
+        for d, p in enumerate(plan.dirs):
+            if len(p.copy_ids):
+                rows = pos[p.copy_ids]
+                g[rows, 1 + d] = pos[p.copy_nb]
+                W[rows, d, 0] = 1.0
+            if len(p.bc_ids):
+                bc_type, _ = bc_fn(i_phi, d, p.bc_coords, {})
+                rows = pos[p.bc_ids]
+                dim, low = neighb_dim(d), neighb_low(d)
+                if bc_type == gc.BC_DIRICHLET:
+                    W[rows, d, 1] = -1.0
+                    gamma = 2.0
+                elif bc_type == gc.BC_NEUMANN:
+                    W[rows, d, 1] = 1.0
+                    gamma = (1.0 if not low else -1.0) * float(plan.dr[dim])
+                elif bc_type == gc.BC_CONTINUOUS:
+                    W[rows, d, 1] = 2.0
+                    W[rows, d, 2] = -1.0
+                    gamma = 0.0
+                elif bc_type == gc.BC_DIRICHLET_COPY:
+                    gamma = 1.0
+                else:
+                    raise ValueError("unsupported bc type")
+                bc_recipe.append((d, int(bc_type), float(gamma)))
+                self.bc_pos[d] = torch.as_tensor(rows, dtype=torch.int64,
+                                                 device=device)
+            if len(p.rb_ids):
+                rows = pos[p.rb_ids]
+                W[rows, d, 1] = 0.75
+                W[rows, d, 2] = -0.25
+                rb_dirs.append(d)
+                self.rb_pos[d] = torch.as_tensor(rows, dtype=torch.int64,
+                                                 device=device)
+        if g.min() < 0 or g.max() >= max(n, 1):
+            raise ValueError("neighbor row table out of range")
+        self.g = torch.as_tensor(g, dtype=torch.int32, device=device)
+        self._W = W
+        self.bc_recipe = tuple(bc_recipe)
+        self.rb_dirs = tuple(rb_dirs)
+        self.device = device
+        self._cache = {}
+
+    def W(self, dtype):
+        key = ("W", dtype)
+        if key not in self._cache:
+            self._cache[key] = torch.as_tensor(self._W, dtype=dtype,
+                                               device=self.device)
+        return self._cache[key]
+
+    def cs(self, op, dtype):
+        """Stencil coefficient blocks [n, 6, nc, nc] from the LevelOp
+        coefficients (c0, 4 neighbors, c_sum), built once per dtype."""
+        key = ("cs", dtype)
+        if key not in self._cache:
+            n, nc = self.n, self.nc
+            cols = [op.c0] + list(op.c_nb) + [op.c_sum]
+            blocks = [np.broadcast_to(np.asarray(c, np.float64), (n, nc, nc))
+                      for c in cols]
+            self._cache[key] = torch.as_tensor(
+                np.stack(blocks, axis=1), dtype=dtype, device=self.device)
+        return self._cache[key]

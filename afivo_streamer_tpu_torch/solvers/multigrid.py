@@ -1,0 +1,190 @@
+"""Geometric multigrid (FAS-FMG / FAS V-cycle) over the box batch (2D).
+
+Re-designs the reference's ``afivo/src/m_af_multigrid.f90``: downward
+red-black GSRB smoothing with a ghost exchange after every half sweep
+(gsrb_boxes ``:648-687``), FAS coarse-grid construction (update_coarse
+``:691-738``), a coarse-grid solve at level 1 and upward corrections
+(correct_children ``:624-646``). The cycles run on per-level block arrays
+(solvers/mg_blocks.py) whose smoothing and ghost fills are the kernels of
+ops/smoother.py.
+
+The red-black update colors cells by (i+j) parity matching stencil_gsrb_357
+(``m_af_stencil.f90:820-980``), including the cylindrical gradient
+correction via radial flux factors (af_cyl_flux_factors,
+``m_af_types.f90:1199-1212``). The level-1 solve replaces the reference's
+HYPRE bridge with an assembled direct solve (solvers/coarse.py).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..core import ghostcell as gc
+from ..core.levels import MeshPlans
+from ..core.rowops import fc_get_faces, fc_set_faces
+from ..ops.smoother import SmootherTables
+from . import mg_blocks as mgb
+from .coarse import CoarseSolver
+
+
+def parity_mask(nc: int, redblack: int) -> np.ndarray:
+    """Cells updated in a half sweep: (i+j) % 2 == redblack % 2 with
+    1-based indices (stencil_gsrb_357)."""
+    idx = np.arange(1, nc + 1)
+    i, j = np.meshgrid(idx, idx, indexing="ij")
+    return ((i + j) % 2) == (redblack % 2)
+
+
+class LevelOp:
+    """Operator coefficients for one level: center + 4 neighbor
+    coefficients, each broadcastable against [n, nc, nc] blocks (host
+    NumPy float64).
+
+    Normal box: the constant 5-point Laplacian - helmholtz_lambda
+    (mg_box_lpl_stencil, ``m_af_multigrid.f90:1227-1245``); cylindrical
+    coordinates scale the radial couplings by the flux factors."""
+
+    def __init__(self, tree, lvl: int, lam: float):
+        nc = tree.nc
+        dr = tree.lvl_dr(lvl)
+        inv_dr2 = 1.0 / dr**2
+        ids = tree.lvl_ids[lvl - 1]
+        c_nb = [float(inv_dr2[d // 2]) for d in range(4)]
+        c0 = -2.0 * float(np.sum(inv_dr2)) - lam
+        if tree.coord == "cyl":
+            # radial flux factors per box (dim 0 is r)
+            r0 = tree.box_r_min(ids)[:, 0]
+            i = np.arange(1, nc + 1)
+            r_cc = r0[:, None] + (i[None, :] - 0.5) * dr[0]  # [n, nc]
+            rfac1 = (r_cc - 0.5 * dr[0]) / r_cc
+            rfac2 = (r_cc + 0.5 * dr[0]) / r_cc
+            c_lo = (rfac1 * c_nb[0]).reshape(len(r0), nc, 1)
+            c_hi = (rfac2 * c_nb[1]).reshape(len(r0), nc, 1)
+            c0 = c0 - (c_lo - c_nb[0]) - (c_hi - c_nb[1])
+            c_nb[0] = c_lo
+            c_nb[1] = c_hi
+        # difference-form sum coefficient s = c0 + sum(c_nb), in float64:
+        # the operator is applied as L(phi) = sum_d c_d (phi_d - phi_0)
+        # + s phi_0, which avoids the |phi|/dx^2-scale cancellation of the
+        # naive sum; for these operators s = -helmholtz_lambda exactly
+        self.c_sum = c0 + sum(c_nb)
+        self.c_nb = c_nb
+        self.c0 = c0
+
+
+class Multigrid:
+    """FAS multigrid solver bound to a (mesh, variable set, BC spec)."""
+
+    def __init__(self, mesh: MeshPlans, i_phi: int, i_rhs: int,
+                 sides_bc: Callable, helmholtz_lambda: float = 0.0,
+                 n_cycle_down: int = 2, n_cycle_up: int = 2):
+        if mesh.tree.ndim != 2:
+            raise NotImplementedError("solvers/multigrid.py: ndim != 2")
+        self.mesh = mesh
+        self.tree = mesh.tree
+        self.i_phi, self.i_rhs = i_phi, i_rhs
+        self.sides_bc = sides_bc
+        self.lam = helmholtz_lambda
+        self.n_cycle_down = n_cycle_down
+        self.n_cycle_up = n_cycle_up
+        self._cache = {}
+
+    def _get(self, key, make):
+        self.mesh.check_fixed()
+        if key not in self._cache:
+            self._cache[key] = make()
+        return self._cache[key]
+
+    # ----------------------------------------------------------- tables
+    @property
+    def n_levels(self) -> int:
+        return self.tree.highest_lvl
+
+    def op(self, lvl: int) -> LevelOp:
+        return self._get(("op", lvl),
+                         lambda: LevelOp(self.tree, lvl, self.lam))
+
+    def smoother(self, lvl: int) -> SmootherTables:
+        return self._get(("sm", lvl), lambda: SmootherTables(
+            self.tree, lvl, self.mesh.gc(lvl), self.mesh.tb(lvl),
+            self.sides_bc, self.i_phi, self.mesh.device))
+
+    def blocks(self, lvl: int) -> mgb.LevelBlockPlan:
+        return self._get(("blk", lvl),
+                         lambda: mgb.LevelBlockPlan(self.mesh, lvl))
+
+    def cs(self, lvl: int, dtype) -> torch.Tensor:
+        return self.smoother(lvl).cs(self.op(lvl), dtype)
+
+    def parity_masks(self, n_half: int) -> list:
+        """float32 [nc, nc] masks of half sweeps 1..n_half."""
+        def make():
+            return [torch.as_tensor(parity_mask(self.tree.nc, k),
+                                    dtype=torch.float32,
+                                    device=self.mesh.device)
+                    for k in range(1, n_half + 1)]
+        return self._get(("masks", n_half), make)
+
+    def coarse_solver(self) -> CoarseSolver:
+        return self._get("coarse", lambda: CoarseSolver(
+            self.tree, self.sides_bc, self.lam, self.mesh.device))
+
+    # --------------------------------------------------------- cycles
+    def fill_ghosts_phi(self, cc, params):
+        for lvl in range(1, self.n_levels + 1):
+            gc.fill_ghosts_lvl(cc, self.mesh.gc(lvl), [self.i_phi], gc.RB_MG,
+                               self.sides_bc, params)
+        return cc
+
+    def vcycle(self, cc, params):
+        """One FAS V-cycle on cc; returns (cc, max leaf residual)."""
+        P, R = mgb.gather_levels(self, cc)
+        P, R = mgb.fas_vcycle_blocks(self, P, R, params)
+        res = mgb.max_leaf_residual_blocks(self, P, R)
+        return mgb.scatter_levels(self, cc, P, R), res
+
+    # ---------------------------------------------------- field utilities
+    def _all_ids_inv_dr(self):
+        """Ids of all boxes and their per-box 1/dr [N, ndim]."""
+        def make():
+            t = self.tree
+            inv_dr = np.concatenate([
+                np.repeat(1.0 / np.asarray(t.lvl_dr(l), np.float64)[None, :],
+                          len(t.lvl_ids[l - 1]), axis=0)
+                for l in range(1, self.n_levels + 1)])
+            return (self.mesh.all_ids(),
+                    torch.as_tensor(inv_dr, dtype=torch.float64,
+                                    device=self.mesh.device))
+        return self._get("ids_inv_dr", make)
+
+    def compute_phi_gradient(self, cc, fc, i_fc: int, fac: float):
+        """fc = fac * grad(phi) on all boxes (mg_compute_phi_gradient /
+        mg_box_lpl_gradient, ``m_af_multigrid.f90:1837-1974``)."""
+        nc = self.tree.nc
+        ids, inv_dr = self._all_ids_inv_dr()
+        B = cc[self.i_phi, ids].reshape(len(ids), nc + 2, nc + 2)
+        inv_dr = inv_dr.to(cc.dtype)
+        g0 = (float(fac) * inv_dr[:, 0][:, None, None]
+              * (B[:, 1:nc + 2, 1:nc + 1] - B[:, 0:nc + 1, 1:nc + 1]))
+        fc_set_faces(fc, i_fc, 0, ids, g0, nc, 2)
+        g1 = (float(fac) * inv_dr[:, 1][:, None, None]
+              * (B[:, 1:nc + 1, 1:nc + 2] - B[:, 1:nc + 1, 0:nc + 1]))
+        fc_set_faces(fc, i_fc, 1, ids, g1, nc, 2)
+        return fc
+
+    def compute_field_norm(self, cc, fc, i_fc: int, i_norm: int):
+        """Cell-centered norm of a face field (mg_box_field_norm,
+        ``m_af_multigrid.f90:1995-2025``): average of the two faces."""
+        nc = self.tree.nc
+        ids, _ = self._all_ids_inv_dr()
+        F0 = fc_get_faces(fc, i_fc, 0, ids, nc, 2)
+        F1 = fc_get_faces(fc, i_fc, 1, ids, nc, 2)
+        acc = (0.0 + (F0[:, 0:nc, :] + F0[:, 1:nc + 1, :]) ** 2
+               + (F1[:, :, 0:nc] + F1[:, :, 1:nc + 1]) ** 2)
+        B = cc[i_norm, ids].reshape(len(ids), nc + 2, nc + 2)
+        B[:, 1:nc + 1, 1:nc + 1] = 0.5 * torch.sqrt(acc)
+        cc[i_norm, ids] = B.reshape(len(ids), -1)
+        return cc

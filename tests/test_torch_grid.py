@@ -1,0 +1,172 @@
+"""The port's grid substrate against the JAX package's host (NumPy) path on
+the refined meshes of tests/test_mg_blocks.py (two refinement levels over
+one corner, so every level has same-level, physical and refinement
+boundaries):
+
+* equal tree tables;
+* equal ghost fills (mg_sides_rb, interp, interp_lim; side + corner);
+* equal restriction (plain and cylindrical-volume weighted);
+* equal linear prolongation of a correction (the block form of the port
+  against the host af_prolong_linear);
+* equal 2-ghost extended arrays (incl. the limited refinement-boundary
+  prolongation) and fine-to-coarse flux matching of the fluid step.
+
+All float64; rtol 1e-13 (the operations are the same arithmetic in the
+same order except the block prolongation, whose sums are reordered).
+"""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from afivo_streamer_tpu.core import ghostcell as gc
+from afivo_streamer_tpu.core import prolong_restrict as pr
+from afivo_streamer_tpu.core.tree import Tree, DO_REF, KEEP_REF
+from afivo_streamer_tpu.ops.limiters import LIMITER_MC
+from afivo_streamer_tpu.physics import fluid as jfl
+
+from afivo_streamer_tpu_torch.core import ghostcell as tgc
+from afivo_streamer_tpu_torch.core import prolong_restrict as tpr
+from afivo_streamer_tpu_torch.core.levels import MeshPlans
+from afivo_streamer_tpu_torch.core.tree import Tree as TTree
+from afivo_streamer_tpu_torch.physics import fluid as tfl
+from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
+
+torch.set_num_threads(1)
+
+NC = 8
+COORDS = ["xyz", "cyl"]
+
+
+def make_tree(cls, coord):
+    """Level 1 16x16 cells on [0, 1]^2 (cylindrical: r from 0.5), refined
+    twice where the box corner is below 0.45."""
+    t = cls(2, NC, [1.0, 1.0], [16, 16], coord=coord,
+            r_min=[0.5, 0.0] if coord == "cyl" else None)
+
+    def flags(ids):
+        out = np.full([len(ids), NC, NC], KEEP_REF, np.int64)
+        for n, b in enumerate(ids):
+            r0 = t.box_r_min(np.asarray([int(b)]))[0] - t.r_base
+            if np.all(r0 < 0.45) and t.lvl[int(b)] == t.highest_lvl:
+                out[n] = DO_REF
+        return out
+
+    t.adjust_refinement(flags, ref_buffer=1)
+    t.adjust_refinement(flags, ref_buffer=1)
+    return t
+
+
+def trees(coord):
+    return make_tree(Tree, coord), make_tree(TTree, coord)
+
+
+def random_cc(t, n_var=3, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n_var, t.highest_id, (NC + 2) ** 2)) + 2.0
+
+
+def bc(mod):
+    def fn(iv, d, coords, params):
+        if d == 3:
+            return mod.BC_DIRICHLET, 0.7
+        if d == 2:
+            return mod.BC_DIRICHLET_COPY, -0.3
+        return mod.BC_NEUMANN, 0.25
+    return fn
+
+
+@pytest.mark.parametrize("coord", COORDS)
+def test_tree_tables_equal(coord):
+    tj, tt = trees(coord)
+    assert tj.highest_lvl == tt.highest_lvl == 3
+    for name in ("lvl", "ix", "parent", "children", "neighbors", "in_use"):
+        np.testing.assert_array_equal(getattr(tt, name)[:tt.highest_id],
+                                      getattr(tj, name)[:tj.highest_id])
+    for name in ("lvl_ids", "lvl_leaves", "lvl_parents"):
+        for a, b in zip(getattr(tt, name), getattr(tj, name)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("coord", COORDS)
+@pytest.mark.parametrize("rb", [gc.RB_MG, gc.RB_INTERP, gc.RB_INTERP_LIM])
+def test_ghost_fill_matches(coord, rb):
+    tj, tt = trees(coord)
+    cc = random_cc(tj, seed=1)
+    mesh = MeshPlans(tt, "cpu")
+    want = cc.copy()
+    got = torch.as_tensor(cc.copy())
+    for lvl in range(1, tj.highest_lvl + 1):
+        want = gc.fill_ghosts_lvl(want, gc.get_gc_plan(tj, lvl), [0, 2], rb,
+                                  bc(gc), {})
+        tgc.fill_ghosts_lvl(got, mesh.gc(lvl), [0, 2], rb, bc(tgc), {})
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("coord", COORDS)
+@pytest.mark.parametrize("geometry", [True, False])
+def test_restriction_matches(coord, geometry):
+    tj, tt = trees(coord)
+    cc = random_cc(tj, seed=2)
+    want = pr.restrict_tree(cc.copy(), tj, [0, 1], use_geometry=geometry)
+    got = tpr.restrict_tree(torch.as_tensor(cc.copy()),
+                            MeshPlans(tt, "cpu").pr_all(), [0, 1],
+                            use_geometry=geometry)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("coord", COORDS)
+def test_prolongation_of_correction_matches(coord):
+    """Host: phi(children) += prolong_linear(tmp(parents)); port: the same
+    on the level block arrays (mg_blocks.prolong_add_correction)."""
+    tj, tt = trees(coord)
+    cc = random_cc(tj, seed=3)
+    mesh = MeshPlans(tt, "cpu")
+    C = NC + 2
+    for lvl in range(2, tj.highest_lvl + 1):
+        want = pr.prolong(cc.copy(), pr.get_full_plan(tj, lvl), [1],
+                          "linear", add=True, ivs_to=[0])
+        bp = mgb.LevelBlockPlan(mesh, lvl)
+        ct = torch.as_tensor(cc)
+        ids_f = mesh.tb(lvl).d.ids
+        ids_c = mesh.tb(lvl - 1).d.ids
+        P_f = ct[0, ids_f].reshape(-1, C, C)
+        corr = ct[1, ids_c].reshape(-1, C, C)
+        got = mgb.prolong_add_correction(P_f, corr, bp, NC)
+        np.testing.assert_allclose(
+            got.reshape(len(ids_f), -1).numpy(),
+            want[0, mesh.tb(lvl).ids], rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("coord", COORDS)
+def test_gc2_extend_matches(coord):
+    tj, tt = trees(coord)
+    cc = random_cc(tj, seed=4)
+    want_cc = cc.copy()
+    got_cc = torch.as_tensor(cc.copy())
+    for lvl in range(1, tj.highest_lvl + 1):
+        if len(tj.lvl_leaves[lvl - 1]) == 0:
+            continue
+        E_w, want_cc = jfl.gc2_extend(want_cc, jfl.get_gc2_plan(tj, lvl),
+                                      [0, 2], bc(gc), {}, LIMITER_MC)
+        E_g, got_cc = tfl.gc2_extend(got_cc, tfl.Gc2LevelPlan(tt, lvl, "cpu"),
+                                     [0, 2], bc(tgc), {}, LIMITER_MC)
+        np.testing.assert_allclose(E_g.numpy(), E_w, rtol=1e-13, atol=1e-13)
+    np.testing.assert_allclose(got_cc.numpy(), want_cc, rtol=1e-13,
+                               atol=1e-13)
+
+
+@pytest.mark.parametrize("coord", COORDS)
+def test_consistent_fluxes_match(coord):
+    tj, tt = trees(coord)
+    rng = np.random.default_rng(5)
+    fc = rng.standard_normal((2, 2, tj.highest_id, (NC + 1) ** 2))
+    fm = jfl.FluidModel.__new__(jfl.FluidModel)
+    fm.tree, fm._pack_tls = tj, threading.local()
+    want = fm.consistent_fluxes(fc.copy(), [0, 1])
+    groups = tfl.build_consistent_plan(tt, "cpu")
+    assert groups, "the mesh must have coarse-fine faces"
+    got = tfl.consistent_fluxes(torch.as_tensor(fc.copy()), groups, [0, 1])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)

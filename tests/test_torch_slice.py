@@ -1,0 +1,148 @@
+"""The slice end to end: the committed config
+(afivo_streamer_tpu_torch/data/air_cyl_slice.cfg) at -refine_max_dx=5e-4,
+a uniform 32 x 32-cell cylindrical mesh, in the JAX package (host NumPy
+path) and in the port (CPU, plain smoother kernels), float64.
+
+Tolerance rtol 1e-8 on every cc variable, with an absolute floor of 1e-8
+times the variable's largest magnitude (the FAS rhs of parent boxes is a
+difference of large terms), on dt and on the _rtest.log rows.
+The 5-step run also covers Cartesian coordinates, a mobile ion, the
+Dirichlet species boundary with RK4, and an 8-species reaction list.
+Measured worst deviations on the CPU, relative to each variable's
+largest magnitude: 5 steps 1.0e-15 (Cartesian 6.3e-16, mobile ion
+6.3e-16, Dirichlet/RK4 7.9e-16, reaction list 5.2e-16; dt and the rtest
+rows identical); the Heun substep pair from the JAX state 7.9e-16; one
+field solve 8.7e-16.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from afivo_streamer_tpu.driver import Simulation as JSim
+from afivo_streamer_tpu_torch.driver import Simulation as TSim
+from afivo_streamer_tpu_torch import interop
+from test_torch_physics import REACTIONS
+
+torch.set_num_threads(1)
+
+DATA = Path(__file__).resolve().parent.parent / "afivo_streamer_tpu_torch" / "data"
+RTOL = 1e-8
+
+
+def argv(out):
+    return [str(DATA / "air_cyl_slice.cfg"), "-ndim=2", "-refine_max_dx=5e-4",
+            f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
+            "-output%dt=5e-14", f"-output%name={out}"]
+
+
+def assert_state_close(jcc, tcc, skip=()):
+    """Every cc variable (except ``skip``) of the real boxes, rtol RTOL
+    with an absolute floor of RTOL times the variable's scale; returns
+    the worst scaled deviation."""
+    n = jcc.shape[1]
+    worst = 0.0
+    for iv in range(jcc.shape[0]):
+        if iv in skip:
+            continue
+        a, b = jcc[iv], tcc[iv, :n]
+        scale = float(np.max(np.abs(a)))
+        np.testing.assert_allclose(b, a, rtol=RTOL, atol=RTOL * scale,
+                                   err_msg=f"cc variable {iv}")
+        if scale > 0:
+            worst = max(worst, float(np.max(np.abs(b - a))) / scale)
+    return worst
+
+
+@pytest.fixture(scope="module")
+def jax_after_two_steps(tmp_path_factory):
+    sim = JSim(argv=argv(tmp_path_factory.mktemp("j") / "run"))
+    sim.run(max_steps=2)
+    return sim
+
+
+def port_from(jsim, tmp_path):
+    sim = TSim(argv=argv(tmp_path / "t") + ["-device=cpu"])
+    interop.state_from_numpy(sim, jsim.cc, jsim.fc,
+                             interop.tree_arrays(jsim.tree), it=jsim.it,
+                             global_time=jsim.global_time,
+                             global_dt=jsim.global_dt)
+    return sim
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["-cylindrical=f"],
+    ["-input_data%mobile_ions=M_plus", "-input_data%ion_mobilities=2.2e-4"],
+    ["-species_boundary_condition=dirichlet_zero", "-time_integrator=rk4"],
+], ids=["cyl", "xyz", "cyl-mobile-ions", "cyl-dirichlet-rk4"])
+def test_slice_five_steps_matches_jax(tmp_path, extra):
+    five_steps_both(tmp_path, extra)
+
+
+def test_slice_reaction_list_matches_jax(tmp_path):
+    """The slice with the 8-species reaction list of
+    tests/test_torch_physics.py appended to the table."""
+    td = tmp_path / "td_with_reactions.txt"
+    td.write_text((DATA / "td_air_synthetic.txt").read_text() + REACTIONS)
+    five_steps_both(tmp_path, [f"-input_data%file={td}"])
+
+
+def five_steps_both(tmp_path, extra):
+    j = JSim(argv=argv(tmp_path / "j") + extra)
+    t = TSim(argv=argv(tmp_path / "t") + extra + ["-device=cpu"])
+    real = j.tree.highest_id
+    assert t.tree.highest_id == real == 20
+    assert_state_close(j.cc[:, :real], t.cc.numpy(), skip={j.i_tmp})
+    j.run(max_steps=5)
+    t.run(max_steps=5)
+    assert t.global_dt == pytest.approx(j.global_dt, rel=RTOL)
+    assert t.global_time == pytest.approx(j.global_time, rel=RTOL)
+    assert_state_close(j.cc[:, :real], t.cc.numpy(), skip={j.i_tmp})
+    rows_j = np.loadtxt(tmp_path / "j_rtest.log", skiprows=1)
+    rows_t = np.loadtxt(tmp_path / "t_rtest.log", skiprows=1)
+    assert rows_j.shape == rows_t.shape and rows_j.shape[0] >= 3
+    np.testing.assert_allclose(rows_t, rows_j, rtol=RTOL, atol=0.0)
+
+
+def test_heun_substeps_from_jax_state(jax_after_two_steps, tmp_path):
+    """Both substeps of a Heun step (the second includes a field solve),
+    started through interop from the JAX package's state."""
+    j = jax_after_two_steps
+    t = port_from(j, tmp_path)
+    np.testing.assert_array_equal(interop.state_to_numpy(t)["cc"][:, :20],
+                                  j.cc[:, :20])
+    dt, time = 1e-13, j.global_time
+    params = {"voltage": j.field.current_voltage}
+    jcc, jfc = j.cc.copy(), j.fc.copy()
+    tcc, tfc = t.cc, t.fc
+    for args in ((0, [0], [1.0], 1, 1), (1, [0, 1], [0.5, 0.5], 0, 2)):
+        s_deriv, s_prev, w_prev, s_out, i_step = args
+        step_time = time + (dt if i_step == 2 else 0.0)
+        step_dt = dt if i_step == 1 else 0.5 * dt
+        jcc, jfc, jlim, _ = j.fluid.forward_euler(
+            jcc, jfc, step_dt, None, step_time, s_deriv, s_prev, w_prev,
+            s_out, i_step, 2, params)
+        tcc, tfc, tlim, _ = t.fluid.forward_euler(
+            tcc, tfc, step_dt, None, step_time, s_deriv, s_prev, w_prev,
+            s_out, i_step, 2, params)
+        assert float(tlim) == pytest.approx(float(jlim), rel=RTOL)
+        assert_state_close(jcc[:, :20], tcc.numpy(), skip={j.i_tmp})
+        np.testing.assert_allclose(tfc.numpy()[:, :, :20], jfc[:, :, :20],
+                                   rtol=RTOL,
+                                   atol=RTOL * float(np.abs(jfc).max()))
+
+
+def test_field_solve_from_jax_state(jax_after_two_steps, tmp_path):
+    j = jax_after_two_steps
+    t = port_from(j, tmp_path)
+    jcc, jfc = j.field.compute(j.cc.copy(), j.fc.copy(), 0, j.global_time,
+                               True)
+    tcc, tfc = t.field.compute(t.cc, t.fc, 0, t.global_time, True)
+    assert_state_close(jcc[:, :20], tcc.numpy(), skip={j.i_tmp})
+    f = j.fc_E
+    np.testing.assert_allclose(tfc.numpy()[f, :, :20], jfc[f, :, :20],
+                               rtol=RTOL,
+                               atol=RTOL * float(np.abs(jfc[f]).max()))
