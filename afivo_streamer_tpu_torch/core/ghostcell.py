@@ -1,7 +1,7 @@
 """Ghost-cell filling as batched gather/compute/scatter over the box batch.
 
-Re-designs the reference's ``afivo/src/m_af_ghostcell.f90`` (2D): each
-(level, direction, case) group of box faces is one batched gather +
+Re-designs the reference's ``afivo/src/m_af_ghostcell.f90`` (2D and 3D):
+each (level, direction, case) group of box faces is one batched gather +
 arithmetic + scatter, with the index tables ("plans") built on the host
 once per mesh and copied to the device.
 
@@ -14,12 +14,14 @@ Cases per face (af_gc_box, ``m_af_ghostcell.f90:66-123``):
 * physical boundary: bc_to_gc with Dirichlet / Neumann / continuous /
   Dirichlet-copy coefficients (``:173-279``).
 
-Corner ghost cells are filled in a second phase (af_gc_box_corner
-``:125-170``), copying from diagonal neighbors or extrapolating linearly.
+Edge (3D) and corner ghost cells are filled in a second phase
+(af_gc_box_corner ``:125-170``), copying from diagonal neighbors or
+extrapolating linearly.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import List
 
 import numpy as np
@@ -52,27 +54,35 @@ class _DirPlan:
         self.rb_ids = np.zeros(0, np.int32)
         self.rb_coarse = np.zeros(0, np.int32)
         self.rb_parent = np.zeros(0, np.int32)
-        self.rb_c1 = None   # [n_rb, F] coarse-neighbor cell per ghost cell
-        self.rb_c2 = None   # [n_rb, F]
-        self.rb_tmp = None  # [n_rb, nc/2+2] coarse strip for mg_sides_rb
+        # coarse-neighbor cell per ghost cell [n_rb, F]: the nearest (c1),
+        # then the next one across each transverse dim (c2; c3 in 3D)
+        self.rb_c = []
+        self.rb_tmp = None  # [n_rb, (nc/2+2)^(ndim-1)] mg_sides_rb strip
 
 
 class GcLevelPlan:
-    """All index tables to fill one ghost layer on one level (2D)."""
+    """All index tables to fill one ghost layer on one level."""
 
     def __init__(self, tree: Tree, lvl: int, device):
         ndim, nc = tree.ndim, tree.nc
-        if ndim != 2:
-            raise NotImplementedError("core/ghostcell.py: ndim != 2")
+        if ndim not in (2, 3):
+            raise NotImplementedError(f"core/ghostcell.py: ndim={ndim}")
         self.ndim, self.nc, self.lvl = ndim, nc, lvl
         self.dr = tree.lvl_dr(lvl)
         ids = tree.lvl_ids[lvl - 1]
         self.dirs: List[_DirPlan] = []
         hnc = nc // 2
+        # fine transverse cells 1..nc of a face, one column per transverse
+        # dim, in their natural (C) order
+        jt = np.stack([m.ravel() for m in np.meshgrid(
+            *[np.arange(1, nc + 1)] * (ndim - 1), indexing="ij")], -1)
+        # coarse strip cells 0..hnc+1 (incl. the coarse box's side ghosts)
+        st = np.stack([m.ravel() for m in np.meshgrid(
+            *[np.arange(0, hnc + 2)] * (ndim - 1), indexing="ij")], -1)
 
         for d in range(2 * ndim):
             dim, low = neighb_dim(d), neighb_low(d)
-            td = 1 - dim
+            tdims = [k for k in range(ndim) if k != dim]
             p = _DirPlan()
             g_idx = 0 if low else nc + 1          # ghost layer index
             f1_idx = 1 if low else nc             # first interior
@@ -120,62 +130,135 @@ class GcLevelPlan:
 
             # refinement-boundary gather tables
             if len(rb_ids):
-                n_rb = len(rb_ids)
                 p.rb_parent = tree.parent[p.rb_ids].astype(np.int32)
                 p.rb_coarse = tree.neighbors[p.rb_parent, d].astype(np.int32)
-                c1 = np.zeros((n_rb, nc), np.int32)
-                c2 = np.zeros((n_rb, nc), np.int32)
-                tmp = np.zeros((n_rb, hnc + 2), np.int32)
-                j = np.arange(1, nc + 1)
 
-                def at(normal, trans):
-                    v = np.zeros((len(trans), 2), np.int64)
-                    v[:, dim] = normal
-                    v[:, td] = trans
-                    return sp.cc_flat_nd(2, nc, v)
-                for n_i, bid in enumerate(p.rb_ids):
-                    off = tree.child_offset(int(bid))  # [ndim], 0 or nc/2
-                    j_c1 = off[td] + (j + 1) // 2
-                    j_c2 = j_c1 + 1 - 2 * (j & 1)
-                    c1[n_i] = at(cge_idx, j_c1)
-                    c2[n_i] = at(cge_idx, j_c2)
-                    # mg strip: coarse cells off+0 .. off+hnc+1 (incl. the
-                    # coarse box's own side ghosts)
-                    tmp[n_i] = at(cge_idx, off[td] + np.arange(0, hnc + 2))
-                p.rb_c1, p.rb_c2, p.rb_tmp = c1, c2, tmp
+                def at(trans):
+                    v = np.zeros((len(trans), ndim), np.int64)
+                    v[:, dim] = cge_idx
+                    v[:, tdims] = trans
+                    return sp.cc_flat_nd(ndim, nc, v)
+                rb_c = [[] for _ in range(ndim)]
+                tmp = []
+                for bid in p.rb_ids:
+                    off = tree.child_offset(int(bid))[tdims]  # 0 or nc/2
+                    j_c1 = off + (jt + 1) // 2
+                    j_c2 = j_c1 + 1 - 2 * (jt & 1)
+                    rb_c[0].append(at(j_c1))
+                    for t in range(ndim - 1):
+                        j = j_c1.copy()
+                        j[:, t] = j_c2[:, t]
+                        rb_c[1 + t].append(at(j))
+                    tmp.append(at(off + st))
+                p.rb_c = [np.asarray(c, np.int32) for c in rb_c]
+                p.rb_tmp = np.asarray(tmp, np.int32)
             p.d = sp.device_copy(p, device)
             self.dirs.append(p)
 
-        # ------------------------------------------------ corner plans
-        self.corner_plans = []
+        # ------------------------------------------- edge and corner groups
+        # 3D edges, then corners: copy from the diagonal neighbor where it
+        # exists, else extrapolate (af_gc_box_corner)
+        self.corner_groups = []
+        if ndim == 3:
+            for dim_e in range(3):
+                odims = [k for k in range(3) if k != dim_e]
+                for bits in itertools.product([0, 1], repeat=2):
+                    pos = np.full((nc, 3), 0, np.int64)
+                    pos[:, dim_e] = np.arange(1, nc + 1)
+                    di = np.zeros(3, np.int64)
+                    for b, k in zip(bits, odims):
+                        pos[:, k] = nc + 1 if b else 0
+                        di[k] = -1 if b else 1
+                    ea, eb = pos.copy(), pos.copy()
+                    ea[:, odims[0]] += di[odims[0]]
+                    eb[:, odims[1]] += di[odims[1]]
+                    self.corner_groups.append(self._group(
+                        tree, ids, pos, -di, [ea, eb, pos + di]))
         for pos, di in sp.corner_list(ndim, nc):
-            copy_ids, copy_nb, ext_ids = [], [], []
-            for bid in ids:
-                # di is inward; the diagonal neighbor offset is -di
-                nb = tree.neighbor_mat(int(bid), -di)
-                if nb >= 0:
-                    copy_ids.append(int(bid))
-                    copy_nb.append(int(nb))
-                else:
-                    ext_ids.append(int(bid))
-            # ghost position maps to the neighbor interior: 0 -> nc, nc+1 -> 1
-            nb_pos = np.where(pos == 0, nc, np.where(pos == nc + 1, 1, pos))
-            a = pos.copy()
-            a[0] += di[0]
-            b = pos.copy()
-            b[1] += di[1]
-            plan = {
-                "pos": int(sp.cc_flat_nd(ndim, nc, pos)),
-                "nb_pos": int(sp.cc_flat_nd(ndim, nc, nb_pos)),
-                "ext_a": int(sp.cc_flat_nd(2, nc, a)),
-                "ext_b": int(sp.cc_flat_nd(2, nc, b)),
-                "ext_c": int(sp.cc_flat_nd(2, nc, pos + di)),
-                "copy_ids": np.asarray(copy_ids, np.int32),
-                "copy_nb": np.asarray(copy_nb, np.int32),
-                "ext_ids": np.asarray(ext_ids, np.int32),
-            }
-            plan["d"] = sp.device_copy(plan, device)
-            self.corner_plans.append(plan)
+            pos = pos[None, :]
+            if ndim == 2:
+                a, b = pos.copy(), pos.copy()
+                a[:, 0] += di[0]
+                b[:, 1] += di[1]
+                ext = [a, b, pos + di]
+            else:
+                # a + b + c - 2 d: the three edge-adjacent face cells and
+                # the diagonal interior cell
+                ext = []
+                for k in range(3):
+                    e = pos + di
+                    e[:, k] = pos[:, k]
+                    ext.append(e)
+                ext.append(pos + di)
+            self.corner_groups.append(self._group(tree, ids, pos, -di, ext))
+        self.corner_flat = corner_tables(self, np.arange(tree.highest_id),
+                                         (nc + 2) ** ndim, device)
+
+    def _group(self, tree, ids, pos, nb_off, ext):
+        """Edge or corner group: ghost cells ``pos`` [F, ndim] of every box,
+        the same-level neighbor at offset ``nb_off`` and the extrapolation
+        cells ``ext`` (a, b, c[, d])."""
+        nc, ndim = self.nc, self.ndim
+        copy_ids, copy_nb, ext_ids = [], [], []
+        for bid in ids:
+            nb = tree.neighbor_mat(int(bid), nb_off)
+            if nb >= 0:
+                copy_ids.append(int(bid))
+                copy_nb.append(int(nb))
+            else:
+                ext_ids.append(int(bid))
+        # a ghost position maps to the neighbor's interior: 0 -> nc,
+        # nc+1 -> 1
+        nb_pos = np.where(pos == 0, nc, np.where(pos == nc + 1, 1, pos))
+        plan = {"pos": sp.cc_flat_nd(ndim, nc, pos),
+                "nb_pos": sp.cc_flat_nd(ndim, nc, nb_pos),
+                "ext": [sp.cc_flat_nd(ndim, nc, e) for e in ext],
+                "copy_ids": np.asarray(copy_ids, np.int64),
+                "copy_nb": np.asarray(copy_nb, np.int64),
+                "ext_ids": np.asarray(ext_ids, np.int64)}
+        return plan
+
+
+def corner_tables(plan: GcLevelPlan, rows, S: int, device):
+    """The edge and corner groups of ``plan`` as flat indices into rows of
+    S cells, box b at row ``rows[b]``: the copies (target, source), the
+    three-term extrapolations a + b - c (edges, 2D corners) and the
+    four-term ones a + b + c - 2 d (3D corners), as (target, [sources]).
+    No group reads a cell that another group writes, so all of a level's
+    groups are filled at once."""
+    copy_t, copy_s = [], []
+    ext = {3: ([], [[] for _ in range(3)]), 4: ([], [[] for _ in range(4)])}
+    for pl in plan.corner_groups:
+        if len(pl["copy_ids"]):
+            copy_t.append(rows[pl["copy_ids"]][:, None] * S + pl["pos"])
+            copy_s.append(rows[pl["copy_nb"]][:, None] * S + pl["nb_pos"])
+        if len(pl["ext_ids"]):
+            r = rows[pl["ext_ids"]][:, None] * S
+            tgt, srcs = ext[len(pl["ext"])]
+            tgt.append(r + pl["pos"])
+            for lst, e in zip(srcs, pl["ext"]):
+                lst.append(r + e)
+
+    def flat(parts):
+        return torch.as_tensor(
+            np.concatenate([a.ravel() for a in parts]) if parts
+            else np.zeros(0, np.int64), dtype=torch.int64, device=device)
+    return {"copy": (flat(copy_t), flat(copy_s)),
+            "ext": [(flat(tgt), [flat(x) for x in srcs])
+                    for tgt, srcs in ext.values() if tgt]}
+
+
+def corner_fill_flat(flat, tables):
+    """Fill the edge and corner ghosts of a flat view of rows (in place)
+    from ``corner_tables``: the copies, then the extrapolations."""
+    tgt, src = tables["copy"]
+    if len(tgt):
+        flat[tgt] = flat[src]
+    for tgt, srcs in tables["ext"]:
+        e = [flat[x] for x in srcs]
+        flat[tgt] = (e[0] + e[1] - e[2] if len(e) == 3
+                     else e[0] + e[1] + e[2] - 2.0 * e[3])
+    return flat
 
 
 def bc_to_ghost(bc_type: int, bc_val, inner1, inner2, dr_dim: float,
@@ -207,15 +290,26 @@ def _scat(cc, iv: int, ids, sidx, vals):
         cc[iv, ids[:, None], sidx] = vals
 
 
-def mg_rb_interp(tmp, nc: int):
+def mg_rb_interp(tmp, ndim: int, nc: int):
     """Interpolate the coarse strip next to a fine box to positions straight
     next to the fine cells (mg_sides_rb, ``m_af_multigrid.f90:361-388``).
-    tmp: [n, nc/2+2]; returns [n, nc]."""
+    tmp: [n, (nc/2+2)^(ndim-1)]; returns [n, nc^(ndim-1)]."""
     hnc = nc // 2
-    center = tmp[:, 1:hnc + 1]
-    grad = 0.125 * (tmp[:, 2:hnc + 2] - tmp[:, 0:hnc])
-    return torch.stack([center - grad, center + grad], dim=-1).reshape(
-        tmp.shape[0], nc)
+    n = tmp.shape[0]
+    if ndim == 2:
+        center = tmp[:, 1:hnc + 1]
+        grad = 0.125 * (tmp[:, 2:hnc + 2] - tmp[:, 0:hnc])
+        return torch.stack([center - grad, center + grad], dim=-1).reshape(
+            n, nc)
+    t = tmp.reshape(n, hnc + 2, hnc + 2)
+    c = t[:, 1:hnc + 1, 1:hnc + 1]
+    g1 = 0.125 * (t[:, 2:hnc + 2, 1:hnc + 1] - t[:, 0:hnc, 1:hnc + 1])
+    g2 = 0.125 * (t[:, 1:hnc + 1, 2:hnc + 2] - t[:, 1:hnc + 1, 0:hnc])
+    # fine (2i-1, 2j-1), (2i-1, 2j), (2i, 2j-1), (2i, 2j)
+    gc = torch.stack([torch.stack([c - g1 - g2, c - g1 + g2], dim=-1),
+                      torch.stack([c + g1 - g2, c + g1 + g2], dim=-1)],
+                     dim=-2)  # [n, hnc, hnc, 2 (i), 2 (j)]
+    return gc.permute(0, 1, 3, 2, 4).reshape(n, nc * nc)
 
 
 def fill_ghosts_lvl(cc, plan: GcLevelPlan, ivs, rb_method: str, bc_fn,
@@ -243,15 +337,18 @@ def fill_ghosts_lvl(cc, plan: GcLevelPlan, ivs, rb_method: str, bc_fn,
             if len(p.rb_ids):
                 fine1 = _gat(cc, iv, t.rb_ids, t.f1_sidx)
                 if rb_method in (RB_INTERP, RB_INTERP_LIM):
-                    c1 = _gat(cc, iv, t.rb_coarse, t.rb_c1)
-                    c2 = _gat(cc, iv, t.rb_coarse, t.rb_c2)
-                    ghost = 0.5 * c1 + c2 / 6.0 + fine1 / 3.0
+                    c1, c2 = (_gat(cc, iv, t.rb_coarse, c) for c in t.rb_c[:2])
+                    if plan.ndim == 2:
+                        ghost = 0.5 * c1 + c2 / 6.0 + fine1 / 3.0
+                    else:
+                        c3 = _gat(cc, iv, t.rb_coarse, t.rb_c[2])
+                        ghost = (c1 + fine1) / 3.0 + (c2 + c3) / 6.0
                     if rb_method == RB_INTERP_LIM:
                         ghost = torch.minimum(ghost, 2.0 * c1)
                 elif rb_method == RB_MG:
                     fine2 = _gat(cc, iv, t.rb_ids, t.f2_sidx)
                     gc = mg_rb_interp(_gat(cc, iv, t.rb_coarse, t.rb_tmp),
-                                      plan.nc)
+                                      plan.ndim, plan.nc)
                     ghost = 0.5 * gc + 0.75 * fine1 - 0.25 * fine2
                 else:
                     raise NotImplementedError(
@@ -263,18 +360,10 @@ def fill_ghosts_lvl(cc, plan: GcLevelPlan, ivs, rb_method: str, bc_fn,
 
 
 def fill_corners_lvl(cc, plan: GcLevelPlan, ivs):
-    """Corner ghost cells (af_gc_box_corner, ``m_af_ghostcell.f90:125-170``):
-    copy from the diagonal neighbor when present, else the linear
-    extrapolation a + b - c."""
-    for pl in plan.corner_plans:
-        t = pl["d"]
-        for iv in ivs:
-            iv = int(iv)
-            if len(pl["copy_ids"]):
-                cc[iv, t.copy_ids, pl["pos"]] = cc[iv, t.copy_nb, pl["nb_pos"]]
-            if len(pl["ext_ids"]):
-                e = t.ext_ids
-                cc[iv, e, pl["pos"]] = (cc[iv, e, pl["ext_a"]]
-                                        + cc[iv, e, pl["ext_b"]]
-                                        - cc[iv, e, pl["ext_c"]])
+    """Edge (3D) and corner ghost cells (af_gc_box_corner,
+    ``m_af_ghostcell.f90:125-170``): copy from the diagonal neighbor when
+    present, else the linear extrapolation a + b - c (an edge or a 2D
+    corner) or a + b + c - 2 d (a 3D corner)."""
+    for iv in ivs:
+        corner_fill_flat(cc[int(iv)].view(-1), plan.corner_flat)
     return cc

@@ -2,9 +2,9 @@
 
 Re-designs the reference's ``afivo/src/m_af_restrict.f90`` and the linear
 prolongation stencil of ``m_af_prolong.f90`` (af_prolong_linear
-``:531-679``): (parent, child) pairs are grouped by the child's parity (its
-position inside the parent), so each group is one batched gather +
-arithmetic + scatter with static spatial index tables.
+``:531-679``): all (parent, child) pairs of a level are one batched gather
++ arithmetic + scatter, each child's target cells in its parent picked by
+its parity (its position inside the parent).
 
 Restriction is 2^ndim-cell averaging, optionally cylindrical-volume-weighted
 (af_restrict_box, ``m_af_restrict.f90:62-136``).
@@ -19,12 +19,27 @@ import numpy as np
 
 from . import spatial as sp
 from .tree import Tree
+from ..ops.limiters import LIMITER_MC, LIMITER_GMINMOD43
+
+
+def default_prolong_limiter(ndim: int) -> int:
+    """Default limiter for prolongation (af_set_cc_methods,
+    ``m_af_core.f90:399-408``): MC for ndim < 3, gminmod43 in 3D."""
+    return LIMITER_MC if ndim < 3 else LIMITER_GMINMOD43
+
+
+def _coarse_cells(ndim: int, nc: int) -> np.ndarray:
+    """The cells 1..nc/2 of a parent's quadrant/octant: [Cc, ndim]."""
+    ic = np.arange(1, nc // 2 + 1)
+    mesh = np.meshgrid(*([ic] * ndim), indexing="ij")
+    return np.stack([m.ravel() for m in mesh], axis=-1)
 
 
 class ParityTables:
-    """Static index tables for one child parity."""
+    """The linear prolongation stencil for the fine cells of a child of one
+    parity."""
 
-    def __init__(self, ndim: int, nc: int, parity: Tuple[int, ...], device):
+    def __init__(self, ndim: int, nc: int, parity: Tuple[int, ...]):
         self.parity = tuple(parity)
         hnc = nc // 2
         i = np.arange(1, nc + 1)  # fine interior (1-based)
@@ -47,89 +62,69 @@ class ParityTables:
                 else:
                     w *= 0.75
             self.corners.append((w, sp.cc_flat_nd(ndim, nc, v)))
-        # restriction: parent target cells and child sources
-        ic = np.arange(1, hnc + 1)
-        meshc = np.meshgrid(*([ic] * ndim), indexing="ij")
-        coarse_nd = np.stack([m.ravel() for m in meshc], axis=-1)  # [Cc, ndim]
-        self.restrict_tgt = sp.cc_flat_nd(ndim, nc,
-                                          coarse_nd + np.asarray(parity) * hnc)
-        self.restrict_src = []
-        for bits in itertools.product([0, 1], repeat=ndim):
-            src = 2 * coarse_nd - 1 + np.asarray(bits)
-            self.restrict_src.append(sp.cc_flat_nd(ndim, nc, src))
-        self.coarse_nd = coarse_nd  # local 1..hnc (before parity shift)
-        self.d = sp.device_copy(self, device)
-        self.d.corners = [(w, sp.device_copy({"s": s}, device).s)
-                          for w, s in self.corners]
 
 
 _tables_cache: Dict = {}
 
 
-def parity_tables(ndim: int, nc: int, parity, device) -> ParityTables:
-    key = (ndim, nc, tuple(parity), str(device))
+def parity_tables(ndim: int, nc: int, parity) -> ParityTables:
+    key = (ndim, nc, tuple(parity))
     if key not in _tables_cache:
-        _tables_cache[key] = ParityTables(ndim, nc, tuple(parity), device)
+        _tables_cache[key] = ParityTables(ndim, nc, tuple(parity))
     return _tables_cache[key]
 
 
 class ProlongRestrictPlan:
-    """Pairs (parent, child) grouped by parity, for all children of a
-    level: groups of (tables, parent_ids, child_ids, cyl_w)."""
+    """The (parent, child) pairs of a set of children: the children ``ch``,
+    their parents ``par``, each child's coarse target cells in its parent
+    ``tgt`` [m, Cc] (flat, by the child's parity), the fine source cells of
+    every coarse cell ``src`` (one table per child bit combination) and the
+    cylindrical restriction weights ``cyl_w`` [m, Cc, 2]."""
 
     def __init__(self, tree: Tree, child_ids, device):
         ndim, nc = tree.ndim, tree.nc
         self.ndim, self.nc = ndim, nc
         self.coord = tree.coord
-        self.groups = []
-        child_ids = np.asarray(child_ids, dtype=np.int64)
-        parities = tree.ix[child_ids] % 2
-        for parity in itertools.product([0, 1], repeat=ndim):
-            mask = np.all(parities == np.asarray(parity), axis=1)
-            ch = child_ids[mask]
-            if len(ch) == 0:
-                continue
-            par = tree.parent[ch]
-            tb = parity_tables(ndim, nc, parity, device)
-            cyl_w = None
-            if tree.coord == "cyl":
-                # cylindrical child weights for restriction
-                # (af_cyl_child_weights, m_af_types.f90:1186-1197): per parent
-                # target cell, w_inner/w_outer = 1 -/+ dr/(4 r_c)
-                hnc = nc // 2
-                r0 = tree.box_r_min(par)[:, 0]  # parent r_min
-                drp = (tree.dr_base[0] /
-                       2.0 ** (tree.lvl[par].astype(np.float64) - 1))
-                i_c = (tb.coarse_nd[:, 0] + parity[0] * hnc)  # 1-based
-                r_c = r0[:, None] + (i_c[None, :] - 0.5) * drp[:, None]
-                tmp = 0.25 * drp[:, None] / r_c
-                cyl_w = np.stack([1.0 - tmp, 1.0 + tmp], axis=-1)  # [n,Cc,2]
-            g = sp.device_copy({"par": par, "ch": ch, "cyl_w": cyl_w}, device)
-            self.groups.append((tb, par.astype(np.int32), ch.astype(np.int32),
-                                cyl_w, g))
+        hnc = nc // 2
+        self.ch = np.asarray(child_ids, dtype=np.int64)
+        self.par = tree.parent[self.ch].astype(np.int64)
+        coarse_nd = _coarse_cells(ndim, nc)
+        # fine cells of each coarse cell: child bits over dims
+        self.src = [sp.cc_flat_nd(ndim, nc, 2 * coarse_nd - 1 + np.asarray(b))
+                    for b in itertools.product([0, 1], repeat=ndim)]
+        tgt_nd = coarse_nd[None] + (tree.ix[self.ch] % 2)[:, None, :] * hnc
+        self.tgt = sp.cc_flat_nd(ndim, nc, tgt_nd)
+        self.cyl_w = None
+        if tree.coord == "cyl":
+            # cylindrical child weights for restriction
+            # (af_cyl_child_weights, m_af_types.f90:1186-1197): per parent
+            # target cell, w_inner/w_outer = 1 -/+ dr/(4 r_c)
+            r0 = tree.box_r_min(self.par)[:, 0]  # parent r_min
+            drp = (tree.dr_base[0] /
+                   2.0 ** (tree.lvl[self.par].astype(np.float64) - 1))
+            r_c = r0[:, None] + (tgt_nd[..., 0] - 0.5) * drp[:, None]
+            tmp = 0.25 * drp[:, None] / r_c
+            self.cyl_w = np.stack([1.0 - tmp, 1.0 + tmp], axis=-1)
+        self.d = sp.device_copy(self, device)
 
 
 def restrict(cc, plan: ProlongRestrictPlan, ivs, use_geometry: bool = True):
     """Restrict child interiors into parents (af_restrict_box), in place."""
-    ndim = plan.ndim
-    for tb, _par, _ch, cyl_w, g in plan.groups:
-        for iv in ivs:
-            iv = int(iv)
-            srcs = [cc[iv, g.ch[:, None], s[None, :]]
-                    for s in tb.d.restrict_src]
-            acc = 0.0
-            if plan.coord == "cyl" and use_geometry:
-                # source order: bits over dims; the dim-0 (r) bit selects
-                # the inner (0) or outer (1) fine column
-                w = g.cyl_w.to(cc.dtype)
-                for bits, s in zip(itertools.product([0, 1], repeat=ndim),
-                                   srcs):
-                    acc = acc + w[:, :, bits[0]] * s
-            else:
-                for s in srcs:
-                    acc = acc + s
-            cc[iv, g.par[:, None], tb.d.restrict_tgt[None, :]] = \
-                acc / (2 ** ndim)
+    ndim, d = plan.ndim, plan.d
+    for iv in ivs:
+        iv = int(iv)
+        srcs = [cc[iv, d.ch[:, None], s[None, :]] for s in d.src]
+        acc = 0.0
+        if plan.coord == "cyl" and use_geometry:
+            # source order: bits over dims; the dim-0 (r) bit selects the
+            # inner (0) or outer (1) fine column
+            w = d.cyl_w.to(cc.dtype)
+            for bits, s in zip(itertools.product([0, 1], repeat=ndim), srcs):
+                acc = acc + w[:, :, bits[0]] * s
+        else:
+            for s in srcs:
+                acc = acc + s
+        cc[iv, d.par[:, None], d.tgt] = acc / (2 ** ndim)
     return cc
 
 

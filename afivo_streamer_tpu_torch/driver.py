@@ -30,7 +30,6 @@ from .core.batch import BoxBatch, capacity
 from .core.levels import MeshPlans
 from .core.tree import Tree
 from .io.output import Output
-from .ops.limiters import LIMITER_MC
 from .physics import advance as adv
 from .physics.chemistry import Chemistry
 from .physics.dt_control import DtConfig
@@ -131,8 +130,9 @@ class Simulation:
         self.cfg = cfg
         if ndim is None:
             ndim = cfg.add_get("ndim", 2, "Number of spatial dimensions")
-        if ndim != 2:
-            raise NotImplementedError(f"ndim={ndim}: only 2D is ported")
+        if ndim not in (2, 3):
+            raise NotImplementedError(f"ndim={ndim}: only 2D and 3D are "
+                                      "ported")
         self.ndim = ndim
         self.device = resolve_device(cfg.add_get(
             "device", "cuda", "Device of the simulation state (cuda, cpu)"))
@@ -155,6 +155,9 @@ class Simulation:
         self.chem = Chemistry(self.gas, self.td, self.td.file,
                               table_settings, False, cfg)
         self.st = StreamerSettings(cfg, ndim)
+        if self.st.cylindrical and ndim != 2:
+            # the JAX package's Tree refuses the same
+            raise ValueError("cylindrical coordinates only in 2D")
 
         # ---- variable registration (ST_initialize / chemistry_initialize)
         reg = Registry()
@@ -236,7 +239,8 @@ class Simulation:
             all_densities=self.all_densities, species_cc=self.species_cc)
         self.fluid = FluidModel(self.mesh, idx, self.chem, self.td, self.gas,
                                 self.bc_species, self.dt_cfg,
-                                prolong_limiter=LIMITER_MC)
+                                prolong_limiter=pr.default_prolong_limiter(
+                                    ndim))
         self.fluid.field_compute = self.field.compute
 
         # runtime state

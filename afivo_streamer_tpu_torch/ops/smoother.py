@@ -1,9 +1,9 @@
-"""The multigrid smoother kernels (2D) and their runtime tables.
+"""The multigrid smoother kernels and their runtime tables.
 
 One half red-black sweep of the reference's gsrb_boxes
 (``afivo/src/m_af_multigrid.f90:648-687``) on the level-local block arrays
-``[n, nc+2, nc+2]`` of the block V-cycle (solvers/mg_blocks.py) is built
-from three kernels:
+``[n] + [nc+2]^ndim`` of the block V-cycle (solvers/mg_blocks.py) is built
+from these kernels. In 2D (csrc/smoother.cu):
 
 * K2 ``sweep_2d``: the red-black update on the blocks' current ghosts;
 * K3 ``fill_2d``: rebuild the four side ghosts of every block from the
@@ -12,10 +12,16 @@ from three kernels:
   mg_sides_rb refinement-boundary scheme;
 * K1 ``fill_sweep_2d``: K3 then K2 in one kernel.
 
-Each wrapper launches the hand-written CUDA kernel (csrc/smoother.cu) for
-a CUDA tensor, and takes the plain PyTorch version beside it only for a
-tensor that lies on the CPU. Every wrapper counts its kernel launches in
-its ``launches`` attribute.
+In 3D (csrc/smoother_3d.cu):
+
+* K4 ``sweep_3d``: the 7-point red-black update;
+* K5 ``fill_3d``: the six face ghosts from the same linear form (edges
+  and corners kept).
+
+Each wrapper launches the hand-written CUDA kernel for a CUDA tensor, and
+takes the plain PyTorch version beside it only for a tensor that lies on
+the CPU. Every wrapper counts its kernel launches in its ``launches``
+attribute.
 
 ``SmootherTables`` builds the per-level runtime tables the kernels read
 (neighbor rows ``g``, ghost weights ``W``, the stencil blocks ``cs``).
@@ -38,7 +44,9 @@ from ..core import ghostcell as gc
 from ..core.tree import neighb_dim, neighb_low
 
 _PKG = Path(__file__).resolve().parent.parent
-KERNEL_SOURCE = _PKG / "csrc" / "smoother.cu"
+#: kernel sources and the C entry point of each
+KERNEL_SOURCES = {"afs_smoother_2d": _PKG / "csrc" / "smoother.cu",
+                  "afs_smoother_3d": _PKG / "csrc" / "smoother_3d.cu"}
 BUILD_DIR = _PKG / "build"
 
 _MODE_SWEEP, _MODE_FILL, _MODE_FILL_SWEEP = 0, 1, 2
@@ -59,38 +67,51 @@ def _nvcc() -> str:
     return found
 
 
-def build_library() -> tuple:
-    """Compile csrc/smoother.cu for sm_90a into build/ (once per source
-    content). Returns (path of the shared library, compiler log)."""
-    src = KERNEL_SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
-    out = BUILD_DIR / f"libafs_smoother_{tag}.so"
-    log_path = out.with_suffix(".log")
-    if out.exists():
-        return out, log_path.read_text() if log_path.exists() else ""
+def build_libraries() -> dict:
+    """Compile every kernel source for sm_90a into build/ (once per source
+    content), one nvcc per source, all started together. Returns
+    {entry point: (path of the shared library, compiler log)}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), str(KERNEL_SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, out)
-    log_path.write_text(log)
-    return out, log
+    out, jobs = {}, {}
+    for entry, source in KERNEL_SOURCES.items():
+        tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+        lib = BUILD_DIR / f"lib{source.stem}_{tag}.so"
+        log_path = lib.with_suffix(".log")
+        if lib.exists():
+            out[entry] = (lib, log_path.read_text()
+                          if log_path.exists() else "")
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(tmp), str(source)]
+        jobs[entry] = (lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for entry, (lib, tmp, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{lib.name}: nvcc failed ({proc.returncode}):"
+                          f"\n{log}")
+            continue
+        os.replace(tmp, lib)
+        lib.with_suffix(".log").write_text(log)
+        out[entry] = (lib, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    path, _ = build_library()
-    lib = ctypes.CDLL(str(path))
-    fn = lib.afs_smoother_2d
+def _library(entry: str):
+    """The C entry point ``entry`` of its built library."""
+    path, _ = build_libraries()[entry]
+    fn = getattr(ctypes.CDLL(str(path)), entry)
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _ptr(t):
@@ -99,18 +120,22 @@ def _ptr(t):
 
 def _check(phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
     """Validate device, dtype, shape and contiguity before a launch."""
-    if phi3.dim() != 3 or phi3.shape[1] != phi3.shape[2]:
-        raise ValueError(f"phi3 must be [n, C, C], got {tuple(phi3.shape)}")
+    ndim = phi3.dim() - 1
+    if ndim not in (2, 3) or len(set(phi3.shape[1:])) != 1:
+        raise ValueError(f"phi3 must be [n, C, C(, C)], got "
+                         f"{tuple(phi3.shape)}")
     if phi3.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {phi3.dtype}")
     n, C = phi3.shape[0], phi3.shape[1]
     nc = C - 2
-    spec = {"R": (R, (n, nc, nc), phi3.dtype),
-            "mask": (mask, (nc, nc), torch.float32),
-            "A": (A, (n, 4, nc), phi3.dtype),
-            "g": (g, (n, 5), torch.int32),
-            "W": (W, (n, 4, 8), phi3.dtype),
-            "cs": (cs, (n, 6, nc, nc), phi3.dtype)}
+    cube = (nc,) * ndim
+    face = (nc,) * (ndim - 1)
+    spec = {"R": (R, (n,) + cube, phi3.dtype),
+            "mask": (mask, cube, torch.float32),
+            "A": (A, (n, 2 * ndim) + face, phi3.dtype),
+            "g": (g, (n, 1 + 2 * ndim), torch.int32),
+            "W": (W, (n, 2 * ndim, 8), phi3.dtype),
+            "cs": (cs, (n, 2 + 2 * ndim) + cube, phi3.dtype)}
     for name, (t, shape, dtype) in [("phi3", (phi3, tuple(phi3.shape),
                                               phi3.dtype))] + list(spec.items()):
         if t is None:
@@ -126,13 +151,17 @@ def _check(phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
     return n, nc
 
 
-def _launch(mode, phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
+def _launch(mode, ndim, phi3, R=None, mask=None, A=None, g=None, W=None,
+            cs=None):
     if phi3.device.type != "cuda":
         raise ValueError(f"no smoother kernel for device {phi3.device}")
+    if phi3.dim() != ndim + 1:
+        raise ValueError(f"phi3 must have {ndim + 1} dims, got "
+                         f"{tuple(phi3.shape)}")
     n, nc = _check(phi3, R, mask, A, g, W, cs)
     out = torch.empty_like(phi3)
     stream = torch.cuda.current_stream(phi3.device).cuda_stream
-    err = _library().afs_smoother_2d(
+    err = _library(f"afs_smoother_{ndim}d")(
         mode, int(phi3.dtype == torch.float64), _ptr(phi3), _ptr(R),
         _ptr(mask), _ptr(A), _ptr(g), _ptr(W), _ptr(cs), _ptr(out), n, nc,
         stream)
@@ -209,6 +238,54 @@ def fill_sweep_2d_plain(phi3, R, mask, A, g, W, cs):
     return _sweep_blocks(_fill_blocks(phi3, A, g, W), R, mask, cs)
 
 
+def sweep_3d_plain(phi3, R, mask, g, cs):
+    """Plain version of K4 (pallas_smoother.py _sweep_3d): the 7-point
+    red-black update of the own blocks phi3[g[:, 0]]."""
+    B = phi3[g.long()[:, 0]]
+    nc = B.shape[-1] - 2
+    i = slice(1, nc + 1)
+    B0 = B[:, i, i, i]
+    lphi = (cs[:, 7] * B0
+            + cs[:, 1] * (B[:, 0:nc, i, i] - B0)
+            + cs[:, 2] * (B[:, 2:nc + 2, i, i] - B0)
+            + cs[:, 3] * (B[:, i, 0:nc, i] - B0)
+            + cs[:, 4] * (B[:, i, 2:nc + 2, i] - B0)
+            + cs[:, 5] * (B[:, i, i, 0:nc] - B0)
+            + cs[:, 6] * (B[:, i, i, 2:nc + 2] - B0))
+    new = B0 + (R - lphi) / cs[:, 0]
+    out = B.clone()
+    out[:, i, i, i] = torch.where(mask > 0, new, B0)
+    return out
+
+
+def _face(X, axis: int, row: int):
+    """The nc x nc slab of blocks X [n, C, C, C] at ``row`` along ``axis``
+    (interior on the two other axes, in their natural order)."""
+    i = slice(1, X.shape[-1] - 1)
+    sl = [i, i, i]
+    sl[axis] = row
+    return (slice(None),) + tuple(sl)
+
+
+def fill_3d_plain(phi3, A, g, W):
+    """Plain version of K5 (pallas_smoother.py _fill_3d): the six face
+    ghosts of the own blocks phi3[g[:, 0]] (edges and corners kept)."""
+    nc = phi3.shape[-1] - 2
+    gl = g.long()
+    B = phi3[gl[:, 0]]
+    out = B.clone()
+    for d in range(6):
+        axis, low = neighb_dim(d), neighb_low(d)
+        nb_row, f1_row, f2_row, g_row = ((nc, 1, 2, 0) if low
+                                         else (1, nc, nc - 1, nc + 1))
+        slab = phi3[gl[:, 1 + d]][_face(B, axis, nb_row)]
+        w = W[:, d, :, None, None]
+        out[_face(out, axis, g_row)] = (
+            w[:, 0] * slab + w[:, 1] * B[_face(B, axis, f1_row)]
+            + w[:, 2] * B[_face(B, axis, f2_row)] + A[:, d])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -216,7 +293,7 @@ def sweep_2d(phi3, R, mask, g, cs):
     """K2: one red-black half sweep on the blocks' current ghosts."""
     if phi3.device.type == "cpu":
         return sweep_2d_plain(phi3, R, mask, g, cs)
-    out = _launch(_MODE_SWEEP, phi3, R=R, mask=mask, g=g, cs=cs)
+    out = _launch(_MODE_SWEEP, 2, phi3, R=R, mask=mask, g=g, cs=cs)
     sweep_2d.launches += 1
     return out
 
@@ -225,7 +302,7 @@ def fill_2d(phi3, A, g, W):
     """K3: side-ghost exchange of every block."""
     if phi3.device.type == "cpu":
         return fill_2d_plain(phi3, A, g, W)
-    out = _launch(_MODE_FILL, phi3, A=A, g=g, W=W)
+    out = _launch(_MODE_FILL, 2, phi3, A=A, g=g, W=W)
     fill_2d.launches += 1
     return out
 
@@ -235,20 +312,35 @@ def fill_sweep_2d(phi3, R, mask, A, g, W, cs):
     blocks."""
     if phi3.device.type == "cpu":
         return fill_sweep_2d_plain(phi3, R, mask, A, g, W, cs)
-    out = _launch(_MODE_FILL_SWEEP, phi3, R=R, mask=mask, A=A, g=g, W=W,
+    out = _launch(_MODE_FILL_SWEEP, 2, phi3, R=R, mask=mask, A=A, g=g, W=W,
                   cs=cs)
     fill_sweep_2d.launches += 1
     return out
 
 
-sweep_2d.launches = 0
-fill_2d.launches = 0
-fill_sweep_2d.launches = 0
+def sweep_3d(phi3, R, mask, g, cs):
+    """K4: one 3D red-black half sweep on the blocks' current ghosts."""
+    if phi3.device.type == "cpu":
+        return sweep_3d_plain(phi3, R, mask, g, cs)
+    out = _launch(_MODE_SWEEP, 3, phi3, R=R, mask=mask, g=g, cs=cs)
+    sweep_3d.launches += 1
+    return out
+
+
+def fill_3d(phi3, A, g, W):
+    """K5: face-ghost exchange of every 3D block."""
+    if phi3.device.type == "cpu":
+        return fill_3d_plain(phi3, A, g, W)
+    out = _launch(_MODE_FILL, 3, phi3, A=A, g=g, W=W)
+    fill_3d.launches += 1
+    return out
+
 
 KERNELS = {"fill_sweep_2d": fill_sweep_2d, "sweep_2d": sweep_2d,
-           "fill_2d": fill_2d}
+           "fill_2d": fill_2d, "sweep_3d": sweep_3d, "fill_3d": fill_3d}
 PLAIN = {"fill_sweep_2d": fill_sweep_2d_plain, "sweep_2d": sweep_2d_plain,
-         "fill_2d": fill_2d_plain}
+         "fill_2d": fill_2d_plain, "sweep_3d": sweep_3d_plain,
+         "fill_3d": fill_3d_plain}
 
 
 def reset_launch_counts() -> None:
@@ -256,12 +348,17 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+reset_launch_counts()
+
+
 # ---------------------------------------------------------------------------
 # runtime tables of one level
 # ---------------------------------------------------------------------------
 class SmootherTables:
     """Neighbor-row and ghost-weight tables of one level's blocks
-    (afivo_streamer_tpu PackSmoother2D.__init__, without padded rows).
+    (afivo_streamer_tpu PackSmoother2D/PackSmoother3D.__init__, without
+    padded rows): g [n, 1 + 2 ndim], W [n, 2 ndim, 8]. The refinement
+    boundary weights are those of mg_sides_rb in 2D and 3D alike.
 
     ``bc_recipe`` lists (direction, bc type, gamma) for the physical
     boundaries, whose values the A constants fold in at every level visit
@@ -269,18 +366,19 @@ class SmootherTables:
     refinement boundaries, whose coarse strips do the same."""
 
     def __init__(self, tree, lvl: int, plan, tb, bc_fn, i_phi: int, device):
-        self.nc = tree.nc
+        self.nc, self.ndim = tree.nc, tree.ndim
+        n_dir = 2 * tree.ndim
         ids = np.asarray(tb.ids, np.int64)
         n = len(ids)
         self.n = n
         pos = np.full(int(tree.highest_id) + 1, -1, np.int64)
         pos[ids] = np.arange(n)
 
-        g = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, 5))
-        W = np.zeros((n, 4, 8))
+        g = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, 1 + n_dir))
+        W = np.zeros((n, n_dir, 8))
         bc_recipe, rb_dirs = [], []
-        self.bc_pos = [None] * 4
-        self.rb_pos = [None] * 4
+        self.bc_pos = [None] * n_dir
+        self.rb_pos = [None] * n_dir
         for d, p in enumerate(plan.dirs):
             if len(p.copy_ids):
                 rows = pos[p.copy_ids]
@@ -331,13 +429,14 @@ class SmootherTables:
         return self._cache[key]
 
     def cs(self, op, dtype):
-        """Stencil coefficient blocks [n, 6, nc, nc] from the LevelOp
-        coefficients (c0, 4 neighbors, c_sum), built once per dtype."""
+        """Stencil coefficient blocks [n, 2 + 2 ndim] + [nc]^ndim from the
+        LevelOp coefficients (c0, 2 ndim neighbors, c_sum), built once per
+        dtype."""
         key = ("cs", dtype)
         if key not in self._cache:
-            n, nc = self.n, self.nc
+            shape = (self.n,) + (self.nc,) * self.ndim
             cols = [op.c0] + list(op.c_nb) + [op.c_sum]
-            blocks = [np.broadcast_to(np.asarray(c, np.float64), (n, nc, nc))
+            blocks = [np.broadcast_to(np.asarray(c, np.float64), shape)
                       for c in cols]
             self._cache[key] = torch.as_tensor(
                 np.stack(blocks, axis=1), dtype=dtype, device=self.device)

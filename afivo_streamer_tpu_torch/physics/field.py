@@ -25,6 +25,7 @@ import torch
 from .. import constants as uc
 from ..core import ghostcell as gc
 from ..core.reductions import tree_maxabs_cc
+from ..core.rowops import cc_get_interior
 from ..solvers import mg_blocks as mgb
 from ..solvers.multigrid import Multigrid
 from ..utils.lookup_table import lin_interp_list
@@ -217,9 +218,7 @@ class FieldSolver:
             tb = self.mesh.tb(lvl)
             if len(tb.leaves) == 0:
                 continue
-            nc = t.nc
-            B = cc[self.i_electric_fld, tb.d.leaves].reshape(
-                len(tb.leaves), nc + 2, nc + 2)[:, 1:nc + 1, 1:nc + 1]
-            Ecc = B.reshape(len(tb.leaves), -1)
+            Ecc = cc_get_interior(cc, self.i_electric_fld, tb.d.leaves,
+                                  t.nc, t.ndim)
             total = total + float(torch.sum(Ecc ** 2 * tb.d.vol.to(cc.dtype)))
         return 0.5 * uc.eps0 * total

@@ -1,4 +1,4 @@
-"""Drift-diffusion-reaction fluid model: the hot path (2D).
+"""Drift-diffusion-reaction fluid model: the hot path (2D and 3D).
 
 Re-designs the reference's ``src/m_fluid.f90`` (forward_euler ``:21-99``,
 flux_upwind ``:102-209``, add_source_terms ``:298-466``) plus the flux
@@ -9,7 +9,7 @@ engine of ``afivo/src/m_af_flux_schemes.f90`` (flux_upwind_tree/box
 ``m_af_core.f90:1257-1404`` (af_consistent_fluxes).
 
 Instead of per-box line loops, every level pass operates on an extended
-tensor ``E[n_leaves, n_species, (nc+4)^2]`` with two ghost layers; the
+tensor ``E[n_leaves, n_species, (nc+4)^ndim]`` with two ghost layers; the
 Koren-limited upwind reconstruction, transport-coefficient lookups, flux
 evaluation, CFL/dielectric-relaxation time step terms, chemistry source
 terms and the conservative update are batched tensor ops per level. The
@@ -45,7 +45,7 @@ HUGE = 1e100
 # 2-ghost extended-array plan (af_gc2_box)
 # --------------------------------------------------------------------------
 class Gc2LevelPlan:
-    """Index tables to assemble [n_leaves, nv, (nc+4)^2] extended arrays
+    """Index tables to assemble [n_leaves, nv, (nc+4)^ndim] extended arrays
     for the leaves of one level. Reference coordinates -1..nc+2 map to
     extended indices 0..nc+3 (shift +1)."""
 
@@ -132,9 +132,10 @@ class Gc2LevelPlan:
                 info["rb_coarse"] = tree.neighbors[parents, d].astype(np.int32)
                 cface = nc if low else 1
                 n_rb = len(rb_ids)
-                cc0 = np.zeros((n_rb, hnc), np.int32)
-                lo_t = [np.zeros((n_rb, hnc), np.int32) for _ in range(ndim)]
-                hi_t = [np.zeros((n_rb, hnc), np.int32) for _ in range(ndim)]
+                T = hnc ** (ndim - 1)
+                cc0 = np.zeros((n_rb, T), np.int32)
+                lo_t = [np.zeros((n_rb, T), np.int32) for _ in range(ndim)]
+                hi_t = [np.zeros((n_rb, T), np.int32) for _ in range(ndim)]
                 for n_i, b in enumerate(rb_ids):
                     off = tree.child_offset(int(b))
                     axes = [np.array([cface]) if k == dim
@@ -154,7 +155,9 @@ class Gc2LevelPlan:
                 info["rb_lo"] = lo_t
                 info["rb_hi"] = hi_t
                 # fine targets in the extended array per sign combination
-                # (s_face, s_transverse), each in {-1, +1}
+                # (s_face, s_transverse...), each in {-1, +1}, transverse
+                # dims in their natural order
+                tdims = [k for k in range(ndim) if k != dim]
                 targets = {}
                 for signs in itertools.product([-1, 1], repeat=ndim):
                     if low:
@@ -163,7 +166,8 @@ class Gc2LevelPlan:
                         fpos = nc + 2 if signs[0] < 0 else nc + 3
                     tcells = 2 + 2 * np.arange(hnc)  # ext coord of fine lo
                     axes = [np.array([fpos]) if k == dim
-                            else tcells + (1 if signs[1] > 0 else 0)
+                            else tcells + (1 if signs[1 + tdims.index(k)] > 0
+                                           else 0)
                             for k in range(ndim)]
                     mesh = np.meshgrid(*axes, indexing="ij")
                     v = np.stack([m.ravel() for m in mesh], -1)
@@ -174,8 +178,7 @@ class Gc2LevelPlan:
                     s: sp.device_copy({"t": t}, device).t
                     for s, t in targets.items()}
                 # sign tuple position k -> actual dim
-                info["rb_sign_dims"] = [dim] + [k for k in range(ndim)
-                                                if k != dim]
+                info["rb_sign_dims"] = [dim] + tdims
             info["d"] = sp.device_copy(info, device)
             self.dirs.append(info)
         self.d = sp.device_copy(self, device)
@@ -186,11 +189,11 @@ def gc2_extend(cc, plan: Gc2LevelPlan, ivs, bc_fn, params,
     """Assemble the 2-ghost extended array for the level's leaves and write
     the first ghost layer back into cc (af_gc2_box semantics).
 
-    Returns (E, cc): E has shape [n_leaves, n_iv, (nc+4)^2]."""
+    Returns (E, cc): E has shape [n_leaves, n_iv, (nc+4)^ndim]."""
     nc = plan.nc
     leaves = plan.d.leaves
     n = len(plan.leaves)
-    E = torch.zeros((n, len(ivs), (nc + 4) ** 2), dtype=cc.dtype,
+    E = torch.zeros((n, len(ivs), (nc + 4) ** plan.ndim), dtype=cc.dtype,
                     device=cc.device)
     for i, iv in enumerate(ivs):
         E[:, i, plan.d.center_ext] = cc[iv, leaves]
@@ -261,15 +264,17 @@ class ConsistentGroup:
 
 
 def build_consistent_plan(tree: Tree, device) -> List[ConsistentGroup]:
-    """The flux-matching groups of a 2D mesh (af_consistent_fluxes,
-    ``m_af_core.f90:1257-1404``)."""
+    """The flux-matching groups of a mesh (af_consistent_fluxes,
+    ``m_af_core.f90:1257-1404``): per (coarse level, direction), the
+    coarse faces next to a fine box and the 2^(ndim-1) fine faces over
+    each of them."""
     t = tree
-    nc = t.nc
+    nc, ndim = t.nc, t.ndim
     hnc = nc // 2
     by_key: Dict = {}
     for lvl in range(1, t.highest_lvl):
         for p_id in t.lvl_parents[lvl - 1]:
-            for d in range(4):
+            for d in range(2 * ndim):
                 nb = int(t.neighbors[p_id, d])
                 if nb < 0 or t.has_children(nb):
                     continue
@@ -280,37 +285,43 @@ def build_consistent_plan(tree: Tree, device) -> List[ConsistentGroup]:
                         continue
                     by_key.setdefault((lvl, d), []).append((nb, int(c)))
     plan = []
-    tcells = np.arange(hnc)
+    # a child's share of a coarse face: transverse cells in natural order
+    tcells = np.stack([m.ravel() for m in np.meshgrid(
+        *[np.arange(hnc)] * (ndim - 1), indexing="ij")], -1)
     for (lvl, d), pairs in sorted(by_key.items()):
         dim, low = neighb_dim(d), neighb_low(d)
-        td = 1 - dim
+        tdims = [k for k in range(ndim) if k != dim]
         # the coarse neighbor's face next to the fine box; the fine
         # children's face next to the coarse neighbor
         tgt_face = nc if low else 0
         src_face = 0 if low else nc
         nbs = np.array([p[0] for p in pairs], np.int32)
         chs = np.array([p[1] for p in pairs], np.int32)
-        tgt_idx = np.zeros((len(pairs), hnc), np.int32)
-        src_idx = [np.zeros((len(pairs), hnc), np.int32) for _ in range(2)]
-        weights = [np.ones((len(pairs), hnc)) for _ in range(2)]
+        n_src = 2 ** (ndim - 1)
+        tgt_idx = np.zeros((len(pairs), len(tcells)), np.int32)
+        src_idx = [np.zeros_like(tgt_idx) for _ in range(n_src)]
+        weights = [np.ones(tgt_idx.shape) for _ in range(n_src)]
 
         def face(normal, trans):
-            v = np.zeros((len(trans), 2), np.int64)
+            v = np.zeros((len(trans), ndim), np.int64)
             v[:, dim] = normal
-            v[:, td] = trans
-            return np.ravel_multi_index([v[:, 0], v[:, 1]], [nc + 1] * 2)
+            v[:, tdims] = trans
+            return np.ravel_multi_index([v[:, k] for k in range(ndim)],
+                                        [nc + 1] * ndim)
         for pi, (nb, c) in enumerate(pairs):
-            off = int((t.ix[c] % 2)[td] * hnc)
+            off = (t.ix[c] % 2)[tdims] * hnc
             tgt_idx[pi] = face(tgt_face, off + tcells)
-            for bit in (0, 1):
-                src_idx[bit][pi] = face(src_face, 2 * tcells + bit)
+            for si, bits in enumerate(itertools.product(
+                    [0, 1], repeat=ndim - 1)):
+                src_idx[si][pi] = face(src_face, 2 * tcells + np.asarray(bits))
                 # cylindrical weights for z-fluxes: the radial fine position
                 if t.coord == "cyl" and dim == 1:
                     r0 = t.box_r_min(np.asarray([nb]))[0][0]
                     drc = t.lvl_dr(lvl)[0]
-                    r_c = r0 + (off + tcells + 1 - 0.5) * drc
+                    r_c = r0 + (off[0] + tcells[:, 0] + 1 - 0.5) * drc
                     tmp = 0.25 * drc / r_c
-                    weights[bit][pi] = (1.0 - tmp) if bit == 0 else (1.0 + tmp)
+                    weights[si][pi] = ((1.0 - tmp) if bits[0] == 0
+                                       else (1.0 + tmp))
         plan.append(ConsistentGroup(d, dim, nbs, chs, tgt_idx, src_idx,
                                     weights, device))
     return plan
@@ -332,6 +343,18 @@ def consistent_fluxes(fc, groups: List[ConsistentGroup], flux_fc: List[int]):
 # --------------------------------------------------------------------------
 # Flux computation, consistent fluxes, conservative update with sources
 # --------------------------------------------------------------------------
+def _lo_hi(F, d: int, nc: int):
+    """The low and high faces of every cell along dim d of face values
+    F [n] + [nc+1 if k == d else nc]."""
+    ndim = F.dim() - 1
+
+    def sl(a, b):
+        return F[(slice(None),) + tuple(slice(a, b) if k == d
+                                        else slice(None)
+                                        for k in range(ndim))]
+    return sl(0, nc), sl(1, nc + 1)
+
+
 @dataclass
 class FluidIndices:
     """Variable indices wired by the simulation setup."""
@@ -382,7 +405,7 @@ class FluidModel:
         Returns (cc, fc, dt_cfl, dt_drt) with the dt terms as 0-d
         tensors."""
         t = self.tree
-        nc = t.nc
+        nc, ndim = t.nc, t.ndim
         idx = self.idx
         sp_ivs = [iv + s_deriv for iv in idx.flux_species]
         n_sp = len(sp_ivs)
@@ -398,7 +421,8 @@ class FluidModel:
         N_inv = self.gas.inverse_number_density
         sign_t = self.mesh.cached(
             ("flux_sign", cc.dtype),
-            lambda: torch.as_tensor(sign, **dev).reshape(1, n_sp, 1, 1))
+            lambda: torch.as_tensor(sign, **dev).reshape(
+                (1, n_sp) + (1,) * ndim))
 
         for lvl in range(1, t.highest_lvl + 1):
             plan = self._gc2_plan(lvl)
@@ -408,18 +432,18 @@ class FluidModel:
             leaves = plan.d.leaves
             E, cc = gc2_extend(cc, plan, sp_ivs, self.bc_species, params,
                                self.prolong_limiter)
-            Eb = E.reshape(n, n_sp, nc + 4, nc + 4)
+            Eb = E.reshape((n, n_sp) + (nc + 4,) * ndim)
             # cell-centered field norm with 1 ghost
-            Bfld = cc[idx.i_electric_fld, leaves].reshape(n, nc + 2, nc + 2)
-            cfl_sum = torch.zeros((n, nc, nc), **dev)
+            Bfld = ro.cc_rows(cc, idx.i_electric_fld, leaves, nc, ndim)
+            cfl_sum = torch.zeros((n,) + (nc,) * ndim, **dev)
 
-            for d in range(2):
+            for d in range(ndim):
                 def sl_faces(arr, start, width, ghost):
                     # [start, start+width) along d, transverse interior of
                     # a `ghost`-ghost array
-                    if d == 0:
-                        return arr[..., start:start + width, ghost:ghost + nc]
-                    return arr[..., ghost:ghost + nc, start:start + width]
+                    return arr[(Ellipsis,) + tuple(
+                        slice(start, start + width) if k == d
+                        else slice(ghost, ghost + nc) for k in range(ndim))]
 
                 cL2 = sl_faces(Eb, 0, nc + 1, 2)
                 cL = sl_faces(Eb, 1, nc + 1, 2)
@@ -432,7 +456,7 @@ class FluidModel:
                 u_neg = cR - 0.5 * limiter_apply(cR - cL, cR2 - cR,
                                                  self.limiter)
 
-                E_fc = ro.fc_get_faces(fc, idx.fc_E, d, leaves, nc, 2)
+                E_fc = ro.fc_get_faces(fc, idx.fc_E, d, leaves, nc, ndim)
                 u_f = torch.where(sign_t * E_fc[:, None] > 0, u_pos, u_neg)
 
                 # field strength at faces -> mobility/diffusion lookup
@@ -458,18 +482,15 @@ class FluidModel:
                 max_sigma = torch.maximum(max_sigma, sigma.max())
 
                 # CFL sum per cell (flux_upwind, m_fluid.f90:195-197)
-                def cells(F, lo):
-                    a, b = (0, nc) if lo else (1, nc + 1)
-                    return F[:, a:b, :] if d == 0 else F[:, :, a:b]
-
+                v_lo, v_hi = _lo_hi(v_e, d, nc)
+                dc_lo, dc_hi = _lo_hi(dc, d, nc)
                 cfl_sum = cfl_sum + (
-                    torch.maximum(cells(v_e, True).abs(),
-                                  cells(v_e, False).abs()) * inv_dx
-                    + 2.0 * torch.maximum(cells(dc, True), cells(dc, False))
-                    * inv_dx ** 2)
+                    torch.maximum(v_lo.abs(), v_hi.abs()) * inv_dx
+                    + 2.0 * torch.maximum(dc_lo, dc_hi) * inv_dx ** 2)
 
                 for m, f_iv in enumerate(idx.flux_fc):
-                    ro.fc_set_faces(fc, f_iv, d, leaves, fluxes[m], nc, 2)
+                    ro.fc_set_faces(fc, f_iv, d, leaves, fluxes[m], nc,
+                                    ndim)
             inv_max_cfl = torch.maximum(inv_max_cfl, cfl_sum.max())
 
         fc = consistent_fluxes(fc, self._consistent_plan(), idx.flux_fc)
@@ -485,7 +506,7 @@ class FluidModel:
         (cc, dt_chem, diag)."""
         t = self.tree
         idx = self.idx
-        nc = t.nc
+        nc, ndim = t.nc, t.ndim
         dev = dict(dtype=cc.dtype, device=cc.device)
         dt_chem = torch.full((), HUGE, **dev)
         total_rates = torch.zeros(self.chem.n_reactions, **dev)
@@ -506,40 +527,37 @@ class FluidModel:
                 acc = 0.0
                 for s, w in zip(s_prev, w_prev):
                     acc = acc + w * ro.cc_get_interior(cc, iv + s, leaves,
-                                                       nc, 2)
-                ro.cc_set_interior(cc, iv + s_out, leaves, acc, nc, 2)
+                                                       nc, ndim)
+                ro.cc_set_interior(cc, iv + s_out, leaves, acc, nc, ndim)
 
             # flux divergence, applied before the source terms
             for m, iv in enumerate(idx.flux_species):
                 f_iv = idx.flux_fc[m]
                 div = 0.0
-                for d in range(2):
-                    F = ro.fc_get_faces(fc, f_iv, d, leaves, nc, 2)
-                    if d == 0:
-                        F_lo, F_hi = F[:, 0:nc, :], F[:, 1:nc + 1, :]
-                        if t.coord == "cyl":
-                            F_lo = F_lo * tb.d.rfac_lo.to(cc.dtype)[:, :, None]
-                            F_hi = F_hi * tb.d.rfac_hi.to(cc.dtype)[:, :, None]
-                    else:
-                        F_lo, F_hi = F[:, :, 0:nc], F[:, :, 1:nc + 1]
+                for d in range(ndim):
+                    F = ro.fc_get_faces(fc, f_iv, d, leaves, nc, ndim)
+                    F_lo, F_hi = _lo_hi(F, d, nc)
+                    if t.coord == "cyl" and d == 0:
+                        F_lo = F_lo * tb.d.rfac_lo.to(cc.dtype)[:, :, None]
+                        F_hi = F_hi * tb.d.rfac_hi.to(cc.dtype)[:, :, None]
                     div = div + (F_lo - F_hi) / float(dr[d])
                 ro.cc_add_interior(cc, iv + s_out, leaves,
-                                   dt * div.reshape(n, -1), nc, 2)
+                                   dt * div.reshape(n, -1), nc, ndim)
 
             # chemistry source terms (add_source_terms)
             fields_td = (ro.cc_get_interior(cc, idx.i_electric_fld, leaves,
-                                            nc, 2)
+                                            nc, ndim)
                          * uc.SI_to_Townsend
                          * self.gas.inverse_number_density)
             dens = torch.stack([ro.cc_get_interior(cc, s_cc + s_deriv,
-                                                   leaves, nc, 2)
+                                                   leaves, nc, ndim)
                                 for s_cc in idx.species_cc], dim=-1)
             dens = torch.clamp(dens, min=0.0)
             nsp = len(idx.species_cc)
             rates = self.chem.get_rates(fields_td.reshape(-1))
             full, derivs = self.chem.get_derivatives(dens.reshape(-1, nsp),
                                                      rates)
-            C = nc * nc
+            C = nc ** ndim
             derivs = derivs.reshape(n, C, -1)
             full = full.reshape(n, C, -1)
 
@@ -564,7 +582,7 @@ class FluidModel:
             # apply source terms (plasma species only)
             for spi, s_cc in enumerate(idx.species_cc):
                 ro.cc_add_interior(cc, s_cc + s_out, leaves,
-                                   dt * derivs[:, :, spi], nc, 2)
+                                   dt * derivs[:, :, spi], nc, ndim)
 
         diag = {"rates": total_rates, "JdotE": total_JdotE}
         return cc, dt_chem, diag
@@ -572,16 +590,14 @@ class FluidModel:
     def _sum_JdotE(self, fc, leaves, vol):
         """Volume-integrated J.E * elec_charge over one level's leaves."""
         idx = self.idx
-        nc = self.tree.nc
+        nc, ndim = self.tree.nc, self.tree.ndim
         n = len(leaves)
         acc = 0.0
-        for d in range(2):
-            prod = (ro.fc_get_faces(fc, idx.flux_fc[0], d, leaves, nc, 2)
-                    * ro.fc_get_faces(fc, idx.fc_E, d, leaves, nc, 2))
-            if d == 0:
-                half = 0.5 * (prod[:, 0:nc, :] + prod[:, 1:nc + 1, :])
-            else:
-                half = 0.5 * (prod[:, :, 0:nc] + prod[:, :, 1:nc + 1])
+        for d in range(ndim):
+            prod = (ro.fc_get_faces(fc, idx.flux_fc[0], d, leaves, nc, ndim)
+                    * ro.fc_get_faces(fc, idx.fc_E, d, leaves, nc, ndim))
+            lo, hi = _lo_hi(prod, d, nc)
+            half = 0.5 * (lo + hi)
             acc = acc + (half.reshape(n, -1) * vol).sum()
         return acc * uc.elec_charge
 

@@ -3,9 +3,10 @@
 Replaces the reference's HYPRE bridge (``afivo/src/m_coarse_solver.f90``:
 the level-1 grid is assembled into a HYPRE StructMatrix and solved with
 SMG/PFMG). Here the level-1 grid, which never changes during a run and is
-small (the slice's is 16 x 16 cells), is assembled once into a dense matrix
-with the boundary conditions eliminated and inverted on the host; a solve
-is then one matrix-vector product on the device.
+small (16 x 16 cells in the 2D slice, 16^3 in the 3D one), is assembled
+once into a dense matrix with the boundary conditions eliminated and
+inverted on the host; a solve is then one matrix-vector product on the
+device.
 
 Supports the constant Laplacian/Helmholtz operator with cylindrical radial
 factors.
@@ -144,9 +145,9 @@ class CoarseSolver:
 
     def solve_blocks(self, P1, R1, i_phi: int, params):
         """Solve the level-1 grid: rhs from the level-1 rhs blocks R1
-        [n1, nc, nc] and the boundary values; returns P1 with new
+        [n1] + [nc]^ndim and the boundary values; returns P1 with new
         interiors."""
-        nc = self.tree.nc
+        nc, ndim = self.tree.nc, self.tree.ndim
         dtype = P1.dtype
         rm = self.d.rows_map
         rhs = torch.zeros(self.A_inv.shape[0], dtype=dtype, device=P1.device)
@@ -162,5 +163,6 @@ class CoarseSolver:
             rhs.index_add_(0, self.d.bc_rows[d], -contrib.reshape(-1))
         x = self.d.A_inv.to(dtype) @ rhs
         out = P1.clone()
-        out[:self.n1, 1:nc + 1, 1:nc + 1] = x[rm].reshape(self.n1, nc, nc)
+        out[(slice(0, self.n1),) + (slice(1, nc + 1),) * ndim] = \
+            x[rm].reshape((self.n1,) + (nc,) * ndim)
         return out

@@ -1,9 +1,9 @@
-"""FAS multigrid on per-level block arrays (2D).
+"""FAS multigrid on per-level block arrays (2D and 3D).
 
 The solve state lives in small per-level block arrays
 
-* ``P[l]``: phi blocks ``[n_l, nc+2, nc+2]`` (with ghost layer),
-* ``R[l]``: rhs interiors ``[n_l, nc, nc]``,
+* ``P[l]``: phi blocks ``[n_l] + [nc+2]^ndim`` (with ghost layer),
+* ``R[l]``: rhs interiors ``[n_l] + [nc]^ndim``,
 
 gathered from ``cc`` once per solve and scattered back once. Every ghost
 exchange goes through the smoother's fill kernel and every smoothing half
@@ -11,12 +11,14 @@ sweep through its sweep kernels (ops/smoother.py). The cycle structure and
 numerics are the reference's FAS V-cycle (``afivo/src/m_af_multigrid.f90``:
 mg_fas_vcycle :185-264, update_coarse :691-738, correct_children
 :624-646) and FAS full multigrid (mg_fas_fmg :137-180, set_coarse_phi_rhs
-:741-777), including the corner ghost fills of ``af_gc_box_corner``
-(``m_af_ghostcell.f90:125-170``) as direct block-index updates.
+:741-777), including the edge and corner ghost fills of
+``af_gc_box_corner`` (``m_af_ghostcell.f90:125-170``) as direct
+block-index updates.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional
 
 import numpy as np
@@ -24,7 +26,6 @@ import torch
 
 from ..core import ghostcell as gc
 from ..core import prolong_restrict as pr
-from ..core import spatial as sp
 from ..core.rowops import as_value
 from ..ops import smoother as ks
 
@@ -32,21 +33,27 @@ from ..ops import smoother as ks
 class LevelBlockPlan:
     """Block-row index tables of one level for the block cycle: the
     rb-ghost coarse-strip rows in the coarse level's block array, the
-    corner-fill row tables, the parity-grouped (parent-row, child-row)
-    transfer tables with the cylindrical restriction weights, and the
-    parent mask of the coarse level for the FAS rhs update."""
+    edge- and corner-fill tables, the transfer tables between the level's
+    blocks and their parents' (children in the order [parent, parity],
+    with the cylindrical restriction weights) and the parent mask of the
+    coarse level for the FAS rhs update."""
 
     def __init__(self, mesh, lvl: int):
         tree, device = mesh.tree, mesh.device
-        self.lvl, self.nc = lvl, tree.nc
+        nc, ndim = tree.nc, tree.ndim
+        self.lvl, self.nc, self.ndim = lvl, nc, ndim
         tb_l = mesh.tb(lvl)
         self.n = len(tb_l.ids)
         pos_l = _posmap(tree, tb_l.ids)
         plan = mesh.gc(lvl)
+        S = (nc + 2) ** ndim
+
+        def dev(a, dtype=torch.int64):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
         # rb coarse-strip rows per direction
-        self.rb_cpos = [None] * 4
-        self.rb_tmp = [None] * 4
+        self.rb_cpos = [None] * (2 * ndim)
+        self.rb_tmp = [None] * (2 * ndim)
         self.n_c = 0
         if lvl > 1:
             tb_c = mesh.tb(lvl - 1)
@@ -54,36 +61,42 @@ class LevelBlockPlan:
             pos_c = _posmap(tree, tb_c.ids)
             for d, p in enumerate(plan.dirs):
                 if len(p.rb_ids):
-                    self.rb_cpos[d] = torch.as_tensor(
-                        pos_c[p.rb_coarse], dtype=torch.int64, device=device)
+                    self.rb_cpos[d] = dev(pos_c[p.rb_coarse])
                     self.rb_tmp[d] = p.d.rb_tmp
 
-        # corner-fill tables
-        self.c_rows, self.c_nb, self.c_ext = [], [], []
-        for pl in plan.corner_plans:
-            for name, lst in (("copy_ids", self.c_rows),
-                              ("copy_nb", self.c_nb),
-                              ("ext_ids", self.c_ext)):
-                lst.append(torch.as_tensor(pos_l[pl[name]],
-                                           dtype=torch.int64, device=device))
+        # all edge and corner groups as flat indices into the block array
+        self.corners = gc.corner_tables(plan, pos_l, S, device)
 
-        # parity-grouped transfer tables (children at lvl, parents at lvl-1)
-        self.groups = []
+        # transfer tables (children at lvl, parents at lvl-1): the child of
+        # every parent for each parity in product order, the coarse cells
+        # each child restricts into, and the linear prolongation stencil
+        # of all parities at once
         self.parent_mask = None
         if lvl > 1:
-            for tb, par, ch, cyl_w, _g in mesh.pr(lvl).groups:
-                self.groups.append((
-                    tb.parity,
-                    torch.as_tensor(pos_c[par], dtype=torch.int64,
-                                    device=device),
-                    torch.as_tensor(pos_l[ch], dtype=torch.int64,
-                                    device=device),
-                    None if cyl_w is None else torch.as_tensor(
-                        cyl_w, dtype=torch.float64, device=device)))
+            parents = np.asarray(tb_c.parents, np.int64)
+            parities = list(itertools.product([0, 1], repeat=ndim))
+            cidx = [sum(b << k for k, b in enumerate(q)) for q in parities]
+            children = tree.children[parents][:, cidx].ravel()
+            prp = mesh.pr(lvl)
+            order = _posmap(tree, prp.ch)[children]
+            par_c = np.repeat(pos_c[parents], len(parities))[:, None]
+            tgt = prp.tgt[order]
+            t_int = np.ravel_multi_index(
+                [a - 1 for a in np.unravel_index(tgt, (nc + 2,) * ndim)],
+                (nc,) * ndim)
+            self.par = dev(pos_c[parents])
+            self.ch = dev(pos_l[children])
+            self.r_tgt = dev(par_c * S + tgt)
+            self.r_int = dev(par_c * nc ** ndim + t_int)
+            tabs = [pr.parity_tables(ndim, nc, q) for q in parities]
+            self.p_corners = [
+                (w, dev(np.concatenate([t.corners[k][1] for t in tabs])))
+                for k, (w, _s) in enumerate(tabs[0].corners)]
+            self.cyl_w = (None if prp.cyl_w is None
+                          else dev(prp.cyl_w[order], torch.float64))
             m = np.zeros(self.n_c, bool)
-            m[pos_c[tb_c.parents]] = True
-            self.parent_mask = torch.as_tensor(m, dtype=torch.bool,
-                                               device=device)
+            m[pos_c[parents]] = True
+            self.parent_mask = dev(m, torch.bool)
 
 
 def _posmap(tree, ids) -> np.ndarray:
@@ -96,83 +109,84 @@ def _posmap(tree, ids) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # block-array primitives
 # ---------------------------------------------------------------------------
+def _interior(nc: int, ndim: int):
+    return (slice(None),) + (slice(1, nc + 1),) * ndim
+
+
+def _shift(P, k: int, delta: int, nc: int, ndim: int):
+    """Neighbor values of the interior of blocks P along dim k."""
+    sl = [slice(1, nc + 1)] * ndim
+    sl[k] = slice(1 + delta, nc + 1 + delta)
+    return P[(slice(None),) + tuple(sl)]
+
+
 def apply_cs(P, cs, nc: int):
-    """Difference-form stencil apply on [n, C, C] blocks (see
+    """Difference-form stencil apply on [n] + [C]^ndim blocks (see
     multigrid.LevelOp): L(phi) = c_sum phi0 + sum_d c_d (phi_d - phi_0)."""
-    B0 = P[:, 1:nc + 1, 1:nc + 1]
-    return (cs[:, 5] * B0
-            + cs[:, 1] * (P[:, 0:nc, 1:nc + 1] - B0)
-            + cs[:, 2] * (P[:, 2:nc + 2, 1:nc + 1] - B0)
-            + cs[:, 3] * (P[:, 1:nc + 1, 0:nc] - B0)
-            + cs[:, 4] * (P[:, 1:nc + 1, 2:nc + 2] - B0))
+    ndim = P.dim() - 1
+    B0 = P[_interior(nc, ndim)]
+    out = cs[:, 1 + 2 * ndim] * B0
+    for d in range(2 * ndim):
+        out = out + cs[:, 1 + d] * (
+            _shift(P, d // 2, -1 if d % 2 == 0 else 1, nc, ndim) - B0)
+    return out
 
 
 def corner_fill_blocks(P, bp: LevelBlockPlan, nc: int):
-    """Corner ghost cells on [n, C, C] blocks (af_gc_box_corner): copy from
-    the diagonal neighbor when present, else the linear extrapolation
-    a + b - c. Updates P in place and returns it."""
-    for gi, (pos, di) in enumerate(sp.corner_list(2, nc)):
-        i0, j0 = int(pos[0]), int(pos[1])
-        d0, d1 = int(di[0]), int(di[1])
-        rows, nbr, erows = bp.c_rows[gi], bp.c_nb[gi], bp.c_ext[gi]
-        if len(rows):
-            ni = nc if i0 == 0 else 1
-            nj = nc if j0 == 0 else 1
-            P[rows, i0, j0] = P[nbr, ni, nj]
-        if len(erows):
-            P[erows, i0, j0] = (P[erows, i0 + d0, j0] + P[erows, i0, j0 + d1]
-                                - P[erows, i0 + d0, j0 + d1])
+    """Edge (3D) and corner ghost cells on [n] + [C]^ndim blocks
+    (af_gc_box_corner): copy from the diagonal neighbor when present, else
+    the linear extrapolation a + b - c (an edge or a 2D corner) or
+    a + b + c - 2 d (a 3D corner). Updates P in place and returns it."""
+    gc.corner_fill_flat(P.view(-1), bp.corners)
     return P
 
 
 def restrict_to_parent(P_f, res_f, Pc, bp: LevelBlockPlan, nc: int):
     """FAS down-transfer (update_coarse, ``m_af_multigrid.f90:691-738``):
     restrict the smoothed fine phi into the parent interiors of ``Pc``
-    (plain 2^d average) and the fine residual (cylindrical-volume-weighted,
-    af_cyl_child_weights). Returns (Pc_updated, res_c) with res_c the
-    restricted residual [n_c, nc, nc] (zero outside parents). Sums run in
-    the order of core/prolong_restrict.restrict."""
-    hnc = nc // 2
+    (plain 2^ndim average) and the fine residual (cylindrical-volume-
+    weighted, af_cyl_child_weights). Returns (Pc_updated, res_c) with res_c
+    the restricted residual [n_c] + [nc]^ndim (zero outside parents). Sums
+    run in the order of core/prolong_restrict.restrict (child bits over
+    dims)."""
+    hnc, ndim = nc // 2, bp.ndim
+    m = len(bp.ch)
+
+    def child_mean(X, w=None):
+        # [m] + [nc]^ndim -> [m, hnc^ndim, 2^ndim], fine cells of each
+        # coarse cell last, in child-bit order
+        perm = ([0] + [1 + 2 * k for k in range(ndim)]
+                + [2 + 2 * k for k in range(ndim)])
+        I = X.reshape((m,) + (hnc, 2) * ndim).permute(perm).reshape(
+            m, hnc ** ndim, 2 ** ndim)
+        acc = 0.0
+        for k, bits in enumerate(itertools.product([0, 1], repeat=ndim)):
+            acc = acc + (I[..., k] if w is None
+                         else w[..., bits[0]] * I[..., k])
+        return acc / 2 ** ndim
+
     Pc = Pc.clone()
-    res_c = torch.zeros((bp.n_c, nc, nc), dtype=P_f.dtype, device=P_f.device)
-    phi_f = P_f[:, 1:nc + 1, 1:nc + 1]
-    for (q0, q1), par, ch, cylw in bp.groups:
-        # fine interiors as (box, i_r, a, i_z, b): coarse cell (i_r, i_z),
-        # child bits (a, b) along (r, z)
-        I = phi_f[ch].reshape(-1, hnc, 2, hnc, 2)
-        vals = (I[:, :, 0, :, 0] + I[:, :, 0, :, 1] + I[:, :, 1, :, 0]
-                + I[:, :, 1, :, 1]) / 4.0
-        rsl = slice(1 + q0 * hnc, 1 + (q0 + 1) * hnc)
-        zsl = slice(1 + q1 * hnc, 1 + (q1 + 1) * hnc)
-        Pc[par, rsl, zsl] = vals
-        Ir = res_f[ch].reshape(-1, hnc, 2, hnc, 2)
-        if cylw is not None:
-            w = cylw.to(P_f.dtype).reshape(-1, hnc, hnc, 2)
-            rvals = (w[..., 0] * Ir[:, :, 0, :, 0] + w[..., 0] * Ir[:, :, 0, :, 1]
-                     + w[..., 1] * Ir[:, :, 1, :, 0]
-                     + w[..., 1] * Ir[:, :, 1, :, 1]) / 4.0
-        else:
-            rvals = (Ir[:, :, 0, :, 0] + Ir[:, :, 0, :, 1] + Ir[:, :, 1, :, 0]
-                     + Ir[:, :, 1, :, 1]) / 4.0
-        res_c[par, q0 * hnc:(q0 + 1) * hnc, q1 * hnc:(q1 + 1) * hnc] = rvals
+    Pc.view(-1)[bp.r_tgt] = child_mean(P_f[bp.ch][_interior(nc, ndim)])
+    res_c = torch.zeros((bp.n_c,) + (nc,) * ndim, dtype=P_f.dtype,
+                        device=P_f.device)
+    w = None if bp.cyl_w is None else bp.cyl_w.to(P_f.dtype)
+    res_c.view(-1)[bp.r_int] = child_mean(res_f[bp.ch], w)
     return Pc, res_c
 
 
 def prolong_add_correction(P_f, corr_c, bp: LevelBlockPlan, nc: int):
     """phi += prolong(phi_c - phi_old_c) (correct_children,
-    ``m_af_multigrid.f90:624-646``) with the linear 4-point prolongation
-    (af_prolong_linear); corr_c is the full coarse block array incl.
-    ghosts."""
-    C = nc + 2
-    corr_flat = corr_c.reshape(-1, C * C)
+    ``m_af_multigrid.f90:624-646``) with the linear 2^ndim-point
+    prolongation (af_prolong_linear); corr_c is the full coarse block
+    array incl. ghosts."""
+    ndim = bp.ndim
+    src = corr_c.reshape(corr_c.shape[0], -1)[bp.par]
+    fine = 0.0
+    for w, sidx in bp.p_corners:
+        fine = fine + float(w) * src[:, sidx]
     P_f = P_f.clone()
-    for parity, par, ch, _w in bp.groups:
-        tb = pr.parity_tables(2, nc, parity, P_f.device)
-        src = corr_flat[par]
-        fine = 0.0
-        for w, sidx in tb.d.corners:
-            fine = fine + float(w) * src[:, sidx]
-        P_f[ch, 1:nc + 1, 1:nc + 1] += fine.reshape(-1, nc, nc)
+    P_f[(bp.ch,) + _interior(nc, ndim)[1:]] += fine.reshape(
+        (len(bp.ch),) + (nc,) * ndim)
     return P_f
 
 
@@ -181,86 +195,95 @@ def prolong_add_correction(P_f, corr_c, bp: LevelBlockPlan, nc: int):
 # ---------------------------------------------------------------------------
 def gather_levels(mg, cc):
     """(P, R) per level from cc: the only full-state reads of a solve."""
-    nc = mg.tree.nc
-    C = nc + 2
+    nc, ndim = mg.tree.nc, mg.tree.ndim
+    block = (nc + 2,) * ndim
     P, R = [], []
     for l in range(1, mg.n_levels + 1):
         ids = mg.mesh.tb(l).d.ids
-        P.append(cc[mg.i_phi, ids].reshape(len(ids), C, C))
-        R.append(cc[mg.i_rhs, ids].reshape(len(ids), C, C)[
-            :, 1:nc + 1, 1:nc + 1].contiguous())
+        P.append(cc[mg.i_phi, ids].reshape((len(ids),) + block))
+        R.append(cc[mg.i_rhs, ids].reshape((len(ids),) + block)[
+            _interior(nc, ndim)].contiguous())
     return P, R
 
 
 def scatter_levels(mg, cc, P, R):
     """Write the per-level phi blocks and the rhs interiors (the FAS rhs of
     the parents) back: the only full-state writes of a solve."""
-    nc = mg.tree.nc
-    C = nc + 2
+    nc, ndim = mg.tree.nc, mg.tree.ndim
+    block = (nc + 2,) * ndim
     for l in range(1, mg.n_levels + 1):
         ids = mg.mesh.tb(l).d.ids
         cc[mg.i_phi, ids] = P[l - 1].reshape(len(ids), -1)
-        Rb = cc[mg.i_rhs, ids].reshape(len(ids), C, C)
-        Rb[:, 1:nc + 1, 1:nc + 1] = R[l - 1]
+        Rb = cc[mg.i_rhs, ids].reshape((len(ids),) + block)
+        Rb[_interior(nc, ndim)] = R[l - 1]
         cc[mg.i_rhs, ids] = Rb.reshape(len(ids), -1)
     return cc
 
 
 def build_A_blocks(mg, lvl: int, Pc, params, dtype):
-    """Ghost constants A [n, 4, nc] of one level: physical boundary values
-    folded with the runtime voltage; mg_sides_rb coarse strips
-    interpolated from the coarse block array ``Pc``
-    (``m_af_multigrid.f90:361-388``)."""
+    """Ghost constants A [n, 2 ndim] + [nc]^(ndim-1) of one level:
+    physical boundary values folded with the runtime voltage;
+    mg_sides_rb coarse strips interpolated from the coarse block array
+    ``Pc`` (``m_af_multigrid.f90:361-388``)."""
     sm = mg.smoother(lvl)
     bp = mg.blocks(lvl)
     plan = mg.mesh.gc(lvl)
-    nc, n = sm.nc, sm.n
-    C = nc + 2
+    nc, n, ndim = sm.nc, sm.n, sm.ndim
+    F = nc ** (ndim - 1)
     device = sm.device
     bc_by_d = {d: gamma for d, _t, gamma in sm.bc_recipe}
     cols = []
-    for d in range(4):
-        Ad = torch.zeros((n, nc), dtype=dtype, device=device)
+    for d in range(2 * ndim):
+        Ad = torch.zeros((n, F), dtype=dtype, device=device)
         gamma = bc_by_d.get(d, 0.0)
         if gamma != 0.0:
             p = plan.dirs[d]
             _, val = mg.sides_bc(mg.i_phi, d, p.bc_coords, params)
             nbc = len(sm.bc_pos[d])
             val = gamma * (as_value(val, Ad)
-                           + torch.zeros((nbc, nc), dtype=dtype,
+                           + torch.zeros((nbc, F), dtype=dtype,
                                          device=device))
             Ad.index_add_(0, sm.bc_pos[d], val)
         if d in sm.rb_dirs and Pc is not None:
-            strips = Pc.reshape(-1, C * C)[bp.rb_cpos[d][:, None],
-                                           bp.rb_tmp[d]]
-            Ad.index_add_(0, sm.rb_pos[d], 0.5 * gc.mg_rb_interp(strips, nc))
+            strips = Pc.reshape(Pc.shape[0], -1)[bp.rb_cpos[d][:, None],
+                                                 bp.rb_tmp[d]]
+            Ad.index_add_(0, sm.rb_pos[d],
+                          0.5 * gc.mg_rb_interp(strips, ndim, nc))
         cols.append(Ad)
-    return torch.stack(cols, dim=1).contiguous()
+    return torch.stack(cols, dim=1).reshape(
+        (n, 2 * ndim) + (nc,) * (ndim - 1)).contiguous()
 
 
 def smooth_blocks(mg, lvl: int, P_l, R_l, A_l, cs_l, n_cycle: int,
                   up_cycle: bool):
     """gsrb_boxes on a level's block array (``m_af_multigrid.f90:648-687``):
-    the (sweep, fill) x 2 n_cycle sequence as sweep; [fill+sweep] ...;
-    fill, i.e. K2, K1 for every interior pair, then K3. Corner ghosts are
+    2 n_cycle (sweep, fill) half sweeps. In 2D that is sweep;
+    [fill+sweep] ...; fill, i.e. K2, K1 for every interior pair, then K3;
+    in 3D K4 then K5 for every half sweep. Edge and corner ghosts are
     stored after the final upward half sweep."""
     sm = mg.smoother(lvl)
     masks = mg.parity_masks(2 * n_cycle)
     W = sm.W(P_l.dtype)
-    P_l = ks.sweep_2d(P_l, R_l, masks[0], sm.g, cs_l)
-    for mask in masks[1:]:
-        P_l = ks.fill_sweep_2d(P_l, R_l, mask, A_l, sm.g, W, cs_l)
-    P_l = ks.fill_2d(P_l, A_l, sm.g, W)
+    if sm.ndim == 2:
+        P_l = ks.sweep_2d(P_l, R_l, masks[0], sm.g, cs_l)
+        for mask in masks[1:]:
+            P_l = ks.fill_sweep_2d(P_l, R_l, mask, A_l, sm.g, W, cs_l)
+        P_l = ks.fill_2d(P_l, A_l, sm.g, W)
+    else:
+        for mask in masks:
+            P_l = ks.sweep_3d(P_l, R_l, mask, sm.g, cs_l)
+            P_l = ks.fill_3d(P_l, A_l, sm.g, W)
     if up_cycle:
         P_l = corner_fill_blocks(P_l, mg.blocks(lvl), sm.nc)
     return P_l
 
 
 def fill_blocks(mg, lvl: int, P_l, A_l):
-    """Side ghosts (K3) and corners of one level's blocks (af_gc_tree on
-    one level)."""
+    """Side ghosts (K3 in 2D, K5 in 3D), then edges and corners, of one
+    level's blocks (af_gc_tree on one level)."""
     sm = mg.smoother(lvl)
-    P_l = ks.fill_2d(P_l, A_l, sm.g, sm.W(P_l.dtype))
+    fill = ks.fill_2d if sm.ndim == 2 else ks.fill_3d
+    P_l = fill(P_l, A_l, sm.g, sm.W(P_l.dtype))
     return corner_fill_blocks(P_l, mg.blocks(lvl), sm.nc)
 
 
@@ -279,7 +302,7 @@ def _restrict_level(mg, l, P, R, params):
     Pc, res_c = restrict_to_parent(P[li], res, P[li - 1], mg.blocks(l), nc)
     Pc = fill_blocks(mg, l - 1, Pc, _A(mg, l - 1, P, params, dtype))
     Lp = apply_cs(Pc, mg.cs(l - 1, dtype), nc)
-    pm = mg.blocks(l).parent_mask[:, None, None]
+    pm = mg.blocks(l).parent_mask.reshape((-1,) + (1,) * mg.tree.ndim)
     R[li - 1] = torch.where(pm, Lp + res_c, R[li - 1])
     P[li - 1] = Pc
 

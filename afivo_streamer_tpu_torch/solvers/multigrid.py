@@ -1,4 +1,4 @@
-"""Geometric multigrid (FAS-FMG / FAS V-cycle) over the box batch (2D).
+"""Geometric multigrid (FAS-FMG / FAS V-cycle) over the box batch.
 
 Re-designs the reference's ``afivo/src/m_af_multigrid.f90``: downward
 red-black GSRB smoothing with a ghost exchange after every half sweep
@@ -8,7 +8,7 @@ red-black GSRB smoothing with a ghost exchange after every half sweep
 (solvers/mg_blocks.py) whose smoothing and ghost fills are the kernels of
 ops/smoother.py.
 
-The red-black update colors cells by (i+j) parity matching stencil_gsrb_357
+The red-black update colors cells by (i+j[+k]) parity matching stencil_gsrb_357
 (``m_af_stencil.f90:820-980``), including the cylindrical gradient
 correction via radial flux factors (af_cyl_flux_factors,
 ``m_af_types.f90:1199-1212``). The level-1 solve replaces the reference's
@@ -30,29 +30,28 @@ from . import mg_blocks as mgb
 from .coarse import CoarseSolver
 
 
-def parity_mask(nc: int, redblack: int) -> np.ndarray:
-    """Cells updated in a half sweep: (i+j) % 2 == redblack % 2 with
+def parity_mask(ndim: int, nc: int, redblack: int) -> np.ndarray:
+    """Cells updated in a half sweep: (i+j[+k]) % 2 == redblack % 2 with
     1-based indices (stencil_gsrb_357)."""
-    idx = np.arange(1, nc + 1)
-    i, j = np.meshgrid(idx, idx, indexing="ij")
-    return ((i + j) % 2) == (redblack % 2)
+    mesh = np.meshgrid(*[np.arange(1, nc + 1)] * ndim, indexing="ij")
+    return (sum(mesh) % 2) == (redblack % 2)
 
 
 class LevelOp:
-    """Operator coefficients for one level: center + 4 neighbor
-    coefficients, each broadcastable against [n, nc, nc] blocks (host
+    """Operator coefficients for one level: center + 2 ndim neighbor
+    coefficients, each broadcastable against [n] + [nc]^ndim blocks (host
     NumPy float64).
 
-    Normal box: the constant 5-point Laplacian - helmholtz_lambda
+    Normal box: the constant 5/7-point Laplacian - helmholtz_lambda
     (mg_box_lpl_stencil, ``m_af_multigrid.f90:1227-1245``); cylindrical
     coordinates scale the radial couplings by the flux factors."""
 
     def __init__(self, tree, lvl: int, lam: float):
-        nc = tree.nc
+        nc, ndim = tree.nc, tree.ndim
         dr = tree.lvl_dr(lvl)
         inv_dr2 = 1.0 / dr**2
         ids = tree.lvl_ids[lvl - 1]
-        c_nb = [float(inv_dr2[d // 2]) for d in range(4)]
+        c_nb = [float(inv_dr2[d // 2]) for d in range(2 * ndim)]
         c0 = -2.0 * float(np.sum(inv_dr2)) - lam
         if tree.coord == "cyl":
             # radial flux factors per box (dim 0 is r)
@@ -81,8 +80,6 @@ class Multigrid:
     def __init__(self, mesh: MeshPlans, i_phi: int, i_rhs: int,
                  sides_bc: Callable, helmholtz_lambda: float = 0.0,
                  n_cycle_down: int = 2, n_cycle_up: int = 2):
-        if mesh.tree.ndim != 2:
-            raise NotImplementedError("solvers/multigrid.py: ndim != 2")
         self.mesh = mesh
         self.tree = mesh.tree
         self.i_phi, self.i_rhs = i_phi, i_rhs
@@ -120,9 +117,10 @@ class Multigrid:
         return self.smoother(lvl).cs(self.op(lvl), dtype)
 
     def parity_masks(self, n_half: int) -> list:
-        """float32 [nc, nc] masks of half sweeps 1..n_half."""
+        """float32 [nc]^ndim masks of half sweeps 1..n_half."""
         def make():
-            return [torch.as_tensor(parity_mask(self.tree.nc, k),
+            return [torch.as_tensor(parity_mask(self.tree.ndim,
+                                                self.tree.nc, k),
                                     dtype=torch.float32,
                                     device=self.mesh.device)
                     for k in range(1, n_half + 1)]
@@ -163,28 +161,36 @@ class Multigrid:
     def compute_phi_gradient(self, cc, fc, i_fc: int, fac: float):
         """fc = fac * grad(phi) on all boxes (mg_compute_phi_gradient /
         mg_box_lpl_gradient, ``m_af_multigrid.f90:1837-1974``)."""
-        nc = self.tree.nc
+        nc, ndim = self.tree.nc, self.tree.ndim
         ids, inv_dr = self._all_ids_inv_dr()
-        B = cc[self.i_phi, ids].reshape(len(ids), nc + 2, nc + 2)
+        B = cc[self.i_phi, ids].reshape((len(ids),) + (nc + 2,) * ndim)
         inv_dr = inv_dr.to(cc.dtype)
-        g0 = (float(fac) * inv_dr[:, 0][:, None, None]
-              * (B[:, 1:nc + 2, 1:nc + 1] - B[:, 0:nc + 1, 1:nc + 1]))
-        fc_set_faces(fc, i_fc, 0, ids, g0, nc, 2)
-        g1 = (float(fac) * inv_dr[:, 1][:, None, None]
-              * (B[:, 1:nc + 1, 1:nc + 2] - B[:, 1:nc + 1, 0:nc + 1]))
-        fc_set_faces(fc, i_fc, 1, ids, g1, nc, 2)
+        bshape = (slice(None),) + (None,) * ndim
+        for d in range(ndim):
+            lo = [slice(0, nc + 1) if k == d else slice(1, nc + 1)
+                  for k in range(ndim)]
+            hi = [slice(1, nc + 2) if k == d else slice(1, nc + 1)
+                  for k in range(ndim)]
+            g = (float(fac) * inv_dr[:, d][bshape]
+                 * (B[(slice(None),) + tuple(hi)]
+                    - B[(slice(None),) + tuple(lo)]))
+            fc_set_faces(fc, i_fc, d, ids, g, nc, ndim)
         return fc
 
     def compute_field_norm(self, cc, fc, i_fc: int, i_norm: int):
         """Cell-centered norm of a face field (mg_box_field_norm,
         ``m_af_multigrid.f90:1995-2025``): average of the two faces."""
-        nc = self.tree.nc
+        nc, ndim = self.tree.nc, self.tree.ndim
         ids, _ = self._all_ids_inv_dr()
-        F0 = fc_get_faces(fc, i_fc, 0, ids, nc, 2)
-        F1 = fc_get_faces(fc, i_fc, 1, ids, nc, 2)
-        acc = (0.0 + (F0[:, 0:nc, :] + F0[:, 1:nc + 1, :]) ** 2
-               + (F1[:, :, 0:nc] + F1[:, :, 1:nc + 1]) ** 2)
-        B = cc[i_norm, ids].reshape(len(ids), nc + 2, nc + 2)
-        B[:, 1:nc + 1, 1:nc + 1] = 0.5 * torch.sqrt(acc)
+        acc = 0.0
+        for d in range(ndim):
+            F = fc_get_faces(fc, i_fc, d, ids, nc, ndim)
+            lo = tuple(slice(0, nc) if k == d else slice(None)
+                       for k in range(ndim))
+            hi = tuple(slice(1, nc + 1) if k == d else slice(None)
+                       for k in range(ndim))
+            acc = acc + (F[(slice(None),) + lo] + F[(slice(None),) + hi]) ** 2
+        B = cc[i_norm, ids].reshape((len(ids),) + (nc + 2,) * ndim)
+        B[(slice(None),) + (slice(1, nc + 1),) * ndim] = 0.5 * torch.sqrt(acc)
         cc[i_norm, ids] = B.reshape(len(ids), -1)
         return cc

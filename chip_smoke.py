@@ -6,17 +6,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 CUDA device, nvcc and nvidia-smi, and imports nothing of JAX. Phases (any
 failure exits non-zero):
 
-1. build the smoother kernels from afivo_streamer_tpu_torch/csrc;
-2. hold each kernel (K1 fill_sweep_2d, K2 sweep_2d, K3 fill_2d) against
-   its plain PyTorch version on the card at the slice's shapes (n = 4096
-   boxes, nc = 8) in float64 and float32, and time both;
-3. run the committed slice config on the card and on the CPU (plain
-   kernels) at 64 x 64 cells for 3 steps and compare the states;
-4. run the full-size slice (uniform 512 x 512 cells, 5460 boxes, float64,
-   20 steps) through Simulation/run, counting the kernel launches.
+1. build the smoother kernels from afivo_streamer_tpu_torch/csrc (one nvcc
+   per source, started together);
+2. hold each kernel (2D: K1 fill_sweep_2d, K2 sweep_2d, K3 fill_2d; 3D:
+   K4 sweep_3d, K5 fill_3d) against its plain PyTorch version on the card
+   at the slices' shapes (n = 4096 boxes, nc = 8) in float64 and float32,
+   and time both;
+3. run the committed 2D slice config on the card and on the CPU (plain
+   kernels) at 64 x 64 cells for 3 steps and compare the states; 3b. the
+   same for the 3D slice config at 32^3 cells;
+4. run the full-size 2D slice (uniform 512 x 512 cells, 5460 boxes,
+   float64) through Simulation/run, counting the kernel launches;
+5. run the full-size 3D slice (uniform 128^3 cells, 4680 boxes, float64,
+   10 steps) the same way.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The launch counts are set to 0 just before each full-size run and read
+just after it. The line before the last is a JSON object with one entry
+per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -26,53 +32,68 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-CFG = ROOT / "afivo_streamer_tpu_torch" / "data" / "air_cyl_slice.cfg"
-TABLE = ROOT / "afivo_streamer_tpu_torch" / "data" / "td_air_synthetic.txt"
-SOURCE = "afivo_streamer_tpu_torch/csrc/smoother.cu"
+DATA = ROOT / "afivo_streamer_tpu_torch" / "data"
+CFG = {2: DATA / "air_cyl_slice.cfg", 3: DATA / "air_3d_slice.cfg"}
+TABLE = DATA / "td_air_synthetic.txt"
+SOURCE = {2: "afivo_streamer_tpu_torch/csrc/smoother.cu",
+          3: "afivo_streamer_tpu_torch/csrc/smoother_3d.cu"}
 REPLACES = {"fill_sweep_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:397",
             "sweep_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:229",
-            "fill_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:302"}
+            "fill_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:302",
+            "sweep_3d": "afivo_streamer_tpu/ops/pallas_smoother.py:574",
+            "fill_3d": "afivo_streamer_tpu/ops/pallas_smoother.py:637"}
 N_BOXES, NC = 4096, 8
 #: kernel vs plain tolerance: float64 to rounding (the kernel may fuse a
 #: multiply-add), float32 to its own rounding
 TOL = {"float64": 1e-12, "float32": 2e-5}
-SMALL_STEPS, BIG_STEPS = 3, 20
-BACKGROUND_FIELD = 1.8e6  # V/m, the config's field_given_by
+SMALL_STEPS = 3
+#: full-size runs per dimension: refine_max_dx, leaf cells, boxes, steps
+FULL = {2: (3.2e-5, 512 ** 2, 5460, 20), 3: (1.25e-4, 128 ** 3, 4680, 10)}
+#: the cuda-vs-cpu runs per dimension: refine_max_dx and a label
+SMALL = {2: (2.5e-4, "64x64"), 3: (5e-4, "32^3")}
+BACKGROUND_FIELD = 1.8e6  # V/m, the configs' field_given_by
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def kernel_inputs(torch, dtype, device, seed):
-    """Random blocks at the slice's shapes, a neighbor table with random
+def kernel_inputs(torch, dtype, device, seed, ndim):
+    """Random blocks at the slices' shapes, a neighbor table with random
     self-rows, and a stencil with |c0| >= 1."""
     gen = torch.Generator().manual_seed(seed)
     n, nc, C = N_BOXES, NC, NC + 2
+    nd = 2 * ndim
+    cube = (nc,) * ndim
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, dtype=torch.float64)
-    g = torch.empty((n, 5), dtype=torch.int32)
+    g = torch.empty((n, 1 + nd), dtype=torch.int32)
     g[:, 0] = torch.arange(n, dtype=torch.int32)
-    g[:, 1:] = torch.randint(0, n, (n, 4), generator=gen, dtype=torch.int32)
-    selfrow = torch.rand((n, 4), generator=gen) < 0.25
-    g[:, 1:][selfrow] = g[:, :1].expand(n, 4)[selfrow]
-    cs = rnd(n, 6, nc, nc)
-    cs[:, 0] = -(1.0 + torch.rand((n, nc, nc), generator=gen,
+    g[:, 1:] = torch.randint(0, n, (n, nd), generator=gen, dtype=torch.int32)
+    selfrow = torch.rand((n, nd), generator=gen) < 0.25
+    g[:, 1:][selfrow] = g[:, :1].expand(n, nd)[selfrow]
+    cs = rnd(n, 2 + nd, *cube)
+    cs[:, 0] = -(1.0 + torch.rand((n,) + cube, generator=gen,
                                   dtype=torch.float64))
     idx = torch.arange(1, nc + 1)
-    mask = (((idx[:, None] + idx[None, :]) % 2) == 1).to(torch.float32)
-    x = {"phi3": rnd(n, C, C), "R": rnd(n, nc, nc), "A": rnd(n, 4, nc),
-         "W": rnd(n, 4, 8), "cs": cs}
+    parity = sum(torch.meshgrid(*[idx] * ndim, indexing="ij"))
+    mask = ((parity % 2) == 1).to(torch.float32)
+    x = {"phi3": rnd(n, *(C,) * ndim), "R": rnd(n, *cube),
+         "A": rnd(n, nd, *(nc,) * (ndim - 1)), "W": rnd(n, nd, 8), "cs": cs}
     x = {k: v.to(dtype) for k, v in x.items()}
     x.update(mask=mask, g=g)
     return {k: v.to(device).contiguous() for k, v in x.items()}
 
 
+def ndim_of(name):
+    return int(name[-2])
+
+
 def call(fn, x, name):
-    if name == "sweep_2d":
+    if name in ("sweep_2d", "sweep_3d"):
         return fn(x["phi3"], x["R"], x["mask"], x["g"], x["cs"])
-    if name == "fill_2d":
+    if name in ("fill_2d", "fill_3d"):
         return fn(x["phi3"], x["A"], x["g"], x["W"])
     return fn(x["phi3"], x["R"], x["mask"], x["A"], x["g"], x["W"], x["cs"])
 
@@ -96,8 +117,10 @@ def phase_kernels(torch, ks):
     results = {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[1]
-        x = kernel_inputs(torch, dtype, "cuda", seed=20261016)
+        xs = {nd: kernel_inputs(torch, dtype, "cuda", 20261016, nd)
+              for nd in (2, 3)}
         for name, fn in ks.KERNELS.items():
+            x = xs[ndim_of(name)]
             want = call(ks.PLAIN[name], x, name)
             got = call(fn, x, name)
             torch.cuda.synchronize()
@@ -118,19 +141,22 @@ def phase_kernels(torch, ks):
     return results
 
 
-def slice_argv(out, refine_max_dx, device):
-    return [str(CFG), "-ndim=2", f"-refine_max_dx={refine_max_dx}",
+def slice_argv(out, ndim, refine_max_dx, device):
+    return [str(CFG[ndim]), f"-ndim={ndim}", f"-refine_max_dx={refine_max_dx}",
             f"-input_data%file={TABLE}", f"-output%name={out}",
             f"-device={device}"]
 
 
-def phase_cpu_vs_cuda(torch, Simulation, out_dir):
-    """Phase 3: the port on the card against the port on the CPU (plain
-    kernels), 64 x 64 cells, float64, 3 steps, rtol 1e-9 per variable."""
+def phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim):
+    """Phase 3 (2D, 64 x 64 cells) and 3b (3D, 32^3 cells): the port on the
+    card against the port on the CPU (plain kernels), float64, 3 steps,
+    rtol 1e-9 per variable."""
+    phase = "3" if ndim == 2 else "3b"
+    refine_max_dx, label = SMALL[ndim]
     sims = {}
     for dev in ("cpu", "cuda"):
-        sim = Simulation(argv=slice_argv(out_dir / f"small_{dev}", 2.5e-4,
-                                         dev))
+        sim = Simulation(argv=slice_argv(out_dir / f"small{ndim}d_{dev}",
+                                         ndim, refine_max_dx, dev))
         sim.run(max_steps=SMALL_STEPS)
         sims[dev] = sim
     a = sims["cpu"].cc
@@ -150,30 +176,38 @@ def phase_cpu_vs_cuda(torch, Simulation, out_dir):
         dt_rel = abs(sims["cpu"].global_dt / sims["cuda"].global_dt - 1)
         if dt_rel > 1e-9:
             raise RuntimeError(f"cuda vs cpu: dt differs by {dt_rel}")
-    log(f"phase 3: cuda vs cpu at 64x64, {SMALL_STEPS} steps: worst "
+    log(f"phase {phase}: cuda vs cpu at {label}, {SMALL_STEPS} steps: worst "
         f"variable-scaled deviation {worst:.3e} (limit 1e-9)")
 
 
-def phase_full_slice(torch, ks, Simulation, mgb, out_dir):
-    """Phase 4: the full-size slice on the card; returns launch counts."""
+def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim):
+    """Phase 4 (2D) and 5 (3D): a full-size slice on the card; returns the
+    launch counts of that run's kernels."""
+    phase = "4" if ndim == 2 else "5"
+    refine_max_dx, want_cells, want_boxes, steps = FULL[ndim]
+    torch.cuda.reset_peak_memory_stats()
     ks.reset_launch_counts()
     t0 = time.perf_counter()
-    sim = Simulation(argv=slice_argv(out_dir / "full", 3.2e-5, "cuda"))
+    sim = Simulation(argv=slice_argv(out_dir / f"full{ndim}d", ndim,
+                                     refine_max_dx, "cuda"))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    sim.run(max_steps=BIG_STEPS)
+    sim.run(max_steps=steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {name: fn.launches for name, fn in ks.KERNELS.items()}
-    n_leaf = sum(len(l) for l in sim.tree.lvl_leaves) * sim.tree.nc ** 2
+    launches = {name: fn.launches for name, fn in ks.KERNELS.items()
+                if ndim_of(name) == ndim}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaf = sum(len(l) for l in sim.tree.lvl_leaves) * sim.tree.nc ** ndim
     n_boxes = sim.tree.highest_id
-    log(f"phase 4: {n_leaf} leaf cells, {n_boxes} boxes, "
+    log(f"phase {phase}: {n_leaf} leaf cells, {n_boxes} boxes, "
         f"{sim.tree.highest_lvl} levels; setup {t1 - t0:.2f} s, "
-        f"{BIG_STEPS} steps {t2 - t1:.2f} s = "
-        f"{1e3 * (t2 - t1) / BIG_STEPS:.2f} ms/step; t = "
-        f"{sim.global_time:.4e} s, dt = {sim.global_dt:.4e} s")
-    log(f"phase 4: kernel launches {launches}")
-    if n_leaf != 512 * 512 or n_boxes != 5460:
+        f"{steps} steps {t2 - t1:.2f} s = "
+        f"{1e3 * (t2 - t1) / steps:.2f} ms/step; t = "
+        f"{sim.global_time:.4e} s, dt = {sim.global_dt:.4e} s; peak memory "
+        f"{peak_gb:.3f} GB")
+    log(f"phase {phase}: kernel launches {launches}")
+    if n_leaf != want_cells or n_boxes != want_boxes:
         raise RuntimeError(f"unexpected mesh: {n_leaf} cells, {n_boxes} boxes")
     if not all(v > 0 for v in launches.values()):
         raise RuntimeError(f"a kernel was not launched: {launches}")
@@ -181,17 +215,19 @@ def phase_full_slice(torch, ks, Simulation, mgb, out_dir):
             not bool(torch.isfinite(sim.fc[:, :, :n_boxes]).all()):
         raise RuntimeError("non-finite state after the full slice")
     emax = float(sim.cc[sim.i_electric_fld, :n_boxes].max())
-    log(f"phase 4: max(E) = {emax:.4e} V/m (background {BACKGROUND_FIELD:.2e})")
+    log(f"phase {phase}: max(E) = {emax:.4e} V/m (background "
+        f"{BACKGROUND_FIELD:.2e})")
     if not emax > BACKGROUND_FIELD:
         raise RuntimeError("max(E) did not rise above the background field")
 
-    # V-cycle time on the final state (gather once, then cycles)
+    # V-cycle time on the final state (gather once, then cycles); these
+    # launches are not counted as the run's
     mg = sim.field.mg
     params = {"voltage": sim.field.current_voltage}
     P, R = mgb.gather_levels(mg, sim.cc)
     vc_ms = time_ms(torch, lambda: mgb.fas_vcycle_blocks(mg, P, R, params),
                     reps=10)
-    log(f"phase 4: {vc_ms:.3f} ms per V-cycle ({sim.tree.highest_lvl} "
+    log(f"phase {phase}: {vc_ms:.3f} ms per V-cycle ({sim.tree.highest_lvl} "
         f"levels, float64)")
     return launches
 
@@ -218,19 +254,27 @@ def main():
         f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    path, build_log = ks.build_library()
-    ks._library()
-    log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.2f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"phase 1: ptxas {line.strip()}")
+    built = ks.build_libraries()
+    for entry in built:
+        ks._library(entry)
+    log(f"phase 1: built {', '.join(p.name for p, _ in built.values())} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for _path, build_log in built.values():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"phase 1: ptxas {line.strip()}")
 
     results = phase_kernels(torch, ks)
     out_dir = ROOT / "out" / "chip_smoke"
-    phase_cpu_vs_cuda(torch, Simulation, out_dir)
-    launches = phase_full_slice(torch, ks, Simulation, mgb, out_dir)
+    for ndim in (2, 3):
+        phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim)
+    launches = {}
+    for ndim in (2, 3):
+        launches.update(phase_full_slice(torch, ks, Simulation, mgb,
+                                         out_dir, ndim))
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+    kernels = [{"name": name, "route": "cuda",
+                "source": SOURCE[ndim_of(name)],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": results[name]["max_abs_err"],
                 "ms": results[name]["ms"],

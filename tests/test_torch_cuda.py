@@ -4,9 +4,10 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
 
-* each CUDA smoother kernel against its plain PyTorch version on the same
-  inputs, float64 and float32;
-* the slice on the card against the slice on the CPU (plain kernels).
+* each CUDA smoother kernel (K1-K3 in 2D, K4-K5 in 3D) against its plain
+  PyTorch version on the same inputs, float64 and float32;
+* the 2D and 3D slices on the card against the same slices on the CPU
+  (plain kernels).
 """
 
 from pathlib import Path
@@ -27,42 +28,48 @@ def cuda():
     return torch.device("cuda")
 
 
-def inputs(n, nc, dtype, device, seed=7):
+def inputs(n, nc, dtype, device, seed=7, ndim=2):
     gen = torch.Generator().manual_seed(seed)
     C = nc + 2
-    g = torch.empty((n, 5), dtype=torch.int32)
+    nd = 2 * ndim
+    cube = (nc,) * ndim
+    g = torch.empty((n, 1 + nd), dtype=torch.int32)
     g[:, 0] = torch.randperm(n, generator=gen).to(torch.int32)
-    g[:, 1:] = torch.randint(0, n, (n, 4), generator=gen, dtype=torch.int32)
-    cs = torch.randn(n, 6, nc, nc, generator=gen, dtype=torch.float64)
-    cs[:, 0] = -1.0 - torch.rand(n, nc, nc, generator=gen,
+    g[:, 1:] = torch.randint(0, n, (n, nd), generator=gen, dtype=torch.int32)
+    cs = torch.randn((n, 2 + nd) + cube, generator=gen, dtype=torch.float64)
+    cs[:, 0] = -1.0 - torch.rand((n,) + cube, generator=gen,
                                  dtype=torch.float64)
     idx = torch.arange(1, nc + 1)
-    x = {"phi3": torch.randn(n, C, C, generator=gen, dtype=torch.float64),
-         "R": torch.randn(n, nc, nc, generator=gen, dtype=torch.float64),
-         "A": torch.randn(n, 4, nc, generator=gen, dtype=torch.float64),
-         "W": torch.randn(n, 4, 8, generator=gen, dtype=torch.float64),
+    parity = sum(torch.meshgrid(*[idx] * ndim, indexing="ij"))
+    x = {"phi3": torch.randn((n,) + (C,) * ndim, generator=gen,
+                             dtype=torch.float64),
+         "R": torch.randn((n,) + cube, generator=gen, dtype=torch.float64),
+         "A": torch.randn((n, nd) + (nc,) * (ndim - 1), generator=gen,
+                          dtype=torch.float64),
+         "W": torch.randn(n, nd, 8, generator=gen, dtype=torch.float64),
          "cs": cs}
     x = {k: v.to(dtype) for k, v in x.items()}
     x["g"] = g
-    x["mask"] = (((idx[:, None] + idx[None, :]) % 2) == 0).to(torch.float32)
+    x["mask"] = ((parity % 2) == 0).to(torch.float32)
     return {k: v.to(device).contiguous() for k, v in x.items()}
 
 
 def call(fn, x, name):
-    if name == "sweep_2d":
+    if name.startswith("sweep"):
         return fn(x["phi3"], x["R"], x["mask"], x["g"], x["cs"])
-    if name == "fill_2d":
+    if name.startswith("fill_") and "sweep" not in name:
         return fn(x["phi3"], x["A"], x["g"], x["W"])
     return fn(x["phi3"], x["R"], x["mask"], x["A"], x["g"], x["W"], x["cs"])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("name", ["fill_sweep_2d", "sweep_2d", "fill_2d"])
+@pytest.mark.parametrize("name", ["fill_sweep_2d", "sweep_2d", "fill_2d",
+                                  "sweep_3d", "fill_3d"])
 def test_cuda_kernel_matches_plain(name, dtype, cuda):
     """Tolerance: float64 1e-12, float32 2e-5 (the kernel may fuse a
     multiply-add where the plain version rounds twice)."""
-    x = inputs(512, 8, dtype, cuda)
+    x = inputs(512, 8, dtype, cuda, ndim=int(name[-2]))
     want = call(ks.PLAIN[name], x, name)
     before = ks.KERNELS[name].launches
     got = call(ks.KERNELS[name], x, name)
@@ -79,17 +86,39 @@ def test_cuda_wrapper_rejects_bad_arguments(cuda):
         ks.fill_2d(x["phi3"], x["A"], x["g"].long(), x["W"])
     with pytest.raises(ValueError):
         ks.sweep_2d(x["phi3"], x["R"], x["mask"], x["g"], x["cs"].cpu())
+    x3 = inputs(16, 8, torch.float64, cuda, ndim=3)
+    with pytest.raises(ValueError):  # a 2D block array to the 3D kernel
+        ks.fill_3d(x["phi3"], x3["A"], x3["g"], x3["W"])
+    with pytest.raises(ValueError):  # 2D neighbor table
+        ks.sweep_3d(x3["phi3"], x3["R"], x3["mask"], x["g"], x3["cs"])
+    with pytest.raises(ValueError):  # float32 ghost weights
+        ks.fill_3d(x3["phi3"], x3["A"], x3["g"], x3["W"].float())
 
 
 @pytest.mark.gpu
 def test_slice_cuda_matches_cpu(cuda, tmp_path):
-    """The committed slice at 32 x 32 cells, 2 steps: the state on the card
-    against the state on the CPU, rtol 1e-9 per variable."""
+    """The committed 2D slice at 32 x 32 cells, 2 steps: the state on the
+    card against the state on the CPU, rtol 1e-9 per variable."""
+    slice_cuda_vs_cpu(tmp_path, "air_cyl_slice.cfg", 2)
+
+
+@pytest.mark.gpu
+def test_slice_3d_cuda_matches_cpu(cuda, tmp_path):
+    """The committed 3D slice at 32^3 cells, 2 steps, through K4 and K5:
+    the state on the card against the state on the CPU, rtol 1e-9 per
+    variable."""
+    before = (ks.sweep_3d.launches, ks.fill_3d.launches)
+    slice_cuda_vs_cpu(tmp_path, "air_3d_slice.cfg", 3)
+    assert ks.sweep_3d.launches > before[0]
+    assert ks.fill_3d.launches > before[1]
+
+
+def slice_cuda_vs_cpu(tmp_path, cfg, ndim):
     from afivo_streamer_tpu_torch.driver import Simulation
     sims = []
     for dev in ("cpu", "cuda"):
         sim = Simulation(argv=[
-            str(DATA / "air_cyl_slice.cfg"), "-ndim=2",
+            str(DATA / cfg), f"-ndim={ndim}",
             "-refine_max_dx=5e-4",
             f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
             f"-output%name={tmp_path}/{dev}", f"-device={dev}"])

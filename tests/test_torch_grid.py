@@ -1,15 +1,21 @@
 """The port's grid substrate against the JAX package's host (NumPy) path on
 the refined meshes of tests/test_mg_blocks.py (two refinement levels over
 one corner, so every level has same-level, physical and refinement
-boundaries):
+boundaries), and on their 3D counterpart ("xyz3d": the mesh of
+tests/test_pallas_smoother.py::test_pallas_vcycle_matches_host_3d refined
+a second time, so that it has refinement boundaries, edges and corners
+without diagonal neighbors):
 
 * equal tree tables;
-* equal ghost fills (mg_sides_rb, interp, interp_lim; side + corner);
+* equal ghost fills (mg_sides_rb, interp, interp_lim; side + corner, and
+  the 3D edges);
 * equal restriction (plain and cylindrical-volume weighted);
 * equal linear prolongation of a correction (the block form of the port
   against the host af_prolong_linear);
 * equal 2-ghost extended arrays (incl. the limited refinement-boundary
-  prolongation) and fine-to-coarse flux matching of the fluid step.
+  prolongation with the limiter each package's driver chooses for the
+  dimension: MC in 2D, gminmod43 in 3D) and fine-to-coarse flux matching
+  of the fluid step.
 
 All float64; rtol 1e-13 (the operations are the same arithmetic in the
 same order except the block prolongation, whose sums are reordered).
@@ -24,7 +30,7 @@ import torch
 from afivo_streamer_tpu.core import ghostcell as gc
 from afivo_streamer_tpu.core import prolong_restrict as pr
 from afivo_streamer_tpu.core.tree import Tree, DO_REF, KEEP_REF
-from afivo_streamer_tpu.ops.limiters import LIMITER_MC
+from afivo_streamer_tpu.ops.limiters import LIMITER_GMINMOD43, LIMITER_MC
 from afivo_streamer_tpu.physics import fluid as jfl
 
 from afivo_streamer_tpu_torch.core import ghostcell as tgc
@@ -37,17 +43,19 @@ from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
 torch.set_num_threads(1)
 
 NC = 8
-COORDS = ["xyz", "cyl"]
+COORDS = ["xyz", "cyl", "xyz3d"]
 
 
 def make_tree(cls, coord):
-    """Level 1 16x16 cells on [0, 1]^2 (cylindrical: r from 0.5), refined
-    twice where the box corner is below 0.45."""
-    t = cls(2, NC, [1.0, 1.0], [16, 16], coord=coord,
+    """Level 1 16^ndim cells on [0, 1]^ndim (cylindrical: r from 0.5),
+    refined twice where the box corner is below 0.45."""
+    ndim = 3 if coord == "xyz3d" else 2
+    t = cls(ndim, NC, [1.0] * ndim, [16] * ndim,
+            coord="cyl" if coord == "cyl" else "xyz",
             r_min=[0.5, 0.0] if coord == "cyl" else None)
 
     def flags(ids):
-        out = np.full([len(ids), NC, NC], KEEP_REF, np.int64)
+        out = np.full([len(ids)] + [NC] * ndim, KEEP_REF, np.int64)
         for n, b in enumerate(ids):
             r0 = t.box_r_min(np.asarray([int(b)]))[0] - t.r_base
             if np.all(r0 < 0.45) and t.lvl[int(b)] == t.highest_lvl:
@@ -65,7 +73,8 @@ def trees(coord):
 
 def random_cc(t, n_var=3, seed=0):
     rng = np.random.default_rng(seed)
-    return rng.standard_normal((n_var, t.highest_id, (NC + 2) ** 2)) + 2.0
+    return rng.standard_normal(
+        (n_var, t.highest_id, (NC + 2) ** t.ndim)) + 2.0
 
 
 def bc(mod):
@@ -124,7 +133,7 @@ def test_prolongation_of_correction_matches(coord):
     tj, tt = trees(coord)
     cc = random_cc(tj, seed=3)
     mesh = MeshPlans(tt, "cpu")
-    C = NC + 2
+    block = (NC + 2,) * tt.ndim
     for lvl in range(2, tj.highest_lvl + 1):
         want = pr.prolong(cc.copy(), pr.get_full_plan(tj, lvl), [1],
                           "linear", add=True, ivs_to=[0])
@@ -132,8 +141,8 @@ def test_prolongation_of_correction_matches(coord):
         ct = torch.as_tensor(cc)
         ids_f = mesh.tb(lvl).d.ids
         ids_c = mesh.tb(lvl - 1).d.ids
-        P_f = ct[0, ids_f].reshape(-1, C, C)
-        corr = ct[1, ids_c].reshape(-1, C, C)
+        P_f = ct[0, ids_f].reshape((-1,) + block)
+        corr = ct[1, ids_c].reshape((-1,) + block)
         got = mgb.prolong_add_correction(P_f, corr, bp, NC)
         np.testing.assert_allclose(
             got.reshape(len(ids_f), -1).numpy(),
@@ -142,7 +151,13 @@ def test_prolongation_of_correction_matches(coord):
 
 @pytest.mark.parametrize("coord", COORDS)
 def test_gc2_extend_matches(coord):
+    """Each package with the prolongation limiter its driver passes to the
+    fluid model for the mesh's dimension."""
     tj, tt = trees(coord)
+    lim_j = pr.default_prolong_limiter(tj.ndim)
+    lim_t = tpr.default_prolong_limiter(tt.ndim)
+    assert lim_t == lim_j == (LIMITER_MC if tt.ndim == 2
+                              else LIMITER_GMINMOD43)
     cc = random_cc(tj, seed=4)
     want_cc = cc.copy()
     got_cc = torch.as_tensor(cc.copy())
@@ -150,9 +165,9 @@ def test_gc2_extend_matches(coord):
         if len(tj.lvl_leaves[lvl - 1]) == 0:
             continue
         E_w, want_cc = jfl.gc2_extend(want_cc, jfl.get_gc2_plan(tj, lvl),
-                                      [0, 2], bc(gc), {}, LIMITER_MC)
+                                      [0, 2], bc(gc), {}, lim_j)
         E_g, got_cc = tfl.gc2_extend(got_cc, tfl.Gc2LevelPlan(tt, lvl, "cpu"),
-                                     [0, 2], bc(tgc), {}, LIMITER_MC)
+                                     [0, 2], bc(tgc), {}, lim_t)
         np.testing.assert_allclose(E_g.numpy(), E_w, rtol=1e-13, atol=1e-13)
     np.testing.assert_allclose(got_cc.numpy(), want_cc, rtol=1e-13,
                                atol=1e-13)
@@ -162,7 +177,8 @@ def test_gc2_extend_matches(coord):
 def test_consistent_fluxes_match(coord):
     tj, tt = trees(coord)
     rng = np.random.default_rng(5)
-    fc = rng.standard_normal((2, 2, tj.highest_id, (NC + 1) ** 2))
+    fc = rng.standard_normal((2, tj.ndim, tj.highest_id,
+                              (NC + 1) ** tj.ndim))
     fm = jfl.FluidModel.__new__(jfl.FluidModel)
     fm.tree, fm._pack_tls = tj, threading.local()
     want = fm.consistent_fluxes(fc.copy(), [0, 1])

@@ -62,7 +62,9 @@ def test_unported_configuration_raises(tmp_path, extra, module):
 
 
 def test_ndim_3_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ndim=3"):
-        Simulation(argv=argv(tmp_path, "-device=cpu")[:1]
-                   + [f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
-                      "-ndim=3", f"-output%name={tmp_path}/run"])
+    """3D runs in Cartesian coordinates only, as in the JAX package."""
+    with pytest.raises(ValueError, match="only in 2D"):
+        Simulation(argv=[str(DATA / "air_3d_slice.cfg"), "-ndim=3",
+                         "-device=cpu", "-cylindrical=t",
+                         f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
+                         f"-output%name={tmp_path}/run"])

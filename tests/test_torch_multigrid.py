@@ -1,6 +1,9 @@
 """The port's block FAS V-cycle (afivo_streamer_tpu_torch, plain smoother
 kernels on the CPU) against the JAX package's host V-cycle on NumPy, on
-the refined meshes and boundary conditions of tests/test_mg_blocks.py.
+the refined meshes and boundary conditions of tests/test_mg_blocks.py and
+on their 3D counterpart ("xyz3d": 16^3 level-1 cells refined twice over
+one corner, Dirichlet z-faces and Neumann elsewhere; the JAX block cycle
+is 2D-only, so in 3D the host cycle is the reference).
 
 Tolerance: rtol 1e-10, atol 1e-12 on phi after 3 cycles, as the JAX block
 path is held to the host path (tests/test_mg_blocks.py). The two differ
@@ -28,11 +31,13 @@ NC = 8
 
 
 def make_tree(cls, coord="xyz"):
-    """Level 1 16x16 cells, refined twice where r0 < 0.45."""
-    t = cls(2, NC, [1.0, 1.0], [16, 16], coord=coord)
+    """Level 1 16^ndim cells, refined twice where r0 < 0.45."""
+    ndim = 3 if coord == "xyz3d" else 2
+    t = cls(ndim, NC, [1.0] * ndim, [16] * ndim,
+            coord="cyl" if coord == "cyl" else "xyz")
 
     def flags(ids):
-        out = np.full([len(ids), NC, NC], KEEP_REF, np.int64)
+        out = np.full([len(ids)] + [NC] * ndim, KEEP_REF, np.int64)
         for n, b in enumerate(ids):
             r0 = t.box_r_min(np.asarray([int(b)]))[0]
             if np.all(r0 < 0.45) and t.lvl[int(b)] == t.highest_lvl:
@@ -44,11 +49,13 @@ def make_tree(cls, coord="xyz"):
     return t
 
 
-def make_bc(mod):
+def make_bc(mod, ndim=2):
+    """Dirichlet faces in the last dimension (0 low, the voltage high),
+    Neumann elsewhere."""
     def bc(iv, d, coords, params):
-        if d == 3:
+        if d == 2 * ndim - 1:
             return mod.BC_DIRICHLET, params.get("voltage", 0.0)
-        if d == 2:
+        if d == 2 * ndim - 2:
             return mod.BC_DIRICHLET, 0.0
         return mod.BC_NEUMANN, 0.0
     return bc
@@ -65,24 +72,25 @@ def setup_cc(t, pad=8, seed=3):
     for lvl in range(1, t.highest_lvl + 1):
         for b in t.lvl_ids[lvl - 1]:
             r = t.cell_coords(int(b))
-            cc[I_RHS, int(b)] = (-2 * k**2 * np.sin(k * r[..., 0])
-                                 * np.sin(k * r[..., 1])).ravel()
+            cc[I_RHS, int(b)] = (-t.ndim * k**2 * np.prod(
+                np.sin(k * r), axis=-1)).ravel()
     cc[I_PHI] = rng.random(cc.shape[1:]) * 0.01
     return cc
 
 
 def port_mg(coord):
     t = make_tree(TTree, coord)
-    return TMultigrid(MeshPlans(t, "cpu"), I_PHI, I_RHS, make_bc(tgc))
+    return TMultigrid(MeshPlans(t, "cpu"), I_PHI, I_RHS,
+                      make_bc(tgc, t.ndim))
 
 
-@pytest.mark.parametrize("coord", ["xyz", "cyl"])
+@pytest.mark.parametrize("coord", ["xyz", "cyl", "xyz3d"])
 def test_block_vcycle_matches_jax_host(coord):
     t = make_tree(Tree, coord)
     cc0 = setup_cc(t)
     params = {"voltage": 25.0}
 
-    mg_h = Multigrid(t, I_PHI, I_RHS, I_TMP, make_bc(gc))
+    mg_h = Multigrid(t, I_PHI, I_RHS, I_TMP, make_bc(gc, t.ndim))
     h = mg_h.fill_ghosts_phi(cc0.copy(), params)
     for _ in range(3):
         h = mg_h.fas_vcycle(h, params, set_residual=True)

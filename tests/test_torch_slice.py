@@ -1,7 +1,8 @@
-"""The slice end to end: the committed config
-(afivo_streamer_tpu_torch/data/air_cyl_slice.cfg) at -refine_max_dx=5e-4,
-a uniform 32 x 32-cell cylindrical mesh, in the JAX package (host NumPy
-path) and in the port (CPU, plain smoother kernels), float64.
+"""The slices end to end: the committed configs at -refine_max_dx=5e-4,
+afivo_streamer_tpu_torch/data/air_cyl_slice.cfg (a uniform 32 x 32-cell
+cylindrical mesh, 20 boxes) and air_3d_slice.cfg (a uniform 32^3-cell
+Cartesian mesh, 72 boxes), in the JAX package (host NumPy path) and in
+the port (CPU, plain smoother kernels), float64.
 
 Tolerance rtol 1e-8 on every cc variable, with an absolute floor of 1e-8
 times the variable's largest magnitude (the FAS rhs of parent boxes is a
@@ -12,7 +13,9 @@ Measured worst deviations on the CPU, relative to each variable's
 largest magnitude: 5 steps 1.0e-15 (Cartesian 6.3e-16, mobile ion
 6.3e-16, Dirichlet/RK4 7.9e-16, reaction list 5.2e-16; dt and the rtest
 rows identical); the Heun substep pair from the JAX state 7.9e-16; one
-field solve 8.7e-16.
+field solve 8.7e-16. In 3D: 5 steps 2.9e-15 (dt and the rtest rows
+identical), the Heun substep pair from the JAX state 2.6e-15, one field
+solve 2.1e-15.
 """
 
 from pathlib import Path
@@ -30,10 +33,13 @@ torch.set_num_threads(1)
 
 DATA = Path(__file__).resolve().parent.parent / "afivo_streamer_tpu_torch" / "data"
 RTOL = 1e-8
+#: config and box count of each dimension's slice at -refine_max_dx=5e-4
+SLICES = {2: ("air_cyl_slice.cfg", 20), 3: ("air_3d_slice.cfg", 72)}
 
 
-def argv(out):
-    return [str(DATA / "air_cyl_slice.cfg"), "-ndim=2", "-refine_max_dx=5e-4",
+def argv(out, ndim=2):
+    return [str(DATA / SLICES[ndim][0]), f"-ndim={ndim}",
+            "-refine_max_dx=5e-4",
             f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
             "-output%dt=5e-14", f"-output%name={out}"]
 
@@ -63,8 +69,15 @@ def jax_after_two_steps(tmp_path_factory):
     return sim
 
 
+@pytest.fixture(scope="module")
+def jax_3d_after_two_steps(tmp_path_factory):
+    sim = JSim(argv=argv(tmp_path_factory.mktemp("j3") / "run", ndim=3))
+    sim.run(max_steps=2)
+    return sim
+
+
 def port_from(jsim, tmp_path):
-    sim = TSim(argv=argv(tmp_path / "t") + ["-device=cpu"])
+    sim = TSim(argv=argv(tmp_path / "t", jsim.ndim) + ["-device=cpu"])
     interop.state_from_numpy(sim, jsim.cc, jsim.fc,
                              interop.tree_arrays(jsim.tree), it=jsim.it,
                              global_time=jsim.global_time,
@@ -72,14 +85,17 @@ def port_from(jsim, tmp_path):
     return sim
 
 
-@pytest.mark.parametrize("extra", [
-    [],
-    ["-cylindrical=f"],
-    ["-input_data%mobile_ions=M_plus", "-input_data%ion_mobilities=2.2e-4"],
-    ["-species_boundary_condition=dirichlet_zero", "-time_integrator=rk4"],
-], ids=["cyl", "xyz", "cyl-mobile-ions", "cyl-dirichlet-rk4"])
-def test_slice_five_steps_matches_jax(tmp_path, extra):
-    five_steps_both(tmp_path, extra)
+@pytest.mark.parametrize("ndim, extra", [
+    (2, []),
+    (2, ["-cylindrical=f"]),
+    (2, ["-input_data%mobile_ions=M_plus",
+         "-input_data%ion_mobilities=2.2e-4"]),
+    (2, ["-species_boundary_condition=dirichlet_zero",
+         "-time_integrator=rk4"]),
+    (3, []),
+], ids=["cyl", "xyz", "cyl-mobile-ions", "cyl-dirichlet-rk4", "xyz3d"])
+def test_slice_five_steps_matches_jax(tmp_path, ndim, extra):
+    five_steps_both(tmp_path, extra, ndim)
 
 
 def test_slice_reaction_list_matches_jax(tmp_path):
@@ -90,11 +106,14 @@ def test_slice_reaction_list_matches_jax(tmp_path):
     five_steps_both(tmp_path, [f"-input_data%file={td}"])
 
 
-def five_steps_both(tmp_path, extra):
-    j = JSim(argv=argv(tmp_path / "j") + extra)
-    t = TSim(argv=argv(tmp_path / "t") + extra + ["-device=cpu"])
+def five_steps_both(tmp_path, extra, ndim=2):
+    j = JSim(argv=argv(tmp_path / "j", ndim) + extra)
+    t = TSim(argv=argv(tmp_path / "t", ndim) + extra + ["-device=cpu"])
     real = j.tree.highest_id
-    assert t.tree.highest_id == real == 20
+    assert t.tree.highest_id == real == SLICES[ndim][1]
+    # the prolongation limiter of the refinement-boundary ghosts of the
+    # fluid step: MC in 2D, gminmod43 in 3D
+    assert t.fluid.prolong_limiter == j.fluid.prolong_limiter
     assert_state_close(j.cc[:, :real], t.cc.numpy(), skip={j.i_tmp})
     j.run(max_steps=5)
     t.run(max_steps=5)
@@ -110,10 +129,21 @@ def five_steps_both(tmp_path, extra):
 def test_heun_substeps_from_jax_state(jax_after_two_steps, tmp_path):
     """Both substeps of a Heun step (the second includes a field solve),
     started through interop from the JAX package's state."""
-    j = jax_after_two_steps
+    heun_substeps_both(jax_after_two_steps, tmp_path)
+
+
+def test_heun_substeps_from_jax_state_3d(jax_3d_after_two_steps, tmp_path):
+    """The same in 3D: interop carries the 3D state (fc [n_fc, 3, boxes,
+    9^3])."""
+    heun_substeps_both(jax_3d_after_two_steps, tmp_path)
+
+
+def heun_substeps_both(j, tmp_path):
     t = port_from(j, tmp_path)
-    np.testing.assert_array_equal(interop.state_to_numpy(t)["cc"][:, :20],
-                                  j.cc[:, :20])
+    n = j.tree.highest_id
+    assert t.fc.shape[1] == j.ndim and t.fc.shape[3] == (j.tree.nc + 1) ** j.ndim
+    np.testing.assert_array_equal(interop.state_to_numpy(t)["cc"][:, :n],
+                                  j.cc[:, :n])
     dt, time = 1e-13, j.global_time
     params = {"voltage": j.field.current_voltage}
     jcc, jfc = j.cc.copy(), j.fc.copy()
@@ -129,20 +159,28 @@ def test_heun_substeps_from_jax_state(jax_after_two_steps, tmp_path):
             tcc, tfc, step_dt, None, step_time, s_deriv, s_prev, w_prev,
             s_out, i_step, 2, params)
         assert float(tlim) == pytest.approx(float(jlim), rel=RTOL)
-        assert_state_close(jcc[:, :20], tcc.numpy(), skip={j.i_tmp})
-        np.testing.assert_allclose(tfc.numpy()[:, :, :20], jfc[:, :, :20],
+        assert_state_close(jcc[:, :n], tcc.numpy(), skip={j.i_tmp})
+        np.testing.assert_allclose(tfc.numpy()[:, :, :n], jfc[:, :, :n],
                                    rtol=RTOL,
                                    atol=RTOL * float(np.abs(jfc).max()))
 
 
 def test_field_solve_from_jax_state(jax_after_two_steps, tmp_path):
-    j = jax_after_two_steps
+    field_solve_both(jax_after_two_steps, tmp_path)
+
+
+def test_field_solve_from_jax_state_3d(jax_3d_after_two_steps, tmp_path):
+    field_solve_both(jax_3d_after_two_steps, tmp_path)
+
+
+def field_solve_both(j, tmp_path):
     t = port_from(j, tmp_path)
+    n = j.tree.highest_id
     jcc, jfc = j.field.compute(j.cc.copy(), j.fc.copy(), 0, j.global_time,
                                True)
     tcc, tfc = t.field.compute(t.cc, t.fc, 0, t.global_time, True)
-    assert_state_close(jcc[:, :20], tcc.numpy(), skip={j.i_tmp})
+    assert_state_close(jcc[:, :n], tcc.numpy(), skip={j.i_tmp})
     f = j.fc_E
-    np.testing.assert_allclose(tfc.numpy()[f, :, :20], jfc[f, :, :20],
+    np.testing.assert_allclose(tfc.numpy()[f, :, :n], jfc[f, :, :n],
                                rtol=RTOL,
                                atol=RTOL * float(np.abs(jfc[f]).max()))

@@ -1,9 +1,10 @@
-"""The port's smoother kernels K1-K3 (afivo_streamer_tpu_torch/ops/smoother.py).
+"""The port's smoother kernels K1-K5 (afivo_streamer_tpu_torch/ops/smoother.py).
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the JAX package's Pallas kernels run in interpret mode, on random
-inputs (n = 6 boxes, nc = 8), float64, rtol 1e-13. The CUDA kernels are
-held against the plain versions in tests/test_torch_cuda.py.
+non-symmetric inputs (n = 6 boxes, nc = 8; in 3D random face weights and
+constants per face, so an axis swap fails), float64, rtol 1e-13. The CUDA
+kernels are held against the plain versions in tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -20,34 +21,41 @@ N, NC = 6, 8
 C = NC + 2
 
 
-def random_inputs(seed=0, n=N, nc=NC):
+def random_inputs(seed=0, n=N, nc=NC, ndim=2):
     """Blocks, rhs, a red-black mask, ghost constants, a neighbor table
     (own rows permuted, about a quarter of the neighbors the box itself),
     ghost weights and a stencil with |c0| >= 1."""
     rng = np.random.default_rng(seed)
     c = nc + 2
-    g = np.empty((n, 5), np.int32)
+    nd = 2 * ndim
+    cube = (nc,) * ndim
+    g = np.empty((n, 1 + nd), np.int32)
     g[:, 0] = rng.permutation(n)
-    g[:, 1:] = rng.integers(0, n, size=(n, 4))
-    selfrow = rng.random((n, 4)) < 0.25
-    g[:, 1:][selfrow] = np.repeat(g[:, :1], 4, axis=1)[selfrow]
-    i, j = np.meshgrid(np.arange(1, nc + 1), np.arange(1, nc + 1),
-                       indexing="ij")
-    cs = rng.standard_normal((n, 6, nc, nc))
-    cs[:, 0] = -(1.0 + rng.random((n, nc, nc)))
+    g[:, 1:] = rng.integers(0, n, size=(n, nd))
+    selfrow = rng.random((n, nd)) < 0.25
+    g[:, 1:][selfrow] = np.repeat(g[:, :1], nd, axis=1)[selfrow]
+    parity = sum(np.meshgrid(*[np.arange(1, nc + 1)] * ndim, indexing="ij"))
+    cs = rng.standard_normal((n, 2 + nd) + cube)
+    cs[:, 0] = -(1.0 + rng.random((n,) + cube))
     return dict(
-        phi3=rng.standard_normal((n, c, c)),
-        R=rng.standard_normal((n, nc, nc)),
-        mask=((i + j) % 2 == 1).astype(np.float32),
-        A=rng.standard_normal((n, 4, nc)),
+        phi3=rng.standard_normal((n,) + (c,) * ndim),
+        R=rng.standard_normal((n,) + cube),
+        mask=(parity % 2 == 1).astype(np.float32),
+        A=rng.standard_normal((n, nd) + (nc,) * (ndim - 1)),
         g=g,
-        W=rng.standard_normal((n, 4, 8)),
+        W=rng.standard_normal((n, nd, 8)),
         cs=cs)
 
 
 def jax_call(name, x):
     a = {k: jnp.asarray(v) for k, v in x.items()}
-    if name == "sweep_2d":
+    if name == "sweep_3d":
+        out = ps._sweep_3d(a["phi3"], a["R"], a["mask"], a["g"], a["cs"],
+                           NC, N, interpret=True)
+    elif name == "fill_3d":
+        out = ps._fill_3d(a["phi3"], a["A"], a["g"], a["W"], NC, N,
+                          interpret=True)
+    elif name == "sweep_2d":
         out = ps._sweep_2d(a["phi3"], a["R"], a["mask"], a["g"], a["cs"],
                            NC, N, interpret=True)
     elif name == "fill_2d":
@@ -62,19 +70,24 @@ def jax_call(name, x):
 
 def torch_call(fn, x):
     t = {k: torch.as_tensor(v) for k, v in x.items()}
-    if fn in (ks.sweep_2d, ks.sweep_2d_plain):
+    if fn in (ks.sweep_2d, ks.sweep_2d_plain, ks.sweep_3d, ks.sweep_3d_plain):
         return fn(t["phi3"], t["R"], t["mask"], t["g"], t["cs"])
-    if fn in (ks.fill_2d, ks.fill_2d_plain):
+    if fn in (ks.fill_2d, ks.fill_2d_plain, ks.fill_3d, ks.fill_3d_plain):
         return fn(t["phi3"], t["A"], t["g"], t["W"])
     return fn(t["phi3"], t["R"], t["mask"], t["A"], t["g"], t["W"], t["cs"])
 
 
-SEEDS = {"fill_sweep_2d": 1, "sweep_2d": 2, "fill_2d": 3}
+SEEDS = {"fill_sweep_2d": 1, "sweep_2d": 2, "fill_2d": 3, "sweep_3d": 4,
+         "fill_3d": 6}
 
 
-@pytest.mark.parametrize("name", ["fill_sweep_2d", "sweep_2d", "fill_2d"])
+def ndim_of(name):
+    return int(name[-2])
+
+
+@pytest.mark.parametrize("name", list(SEEDS))
 def test_plain_kernel_matches_pallas_interpret(name):
-    x = random_inputs(seed=SEEDS[name])
+    x = random_inputs(seed=SEEDS[name], ndim=ndim_of(name))
     want = jax_call(name, x)
     got = torch_call(ks.KERNELS[name], x)  # CPU tensors -> plain version
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
@@ -83,7 +96,8 @@ def test_plain_kernel_matches_pallas_interpret(name):
 def test_wrapper_counts_only_kernel_launches():
     """A CPU call takes the plain version and launches nothing."""
     ks.reset_launch_counts()
-    x = random_inputs(seed=5)
-    for fn in ks.KERNELS.values():
-        torch_call(fn, x)
+    x = {nd: random_inputs(seed=5, ndim=nd) for nd in (2, 3)}
+    for name, fn in ks.KERNELS.items():
+        torch_call(fn, x[ndim_of(name)])
     assert all(fn.launches == 0 for fn in ks.KERNELS.values())
+
