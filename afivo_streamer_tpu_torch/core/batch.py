@@ -15,14 +15,10 @@ import torch
 from .tree import Tree
 
 
-def capacity(n_level1: int, highest_id: int) -> int:
-    """Box rows of the state: a multiple of 64 for the level-1 boxes,
-    grown by 30 % (and by at least 64 rows beyond ``highest_id``) when the
-    refined mesh needs more, as the JAX package's batch grows at setup."""
-    cap = max(64, ((n_level1 + 63) // 64) * 64)
-    if highest_id > cap:
-        cap = max(highest_id + 64, int(1.3 * cap))
-    return cap
+def capacity(n_level1: int) -> int:
+    """Initial box rows of the state: a multiple of 64 for the level-1
+    boxes (the simulation grows it with the mesh)."""
+    return max(64, ((n_level1 + 63) // 64) * 64)
 
 
 class BoxBatch:

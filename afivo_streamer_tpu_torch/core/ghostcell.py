@@ -10,7 +10,10 @@ Cases per face (af_gc_box, ``m_af_ghostcell.f90:66-123``):
 * same-level neighbor: copy the neighbor's interior layer;
 * refinement boundary: interpolate between the coarse neighbor of the parent
   and the fine interior (af_gc_interp ``:394-498``, af_gc_interp_lim
-  ``:503-612``, or mg_sides_rb ``m_af_multigrid.f90:294-461``);
+  ``:503-612``, or mg_sides_rb ``m_af_multigrid.f90:294-461``), copy the
+  parent cell (af_gc_prolong_copy), or, for boxes with variable
+  permittivity, extrapolate (mg_sides_rb_extrap
+  ``m_af_multigrid.f90:468-621``);
 * physical boundary: bc_to_gc with Dirichlet / Neumann / continuous /
   Dirichlet-copy coefficients (``:173-279``).
 
@@ -41,6 +44,7 @@ BC_DIRICHLET_COPY = 4
 RB_INTERP = "interp"          # af_gc_interp
 RB_INTERP_LIM = "interp_lim"  # af_gc_interp_lim
 RB_MG = "mg_sides_rb"         # mg_sides_rb (preserves diffusive fluxes)
+RB_PROLONG_COPY = "prolong_copy"  # af_gc_prolong_copy
 
 
 class _DirPlan:
@@ -58,6 +62,7 @@ class _DirPlan:
         # then the next one across each transverse dim (c2; c3 in 3D)
         self.rb_c = []
         self.rb_tmp = None  # [n_rb, (nc/2+2)^(ndim-1)] mg_sides_rb strip
+        self.rb_pcopy = None  # [n_rb, F] parent cells holding the ghosts
 
 
 class GcLevelPlan:
@@ -133,15 +138,16 @@ class GcLevelPlan:
                 p.rb_parent = tree.parent[p.rb_ids].astype(np.int32)
                 p.rb_coarse = tree.neighbors[p.rb_parent, d].astype(np.int32)
 
-                def at(trans):
+                def at(trans, normal=cge_idx):
                     v = np.zeros((len(trans), ndim), np.int64)
-                    v[:, dim] = cge_idx
+                    v[:, dim] = normal
                     v[:, tdims] = trans
                     return sp.cc_flat_nd(ndim, nc, v)
                 rb_c = [[] for _ in range(ndim)]
-                tmp = []
+                tmp, pcopy = [], []
                 for bid in p.rb_ids:
-                    off = tree.child_offset(int(bid))[tdims]  # 0 or nc/2
+                    off_all = tree.child_offset(int(bid))  # 0 or nc/2
+                    off = off_all[tdims]
                     j_c1 = off + (jt + 1) // 2
                     j_c2 = j_c1 + 1 - 2 * (jt & 1)
                     rb_c[0].append(at(j_c1))
@@ -150,8 +156,11 @@ class GcLevelPlan:
                         j[:, t] = j_c2[:, t]
                         rb_c[1 + t].append(at(j))
                     tmp.append(at(off + st))
+                    # the parent cell containing each ghost cell
+                    pcopy.append(at(j_c1, off_all[dim] + (g_idx + 1) // 2))
                 p.rb_c = [np.asarray(c, np.int32) for c in rb_c]
                 p.rb_tmp = np.asarray(tmp, np.int32)
+                p.rb_pcopy = np.asarray(pcopy, np.int32)
             p.d = sp.device_copy(p, device)
             self.dirs.append(p)
 
@@ -312,12 +321,34 @@ def mg_rb_interp(tmp, ndim: int, nc: int):
     return gc.permute(0, 1, 3, 2, 4).reshape(n, nc * nc)
 
 
+def pair_swap(a):
+    """Exchange the transverse cell pairs (j, j^1) of [n, nc] face rows."""
+    n, nc = a.shape
+    return a.reshape(n, nc // 2, 2).flip(-1).reshape(n, nc)
+
+
+def rb_extrap_ghost(cc, iv: int, t, ndim: int):
+    """Extrapolating refinement-boundary ghosts of boxes with variable
+    permittivity (mg_sides_rb_extrap, ``m_af_multigrid.f90:468-621``): half
+    the parent copy plus a bilinear extrapolation from the fine side, with
+    the transverse pair swap in 2D; 3D takes the one-dimensional form."""
+    pcopy = _gat(cc, iv, t.rb_parent, t.rb_pcopy)
+    f1 = _gat(cc, iv, t.rb_ids, t.f1_sidx)
+    f2 = _gat(cc, iv, t.rb_ids, t.f2_sidx)
+    if ndim == 2:
+        return (0.5 * pcopy + 1.125 * f1
+                - 0.375 * (f2 + pair_swap(f1)) + 0.125 * pair_swap(f2))
+    return 0.5 * pcopy + 0.75 * f1 - 0.25 * f2
+
+
 def fill_ghosts_lvl(cc, plan: GcLevelPlan, ivs, rb_method: str, bc_fn,
-                    params=None, corners: bool = True):
+                    params=None, corners: bool = True, rb_extrap_mask=None):
     """Fill one ghost layer for variables ivs on one level (in place).
 
     bc_fn(iv, d, coords, params) -> (bc_type, values); values broadcastable
-    to [n_bc, F]."""
+    to [n_bc, F]. ``rb_extrap_mask`` ({direction: bool tensor per
+    refinement-boundary entry}) selects the entries that take the
+    extrapolating ghost instead of ``rb_method``."""
     params = params or {}
     for d, p in enumerate(plan.dirs):
         dim, low = neighb_dim(d), neighb_low(d)
@@ -350,9 +381,16 @@ def fill_ghosts_lvl(cc, plan: GcLevelPlan, ivs, rb_method: str, bc_fn,
                     gc = mg_rb_interp(_gat(cc, iv, t.rb_coarse, t.rb_tmp),
                                       plan.ndim, plan.nc)
                     ghost = 0.5 * gc + 0.75 * fine1 - 0.25 * fine2
+                elif rb_method == RB_PROLONG_COPY:
+                    ghost = _gat(cc, iv, t.rb_parent, t.rb_pcopy)
                 else:
-                    raise NotImplementedError(
-                        f"core/ghostcell.py: rb method {rb_method}")
+                    raise ValueError(f"unknown rb method {rb_method}")
+                emask = (None if rb_extrap_mask is None
+                         else rb_extrap_mask.get(d))
+                if emask is not None:
+                    ghost = torch.where(emask[:, None],
+                                        rb_extrap_ghost(cc, iv, t, plan.ndim),
+                                        ghost)
                 _scat(cc, iv, t.rb_ids, t.ghost_sidx, ghost)
     if corners:
         fill_corners_lvl(cc, plan, ivs)

@@ -1,14 +1,19 @@
-"""Per-level tables of a fixed mesh: box ids, leaves, parents and the
-geometry factors of the leaves (the analog of ``tree%lvls(lvl)``,
+"""Per-level tables of a mesh: box ids, leaves, parents and the geometry
+factors of the leaves (the analog of ``tree%lvls(lvl)``,
 ``m_af_types.f90:326-393``), plus the cached plans built from them.
 
-The mesh of the slice does not change after setup, so every table and
-plan is built once on the host and copied to the device once.
+The tables and plans are built on the host and copied to the device. They
+follow a changing tree: each cached object names the levels it derives
+from, and after a refinement epoch only the objects of levels whose boxes
+changed are rebuilt (a level's fingerprint covers its boxes, their
+neighbors, children and parents, and the parents' neighbors).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import hashlib
+import time
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -57,60 +62,97 @@ class LevelTables:
         self.d = sp.device_copy(self, device)
 
 
-class MeshPlans:
-    """Lazily built, cached per-level tables and plans of a fixed mesh.
+def level_fingerprint(tree: Tree, lvl: int) -> bytes:
+    """Digest of everything a level's tables and plans read from the tree:
+    its boxes (ids, positions, neighbors, leaf status, parents) and its
+    parents' neighbors (the coarse side of refinement boundaries)."""
+    ids = np.asarray(tree.lvl_ids[lvl - 1], np.int64)
+    par = tree.parent[ids]
+    h = hashlib.blake2b(digest_size=16)
+    for a in (ids, tree.ix[ids], tree.neighbors[ids],
+              tree.children[ids, 0] >= 0, par,
+              tree.neighbors[par] if lvl > 1 else par):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.digest()
 
-    Refuses to serve a tree whose topology changed after construction
-    (live refinement is not part of this package)."""
+
+class MeshPlans:
+    """Lazily built, cached per-level tables and plans of a tree.
+
+    An object cached under a key depends on a set of levels (all levels by
+    default); it is rebuilt when the fingerprint of one of them changed
+    since it was built. ``epoch`` follows the tree's topology version;
+    ``build_seconds`` counts the host time spent building objects."""
 
     def __init__(self, tree: Tree, device):
         self.tree = tree
         self.device = torch.device(device)
-        self.epoch = tree.epoch
+        self.epoch = -1
+        self._fp: Dict[int, bytes] = {}
         self._cache: Dict = {}
+        self.build_seconds = 0.0
+        self._depth = 0
 
-    def check_fixed(self) -> None:
-        """Raise if the tree changed after these plans were built."""
-        if self.tree.epoch != self.epoch:
-            raise NotImplementedError(
-                "physics/refine.py: the mesh changed after setup (live "
-                "refinement)")
+    def _sync(self) -> None:
+        """Refresh the level fingerprints after a topology change and drop
+        the objects whose levels changed."""
+        if self.tree.epoch == self.epoch:
+            return
+        self._fp = {l: level_fingerprint(self.tree, l)
+                    for l in range(1, self.tree.highest_lvl + 1)}
+        self.epoch = self.tree.epoch
+        self._cache = {k: v for k, v in self._cache.items()
+                       if v[0] == self.fingerprint(v[1])}
 
-    def _get(self, key, make):
-        self.check_fixed()
-        if key not in self._cache:
-            self._cache[key] = make()
-        return self._cache[key]
+    def fingerprint(self, lvls: Iterable[int]) -> tuple:
+        return tuple(self._fp.get(l) for l in lvls)
+
+    def cached(self, key, make, lvls: Optional[Iterable[int]] = None):
+        """The object under ``key``, built by ``make()`` if it is missing or
+        one of ``lvls`` (default: all levels) changed."""
+        self._sync()
+        lvls = tuple(range(1, self.n_levels + 1) if lvls is None else lvls)
+        fp = self.fingerprint(lvls)
+        hit = self._cache.get(key)
+        if hit is None or hit[0] != fp:
+            t0 = time.perf_counter()
+            self._depth += 1
+            try:
+                hit = (fp, lvls, make())
+            finally:
+                self._depth -= 1
+            self._cache[key] = hit
+            if self._depth == 0:  # nested builds are inside this one
+                self.build_seconds += time.perf_counter() - t0
+        return hit[2]
 
     @property
     def n_levels(self) -> int:
         return self.tree.highest_lvl
 
     def tb(self, lvl: int) -> LevelTables:
-        return self._get(("tb", lvl),
-                         lambda: LevelTables(self.tree, lvl, self.device))
+        return self.cached(("tb", lvl),
+                           lambda: LevelTables(self.tree, lvl, self.device),
+                           (lvl,))
 
     def gc(self, lvl: int) -> GcLevelPlan:
-        return self._get(("gc", lvl),
-                         lambda: GcLevelPlan(self.tree, lvl, self.device))
+        return self.cached(("gc", lvl),
+                           lambda: GcLevelPlan(self.tree, lvl, self.device),
+                           (lvl,))
 
     def pr(self, lvl: int):
         """Restriction plan of the children at ``lvl`` (None at level 1)."""
         if lvl == 1:
             return None
-        return self._get(("pr", lvl), lambda: ProlongRestrictPlan(
-            self.tree, self.tree.lvl_ids[lvl - 1], self.device))
+        return self.cached(("pr", lvl), lambda: ProlongRestrictPlan(
+            self.tree, self.tree.lvl_ids[lvl - 1], self.device), (lvl,))
 
     def pr_all(self):
         return [self.pr(l) for l in range(1, self.n_levels + 1)]
 
     def all_ids(self) -> torch.Tensor:
         """Ids of every box, level by level."""
-        return self._get("all_ids", lambda: torch.as_tensor(
+        return self.cached("all_ids", lambda: torch.as_tensor(
             np.concatenate([self.tb(l).ids
                             for l in range(1, self.n_levels + 1)]),
             dtype=torch.int64, device=self.device))
-
-    def cached(self, key, make):
-        """Cache any other mesh-derived object under ``key``."""
-        return self._get(key, make)

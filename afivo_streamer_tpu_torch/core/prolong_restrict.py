@@ -1,10 +1,18 @@
-"""Restriction and the prolongation tables between parent/child boxes.
+"""Prolongation and restriction between parent/child boxes.
 
-Re-designs the reference's ``afivo/src/m_af_restrict.f90`` and the linear
-prolongation stencil of ``m_af_prolong.f90`` (af_prolong_linear
-``:531-679``): all (parent, child) pairs of a level are one batched gather
-+ arithmetic + scatter, each child's target cells in its parent picked by
-its parity (its position inside the parent).
+Re-designs the reference's ``afivo/src/m_af_prolong.f90`` and
+``m_af_restrict.f90``: all (parent, child) pairs of a set of children are
+one batched gather + arithmetic + scatter, each child's cells in its parent
+picked by its parity (its position inside the parent).
+
+Prolongation methods (selected per variable, as in af_set_cc_methods):
+
+* ``zeroth``      — af_prolong_zeroth (copy of the containing coarse cell)
+* ``sparse``      — af_prolong_sparse (2/3/4-point)
+* ``linear``      — af_prolong_linear (bi/tri-linear 4/8-point, ``:531-679``)
+* ``limit``       — af_prolong_limit (limited slopes, ``:311-420``)
+* ``linear_cons`` — af_prolong_linear_cons (conservative unlimited slopes,
+  ``:424-529``; includes the cylindrical volume correction)
 
 Restriction is 2^ndim-cell averaging, optionally cylindrical-volume-weighted
 (af_restrict_box, ``m_af_restrict.f90:62-136``).
@@ -13,13 +21,15 @@ Restriction is 2^ndim-cell averaging, optionally cylindrical-volume-weighted
 from __future__ import annotations
 
 import itertools
-from typing import Dict, Tuple
+from types import SimpleNamespace
+from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from . import spatial as sp
 from .tree import Tree
-from ..ops.limiters import LIMITER_MC, LIMITER_GMINMOD43
+from ..ops.limiters import LIMITER_MC, LIMITER_GMINMOD43, limiter_apply
 
 
 def default_prolong_limiter(ndim: int) -> int:
@@ -36,8 +46,10 @@ def _coarse_cells(ndim: int, nc: int) -> np.ndarray:
 
 
 class ParityTables:
-    """The linear prolongation stencil for the fine cells of a child of one
-    parity."""
+    """The prolongation stencils for the fine cells of a child of one
+    parity: the containing coarse cell ``near``, its neighbors ``lo``/``hi``
+    and the one toward the fine cell ``far`` along each dim, the fine
+    cell's side ``sign`` [C, ndim] and the linear stencil ``corners``."""
 
     def __init__(self, ndim: int, nc: int, parity: Tuple[int, ...]):
         self.parity = tuple(parity)
@@ -50,6 +62,17 @@ class ParityTables:
             axis=-1)
         sign_nd = np.stack([np.where(fine_nd[:, d] % 2 == 1, -1, 1)
                             for d in range(ndim)], axis=-1)
+        self.fine_sidx = sp.cc_flat_nd(ndim, nc, fine_nd)
+        self.c1_nd = c1_nd
+        self.near = sp.cc_flat_nd(ndim, nc, c1_nd)
+        self.sign = sign_nd.astype(np.float64)
+        self.lo, self.hi, self.far = [], [], []
+        for d in range(ndim):
+            for lst, off in ((self.lo, -1), (self.hi, 1),
+                             (self.far, sign_nd[:, d])):
+                v = c1_nd.copy()
+                v[:, d] += off
+                lst.append(sp.cc_flat_nd(ndim, nc, v))
         # all corner combinations for linear (248) prolongation
         self.corners = []  # list of (weight, sidx) over subsets of dims
         for subset in itertools.product([0, 1], repeat=ndim):
@@ -106,6 +129,48 @@ class ProlongRestrictPlan:
             tmp = 0.25 * drp[:, None] / r_c
             self.cyl_w = np.stack([1.0 - tmp, 1.0 + tmp], axis=-1)
         self.d = sp.device_copy(self, device)
+        # host inputs of the prolongation tables (not copied above)
+        self.device = device
+        self._prolong = None
+        self._parity = tree.ix[self.ch] % 2
+        self._r0_par = tree.box_r_min(self.par)[:, 0]
+        self._dr_par = (tree.dr_base[0]
+                        / 2.0 ** (tree.lvl[self.par].astype(np.float64) - 1))
+
+    def prolong_tables(self) -> SimpleNamespace:
+        """Per-child prolongation tables on the device (built at first
+        use): ``near`` [m, C], ``lo``/``hi``/``far`` per dim, ``sign``
+        [m, C, ndim], ``corners`` (weight, [m, C]) and, in cylindrical
+        coordinates, the conservative correction ``cyl_corr`` [m, C]."""
+        if self._prolong is not None:
+            return self._prolong
+        ndim, nc = self.ndim, self.nc
+        parities = list(itertools.product([0, 1], repeat=ndim))
+        tabs = [parity_tables(ndim, nc, q) for q in parities]
+        code = sum(self._parity[:, k] << (ndim - 1 - k) for k in range(ndim))
+
+        def per_child(get):
+            return np.stack([get(t) for t in tabs])[code]
+        t = {"near": per_child(lambda t: t.near),
+             "sign": per_child(lambda t: t.sign),
+             "fine": tabs[0].fine_sidx,
+             "lo": [per_child(lambda t, d=d: t.lo[d]) for d in range(ndim)],
+             "hi": [per_child(lambda t, d=d: t.hi[d]) for d in range(ndim)],
+             "far": [per_child(lambda t, d=d: t.far[d])
+                     for d in range(ndim)]}
+        if self.coord == "cyl":
+            # -0.25 dr_p / r at each fine cell's containing coarse cell
+            # (af_prolong_linear_cons, m_af_prolong.f90:472-476)
+            r0 = self._r0_par[:, None]
+            c1 = per_child(lambda t: t.c1_nd[:, 0])
+            drp = self._dr_par[:, None]
+            t["cyl_corr"] = -0.25 * drp / (r0 + (c1 - 0.5) * drp)
+        out = sp.device_copy(t, self.device)
+        out.corners = [(w, torch.as_tensor(per_child(
+            lambda t, k=k: t.corners[k][1]), dtype=torch.int64,
+            device=self.device)) for k, (w, _s) in enumerate(tabs[0].corners)]
+        self._prolong = out
+        return out
 
 
 def restrict(cc, plan: ProlongRestrictPlan, ivs, use_geometry: bool = True):
@@ -133,4 +198,48 @@ def restrict_tree(cc, plans, ivs, use_geometry: bool = True):
     the plan of the children at level l (None at level 1)."""
     for lvl in range(len(plans), 1, -1):
         cc = restrict(cc, plans[lvl - 1], ivs, use_geometry)
+    return cc
+
+
+def prolong(cc, plan: ProlongRestrictPlan, ivs, method: str,
+            limiter: Optional[int] = None):
+    """Prolong the parents' data (variables ivs) into the children's
+    interiors (af_prolong_* over the plan's children), in place."""
+    ndim = plan.ndim
+    if limiter is None:
+        limiter = default_prolong_limiter(ndim)
+    t = plan.prolong_tables()
+    par = plan.d.par[:, None]
+    for iv in ivs:
+        iv = int(iv)
+
+        def g(sidx):
+            return cc[iv, par, sidx]
+        if method == "zeroth":
+            fine = g(t.near)
+        elif method == "sparse":
+            w0, wd = {1: (0.75, 0.25), 2: (0.5, 0.25), 3: (0.25, 0.25)}[ndim]
+            fine = w0 * g(t.near)
+            for d in range(ndim):
+                fine = fine + wd * g(t.far[d])
+        elif method == "linear":
+            fine = 0.0
+            for w, sidx in t.corners:
+                fine = fine + float(w) * g(sidx)
+        elif method in ("limit", "linear_cons"):
+            f0 = g(t.near)
+            fine = f0
+            sgn = t.sign.to(cc.dtype)
+            for d in range(ndim):
+                lo, hi = g(t.lo[d]), g(t.hi[d])
+                if method == "limit":
+                    fd = 0.25 * limiter_apply(f0 - lo, hi - f0, limiter)
+                else:
+                    fd = 0.125 * (hi - lo)
+                if method == "linear_cons" and plan.coord == "cyl" and d == 0:
+                    fine = fine + t.cyl_corr.to(cc.dtype) * fd
+                fine = fine + sgn[:, :, d] * fd
+        else:
+            raise ValueError(f"unknown prolongation method {method}")
+        cc[iv, plan.d.ch[:, None], t.fine[None, :]] = fine
     return cc

@@ -49,11 +49,25 @@ def cc_flat(ndim: int, nc: int, *per_dim: IdxLike) -> np.ndarray:
                                 [nc + 2] * ndim).astype(np.int32)
 
 
+def interior_flat(ndim: int, nc: int) -> np.ndarray:
+    """Flat indices of the nc^ndim interior cells."""
+    rng = np.arange(1, nc + 1)
+    return cc_flat(ndim, nc, *([rng] * ndim))
+
+
 def cc_flat_nd(ndim: int, nc: int, idx_nd: np.ndarray) -> np.ndarray:
     """Flat indices for an array of nd coordinates [..., ndim] (0..nc+1)."""
     idx_nd = np.asarray(idx_nd)
     return np.ravel_multi_index(
         [idx_nd[..., k] for k in range(ndim)], [nc + 2] * ndim).astype(np.int32)
+
+
+def fc_flat(ndim: int, nc: int, *per_dim: IdxLike) -> np.ndarray:
+    """Flat indices into the (nc+1)^ndim face array (one direction)."""
+    axes = _as_axes(nc, per_dim)
+    mesh = np.meshgrid(*axes, indexing="ij")
+    return np.ravel_multi_index([m.ravel() for m in mesh],
+                                [nc + 1] * ndim).astype(np.int32)
 
 
 def ext_flat(ndim: int, nc: int, *per_dim: IdxLike) -> np.ndarray:

@@ -1,21 +1,27 @@
 // Multigrid smoother kernels for Hopper (sm_90a): K1 fill + sweep, K2
-// sweep, K3 fill, on the level-local block arrays of the 2D block V-cycle.
+// sweep, K3 fill (with or without its parity-swap terms), on the
+// level-local block arrays of the 2D block V-cycle.
 //
 // Replaces the TPU Pallas kernels of afivo_streamer_tpu/ops/pallas_smoother.py:
 //   K1 _fill_sweep_2d (pallas_call at :397)  -> mode 2
 //   K2 _sweep_2d      (pallas_call at :229)  -> mode 0
-//   K3 _fill_2d       (pallas_call at :302)  -> mode 1 (no parity-swap terms)
+//   K3 _fill_2d       (pallas_call at :302)  -> mode 1 (has_swap=False)
+//                                                 mode 3 (has_swap=True)
 //
 // Contract (shared with the plain PyTorch versions in ops/smoother.py):
 //   phi3 [n, C, C] with C = nc + 2, one block per box of the level;
 //   g    [n, 5] int32: own row, then the rows of the x-low, x-high, y-low,
 //        y-high neighbors (a box's own row where it has none);
-//   W    [n, 4, 8]: ghost weights (nb slab, f1, f2, unused...) per side;
+//   W    [n, 4, 8]: ghost weights (nb slab, f1, f2, f1 swapped, f2
+//        swapped, unused...) per side; modes 1 and 2 read columns 0-2;
 //   A    [n, 4, nc]: ghost constants (boundary values, coarse strips);
 //   R    [n, nc, nc] rhs; cs [n, 6, nc, nc] stencil (c0, 4 neighbors, c_sum);
 //   mask [nc, nc] float32, > 0 where the half sweep updates a cell.
-// A side ghost is W0*nb_slab + W1*f1 + W2*f2 + A (corners kept); the
-// red-black update is new = B0 + (R - L)/c0 with the difference-form
+// A side ghost is W0*nb_slab + W1*f1 + W2*f2 + A (corners kept); mode 3
+// then adds W3*f1s + W4*f2s, where f1s, f2s are f1, f2 at the transverse
+// pair partner t^1 (the extrapolating refinement-boundary ghost of a box
+// with variable permittivity; nc is even). The red-black update is
+// new = B0 + (R - L)/c0 with the difference-form
 // L = c5*B0 + sum_d c_d*(B_d - B0). The output is a new array: neighbor
 // slabs are read from the input, so the kernels never update in place.
 //
@@ -40,10 +46,13 @@ namespace {
 constexpr int kModeSweep = 0;
 constexpr int kModeFill = 1;
 constexpr int kModeFillSweep = 2;
+constexpr int kModeFillSwap = 3;
 
 // Side ghost d (0 x-low, 1 x-high, 2 y-low, 3 y-high) at transverse cell
-// t (0-based) of box b, from the own block B and the neighbor block.
-template <typename T>
+// t (0-based) of box b, from the own block B and the neighbor block; with
+// SWAP the parity-swap terms of the pair partner t^1 are added last, in
+// the operation order of the TPU kernel.
+template <typename T, bool SWAP>
 __device__ __forceinline__ T ghost_value(const T* __restrict__ phi3,
                                          const T* __restrict__ B,
                                          const int* __restrict__ g,
@@ -54,30 +63,26 @@ __device__ __forceinline__ T ghost_value(const T* __restrict__ phi3,
   const T* nb = phi3 + (long long)g[b * 5 + 1 + d] * C * C;
   const T* w = W + (b * 4 + d) * 8;
   const int j = t + 1;
-  T slab, f1, f2;
-  if (d == 0) {
-    slab = nb[nc * C + j];
-    f1 = B[1 * C + j];
-    f2 = B[2 * C + j];
-  } else if (d == 1) {
-    slab = nb[1 * C + j];
-    f1 = B[nc * C + j];
-    f2 = B[(nc - 1) * C + j];
-  } else if (d == 2) {
-    slab = nb[j * C + nc];
-    f1 = B[j * C + 1];
-    f2 = B[j * C + 2];
-  } else {
-    slab = nb[j * C + 1];
-    f1 = B[j * C + nc];
-    f2 = B[j * C + nc - 1];
+  // the own-block layers next to side d: f1 at row/column r1, f2 at r2
+  const int r1 = (d == 0 || d == 2) ? 1 : nc;
+  const int r2 = (d == 0 || d == 2) ? 2 : nc - 1;
+  const int nbr = (d == 0 || d == 2) ? nc : 1;
+  const bool along_x = d < 2;  // sides 0, 1 are rows of the block
+  auto at = [&](const T* X, int layer, int jj) {
+    return along_x ? X[layer * C + jj] : X[jj * C + layer];
+  };
+  T ghost = w[0] * at(nb, nbr, j) + w[1] * at(B, r1, j) + w[2] * at(B, r2, j) +
+            A[(b * 4 + d) * nc + t];
+  if (SWAP) {
+    const int js = (t ^ 1) + 1;
+    ghost = ghost + w[3] * at(B, r1, js) + w[4] * at(B, r2, js);
   }
-  return w[0] * slab + w[1] * f1 + w[2] * f2 + A[(b * 4 + d) * nc + t];
+  return ghost;
 }
 
 // Value of cell (r, c) of box b's block, after the side-ghost fill when
 // FILL is set (corners and interior are the own block's).
-template <typename T, bool FILL>
+template <typename T, bool FILL, bool SWAP>
 __device__ __forceinline__ T cell_value(const T* __restrict__ phi3,
                                         const T* __restrict__ B,
                                         const int* __restrict__ g,
@@ -87,12 +92,14 @@ __device__ __forceinline__ T cell_value(const T* __restrict__ phi3,
   if (FILL) {
     const bool r_in = r >= 1 && r <= nc;
     const bool c_in = c >= 1 && c <= nc;
-    if (c_in && r == 0) return ghost_value(phi3, B, g, W, A, b, 0, c - 1, nc);
+    if (c_in && r == 0)
+      return ghost_value<T, SWAP>(phi3, B, g, W, A, b, 0, c - 1, nc);
     if (c_in && r == nc + 1)
-      return ghost_value(phi3, B, g, W, A, b, 1, c - 1, nc);
-    if (r_in && c == 0) return ghost_value(phi3, B, g, W, A, b, 2, r - 1, nc);
+      return ghost_value<T, SWAP>(phi3, B, g, W, A, b, 1, c - 1, nc);
+    if (r_in && c == 0)
+      return ghost_value<T, SWAP>(phi3, B, g, W, A, b, 2, r - 1, nc);
     if (r_in && c == nc + 1)
-      return ghost_value(phi3, B, g, W, A, b, 3, r - 1, nc);
+      return ghost_value<T, SWAP>(phi3, B, g, W, A, b, 3, r - 1, nc);
   }
   return B[r * (nc + 2) + c];
 }
@@ -107,6 +114,7 @@ __global__ void smoother_2d_kernel(const T* __restrict__ phi3,
                                    const T* __restrict__ cs,
                                    T* __restrict__ out, int n, int nc) {
   constexpr bool FILL = MODE != kModeSweep;
+  constexpr bool SWAP = MODE == kModeFillSwap;
   const int C = nc + 2;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)n * C * C) return;
@@ -117,8 +125,8 @@ __global__ void smoother_2d_kernel(const T* __restrict__ phi3,
   const T* B = phi3 + (long long)g[b * 5] * C * C;
 
   const bool interior = r >= 1 && r <= nc && c >= 1 && c <= nc;
-  if (MODE == kModeFill || !interior) {
-    out[idx] = cell_value<T, FILL>(phi3, B, g, W, A, b, r, c, nc);
+  if (MODE == kModeFill || MODE == kModeFillSwap || !interior) {
+    out[idx] = cell_value<T, FILL, SWAP>(phi3, B, g, W, A, b, r, c, nc);
     return;
   }
   const T B0 = B[r * C + c];
@@ -129,10 +137,10 @@ __global__ void smoother_2d_kernel(const T* __restrict__ phi3,
   }
   const int s = nc * nc;
   const T* cb = cs + b * 6 * s;
-  const T up = cell_value<T, FILL>(phi3, B, g, W, A, b, r - 1, c, nc);
-  const T dn = cell_value<T, FILL>(phi3, B, g, W, A, b, r + 1, c, nc);
-  const T lf = cell_value<T, FILL>(phi3, B, g, W, A, b, r, c - 1, nc);
-  const T rt = cell_value<T, FILL>(phi3, B, g, W, A, b, r, c + 1, nc);
+  const T up = cell_value<T, FILL, false>(phi3, B, g, W, A, b, r - 1, c, nc);
+  const T dn = cell_value<T, FILL, false>(phi3, B, g, W, A, b, r + 1, c, nc);
+  const T lf = cell_value<T, FILL, false>(phi3, B, g, W, A, b, r, c - 1, nc);
+  const T rt = cell_value<T, FILL, false>(phi3, B, g, W, A, b, r, c + 1, nc);
   const T lphi = cb[5 * s + k] * B0 + cb[1 * s + k] * (up - B0) +
                  cb[2 * s + k] * (dn - B0) + cb[3 * s + k] * (lf - B0) +
                  cb[4 * s + k] * (rt - B0);
@@ -163,6 +171,10 @@ int launch(int mode, const void* phi3, const void* R, const void* mask,
   } else if (mode == kModeFillSweep) {
     smoother_2d_kernel<T, kModeFillSweep>
         <<<blocks, threads, 0, stream>>>(p, r, m, a, gi, w, c, o, n, nc);
+  } else if (mode == kModeFillSwap) {
+    if (nc % 2 != 0) return (int)cudaErrorInvalidValue;
+    smoother_2d_kernel<T, kModeFillSwap>
+        <<<blocks, threads, 0, stream>>>(p, r, m, a, gi, w, c, o, n, nc);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -171,7 +183,8 @@ int launch(int mode, const void* phi3, const void* R, const void* mask,
 
 }  // namespace
 
-// mode: 0 sweep (K2), 1 fill (K3), 2 fill + sweep (K1); dbl: 1 for double,
+// mode: 0 sweep (K2), 1 fill (K3), 2 fill + sweep (K1), 3 fill with the
+// parity-swap terms (K3-swap); dbl: 1 for double,
 // 0 for float. Pointers a mode does not read may be null. Returns the
 // cudaGetLastError() of the launch (0 on success).
 extern "C" int afs_smoother_2d(int mode, int dbl, const void* phi3,

@@ -1,17 +1,17 @@
 """Simulation driver: module wiring + adaptive-dt main loop.
 
-Port of the reference's ``src/streamer.f90`` along the path of a fixed
-mesh: module initialization (initialize_modules ``:429-458``), the initial
-conditions with the initial field solve (set_initial_conditions
-``:460-519``), and the main loop (``:177-415``) with output cadence, step
-rejection and retry (up to 10 attempts) and the per-N-step restriction of
-the densities.
+Port of the reference's ``src/streamer.f90``: module initialization
+(initialize_modules ``:429-458``), the initial conditions with the initial
+field solve and refinement loop (set_initial_conditions ``:460-519``), and
+the main loop (``:177-415``) with output cadence, step rejection and retry
+(up to 10 attempts), and a refinement epoch every ``refine_per_steps``
+steps: restriction of the densities, the refinement criterion, the new
+mesh with prolongation into its new boxes, and a fresh field solve.
 
-The mesh is refined uniformly up to ``refine_max_dx`` at setup and then
-held fixed, which is what the JAX package does with ``refine_adx = 1e99``
-and ``refine_init_time = -1``. A configuration that would change the mesh
-later, or that asks for another module this package does not hold, raises
-NotImplementedError naming that module.
+Dielectrics (``use_dielectric``) add the permittivity variable, the
+surfaces on its jumps and their charge (solvers/surface.py,
+physics/dielectric.py). A configuration that asks for another module this
+package does not hold raises NotImplementedError naming that module.
 """
 
 from __future__ import annotations
@@ -27,22 +27,26 @@ from . import constants as uc
 from .core import ghostcell as gc
 from .core import prolong_restrict as pr
 from .core.batch import BoxBatch, capacity
+from .core import spatial as sp
 from .core.levels import MeshPlans
 from .core.tree import Tree
 from .io.output import Output
 from .physics import advance as adv
 from .physics.chemistry import Chemistry
+from .physics.dielectric import Dielectric
 from .physics.dt_control import DtConfig
 from .physics.field import FieldSolver
 from .physics.fluid import FluidModel, FluidIndices
 from .physics.gas import Gas
 from .physics.init_cond import InitCond
 from .physics.model import Model
+from .physics.refine import RefineCriterion, RefineSettings
 from .physics.streamer import (Registry, StreamerSettings,
                                bc_species_neumann_zero,
                                bc_species_dirichlet_zero)
 from .physics.transport_data import TransportData
 from .physics.user_methods import UserMethods, load_user_module
+from .solvers.surface import Surfaces
 from .utils.config import CFG
 from .utils.table_data import TableDataSettings
 
@@ -60,47 +64,12 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _fixed_mesh_level(cfg, tree: Tree) -> tuple:
-    """(level of the uniform mesh, refine_per_steps) of a configuration
-    whose refinement criterion never changes the mesh after setup
-    (RefineSettings / default_refinement, ``m_refine.f90:198-298``).
-
-    With refine_adx >= 1e99 no cell is flagged for refinement, with
-    refine_init_time < 0 the seeds are not refined, and the uniform mesh
-    at the first level with dx <= refine_max_dx is never derefined (its
-    parents are too coarse)."""
-    max_dx = cfg.add_get("refine_max_dx", 1.0e-3,
-                         "The grid spacing will always be smaller than this "
-                         "value (m)")
-    adx = cfg.add_get("refine_adx", 1.0,
-                      "Refine if alpha*dx is larger than this value")
-    init_time = cfg.add_get("refine_init_time", 10e-9,
-                            "Refine around initial conditions up to this "
-                            "time")
-    per_steps = cfg.add_get("refine_per_steps", 2,
-                            "The number of steps after which the mesh is "
-                            "updated")
-    regions_dr = cfg.add_get("refine_regions_dr", [1.0e99],
-                             "Refine regions up to this grid spacing (m)",
-                             dynamic=True)
-    if (adx < 1e99 or init_time >= 0.0
-            or any(float(x) < 1e99 for x in regions_dr)):
-        raise NotImplementedError(
-            "physics/refine.py: live refinement (this package needs "
-            "refine_adx = 1e99, refine_init_time = -1 and no refine regions)")
-    lvl = 1
-    while np.any(tree.lvl_dr(lvl) > max_dx) and lvl < 29:
-        lvl += 1
-    return lvl, per_steps
-
-
 def _refuse(cfg, user):
     """NotImplementedError for the modules of the JAX package that this
     package does not hold."""
     checks = [
         ("gas%dynamics", False, "physics/gas_dynamics.py"),
         ("use_electrode", False, "solvers/lsf.py (electrodes)"),
-        ("use_dielectric", False, "physics/dielectric.py"),
         ("plasma_region_enabled", False, "physics/fluid.py plasma region"),
         ("photoi%enabled", False, "physics/photoi.py"),
         ("compiled%enabled", False, "parallel/compiled.py"),
@@ -114,7 +83,8 @@ def _refuse(cfg, user):
     if cfg.add_get("restart_from_file", "UNDEFINED",
                    "Not available in this package") != "UNDEFINED":
         raise NotImplementedError("io/checkpoint.py")
-    hooks = [k for k, v in vars(user).items() if v is not None]
+    hooks = [k for k, v in vars(user).items()
+             if v is not None and k != "initial_conditions"]
     if hooks:
         raise NotImplementedError(
             f"physics/user_methods.py: user hooks {hooks}")
@@ -158,6 +128,11 @@ class Simulation:
         if self.st.cylindrical and ndim != 2:
             # the JAX package's Tree refuses the same
             raise ValueError("cylindrical coordinates only in 2D")
+        if self.st.use_dielectric and ndim != 2:
+            raise NotImplementedError(
+                "physics/dielectric.py: 3D dielectrics (not yet held "
+                "against the JAX package)")
+        self.refine_cfg = RefineSettings(cfg, ndim)
 
         # ---- variable registration (ST_initialize / chemistry_initialize)
         reg = Registry()
@@ -176,6 +151,16 @@ class Simulation:
         self.i_electric_fld = reg.add_cc("electric_fld")
         self.i_rhs = reg.add_cc("rhs")
         self.i_tmp = reg.add_cc("tmp")
+        self.i_eps = self.i_surf_photon = self.i_surf_sigma = -1
+        if self.st.use_dielectric:
+            self.i_eps = reg.add_cc("eps")
+            reg.set_cc_methods(self.i_eps,
+                               lambda iv, d, c, p: (gc.BC_NEUMANN, 0.0),
+                               rb=gc.RB_PROLONG_COPY, prolong="zeroth")
+            # the surface state, stored at the gas-side box row
+            # (solvers/surface.py); moved by the surfaces at refinement
+            self.i_surf_photon = reg.add_cc("surf_photon")
+            self.i_surf_sigma = reg.add_cc("surf_sigma", n_copies=n_copies)
 
         # face-centered variables: electron flux, mobile-ion fluxes, E
         self.fc_flux: List[int] = [reg.add_fc("flux_elec")]
@@ -189,16 +174,13 @@ class Simulation:
             self.fc_flux.append(reg.add_fc(f"flux_{nm}"))
         self.fc_E = reg.add_fc("electric_fld")
 
-        # ---- tree, refined once to the fixed mesh
+        # ---- tree (refined at setup) and its cached plans
         self.tree = Tree(ndim, self.st.box_size, self.st.domain_len,
                          self.st.coarse_grid_size, periodic=self.st.periodic,
                          coord=self.st.coord, r_min=self.st.domain_origin)
-        n1 = self.tree.highest_id
-        lvl, self.refine_per_steps = _fixed_mesh_level(cfg, self.tree)
-        self.tree.refine_up_to_lvl(lvl)
         self.mesh = MeshPlans(self.tree, self.device)
 
-        # ---- species BCs
+        # ---- species BCs and methods
         if self.st.species_boundary_condition == "neumann_zero":
             self.bc_species = bc_species_neumann_zero
         elif self.st.species_boundary_condition == "dirichlet_zero":
@@ -206,6 +188,9 @@ class Simulation:
                 iv, d, c, p, ndim=ndim)
         else:
             raise ValueError("Unknown species_boundary_condition")
+        for iv in self.all_densities:
+            reg.set_cc_methods(iv, self.bc_species, rb=gc.RB_INTERP_LIM,
+                               prolong=self.st.prolong_density)
 
         # ---- field solver
         ch_ix, ch_q = self.chem.charged_species
@@ -213,10 +198,16 @@ class Simulation:
         self.field = FieldSolver(cfg, self.mesh, self.st, self.i_phi,
                                  self.i_rhs, self.i_electric_fld, self.fc_E,
                                  charged_cc, ch_q)
+        if self.st.use_dielectric:
+            self.field.mg.eps_data = self._eps_level_data
+        reg.set_cc_methods(self.i_phi, self.field.phi_bc, rb=gc.RB_MG,
+                           prolong="linear")
+        reg.set_cc_methods(self.i_electric_fld, bc_species_neumann_zero,
+                           rb=gc.RB_INTERP, prolong="linear")
 
-        # ---- storage
+        # ---- storage (grown with the mesh, _sync_capacity)
         batch = BoxBatch(self.tree, reg.n_cc, reg.n_fc,
-                         capacity(n1, self.tree.highest_id), self.dtype,
+                         capacity(self.tree.highest_id), self.dtype,
                          self.device)
         self.cc, self.fc = batch.cc, batch.fc
 
@@ -228,6 +219,9 @@ class Simulation:
                              "background_species")):
             setattr(self.init_cond, attr,
                     [reg.cc_names.index(nm) for nm in names])
+        self.refiner = RefineCriterion(self.refine_cfg, self.tree, self.td,
+                                       self.gas, self.init_cond,
+                                       self.i_electric_fld, self.i_electron)
         self.output = Output(cfg)
 
         # ---- fluid model
@@ -242,6 +236,10 @@ class Simulation:
                                 prolong_limiter=pr.default_prolong_limiter(
                                     ndim))
         self.fluid.field_compute = self.field.compute
+        if self.st.use_dielectric:
+            self.fluid.mask_provider = self._level_mask
+        self.surfaces = None
+        self.dielectric = None
 
         # runtime state
         self.it = 0
@@ -258,14 +256,118 @@ class Simulation:
             "Start refining electrode some time before the next pulse")
         self.setup_initial_conditions()
 
+    # ------------------------------------------------------------ helpers
+    def _eps_level_data(self, lvl: int) -> np.ndarray:
+        """Permittivity blocks of a level on the host (the variable-eps
+        multigrid operator)."""
+        return self.cc[self.i_eps, self.mesh.tb(lvl).d.ids].cpu().numpy()
+
+    def _level_mask(self, lvl: int):
+        """Cells of a level's leaves the fluid update may change
+        (set_box_mask, m_fluid.f90:469-515): none inside a dielectric."""
+        def make():
+            leaves = self.mesh.tb(lvl).d.leaves
+            inner = torch.as_tensor(
+                sp.interior_flat(self.ndim, self.tree.nc),
+                dtype=torch.int64, device=self.device)
+            eps = self.cc[self.i_eps, leaves[:, None], inner[None, :]]
+            return (eps - 1.0).abs() <= 1e-10
+        return self.mesh.cached(("fluid_mask", lvl), make, (lvl,))
+
+    def _sync_capacity(self):
+        """Grow the state so rows 0..highest_id exist (by 30 % and at
+        least 64 rows, as the JAX package grows its batch)."""
+        need = self.tree.highest_id
+        cap = self.cc.shape[1]
+        if need <= cap:
+            return
+        grow = max(need + 64, int(1.3 * cap))
+        cc = self.cc.new_zeros((self.cc.shape[0], grow, self.cc.shape[2]))
+        cc[:, :cap] = self.cc
+        fc = self.fc.new_zeros(self.fc.shape[:2] + (grow,)
+                               + self.fc.shape[3:])
+        fc[:, :, :cap] = self.fc
+        self.cc, self.fc = cc, fc
+
+    def _set_initial_values(self, ids):
+        """Initial conditions and the user hook on boxes ``ids``."""
+        self.cc = self.init_cond.apply(self.cc, self.tree, ids)
+        if self.user.initial_conditions is not None:
+            self.user.initial_conditions(self, np.asarray(ids, np.int64))
+        elif self.st.use_dielectric:
+            raise ValueError(
+                "use_dielectric requires user initial conditions")
+
     # ------------------------------------------------- initial conditions
     def setup_initial_conditions(self):
-        """set_initial_conditions (streamer.f90:460-519) on the fixed mesh:
-        initial densities on every box, then the initial field solve."""
-        allids = np.concatenate([np.asarray(i) for i in self.tree.lvl_ids])
-        self.cc = self.init_cond.apply(self.cc, self.tree, allids)
-        self.cc, self.fc = self.field.compute(self.cc, self.fc, 0, 0.0, False)
+        """set_initial_conditions (streamer.f90:460-519): the mesh refined
+        up to refine_max_dx, initial densities, then up to 100 passes of a
+        field solve and a refinement with initial values on new boxes."""
+        t = self.tree
+        lvl = 1
+        while np.any(t.lvl_dr(lvl) > self.refine_cfg.max_dx) and lvl < 29:
+            lvl += 1
+        t.refine_up_to_lvl(lvl)
+        self._sync_capacity()
+        allids = np.concatenate([np.asarray(i) for i in t.lvl_ids])
+        self._set_initial_values(allids)
+        if self.st.use_dielectric:
+            self._init_surfaces()
+
+        for _ in range(100):
+            self.cc, self.fc = self.field.compute(self.cc, self.fc, 0, 0.0,
+                                                  False)
+            info = self.adjust_refinement()
+            if info.n_add == 0:
+                break
+            self._set_initial_values(np.asarray(info.added, np.int64))
         self.output_write(0)
+
+    def _init_surfaces(self):
+        """The surfaces on the permittivity jumps (surface_initialize) and
+        the dielectric physics on them."""
+        n_states = self.dt_cfg.num_steps
+        eps = self.cc[self.i_eps, :self.tree.highest_id].cpu().numpy()
+        self.surfaces = Surfaces(self.tree, eps, self.i_surf_photon,
+                                 self.i_surf_sigma, n_states + 1)
+        # full charges of the flux species and the positive-ion fluxes
+        charges = [self.chem.species_charge[self.species_cc.index(iv)]
+                   for iv in self.flux_species]
+        pos_ion_fc = [f for f, q in zip(self.fc_flux, charges) if q > 0]
+        self.dielectric = Dielectric(self.cfg, self.surfaces, self.fluid.idx,
+                                     self.i_eps, charges, pos_ion_fc)
+        self.field.surfaces = self.surfaces
+        self.fluid.dielectric = self.dielectric
+
+    # ---------------------------------------------------- refinement step
+    def adjust_refinement(self):
+        """af_adjust_refinement and the data movement for new and removed
+        boxes: the surfaces follow the mesh, the state grows, and every
+        variable with methods is prolonged into the new boxes and
+        ghost-filled, level by level."""
+        self.refiner.time = self.global_time
+        links = (self.surfaces.refinement_links()
+                 if self.surfaces is not None else None)
+        info = self.tree.adjust_refinement(
+            lambda ids: self.refiner.cell_flags(self.cc, ids),
+            ref_buffer=self.refine_cfg.buffer_width, ref_links=links)
+        if info.n_add == 0 and info.n_rm == 0:
+            return info
+        self._sync_capacity()
+        if self.surfaces is not None:
+            self.cc = self.surfaces.update_after_refinement(self.cc, info)
+        params = {"voltage": self.field.current_voltage}
+        methods = self.registry.methods
+        for lvl in sorted(info.added_per_lvl):
+            plan = pr.ProlongRestrictPlan(self.tree, info.added_per_lvl[lvl],
+                                          self.device)
+            for iv in self.registry.auto_vars:
+                pr.prolong(self.cc, plan, [iv], methods[iv]["prolong"])
+            gplan = self.mesh.gc(lvl)
+            for iv in self.registry.auto_vars:
+                gc.fill_ghosts_lvl(self.cc, gplan, [iv], methods[iv]["rb"],
+                                   methods[iv]["bc"], params)
+        return info
 
     def output_write(self, out_cnt: int):
         if self.output.regression_test:
@@ -412,23 +514,32 @@ class Simulation:
                 time_last_output = self.global_time
                 self.output_write(out_cnt)
 
-            # the densities are restricted and ghost-filled at every
-            # refinement check (streamer.f90:380-411); the mesh stays fixed
-            if self.it % self.refine_per_steps == 0:
+            # refinement every refine_per_steps (streamer.f90:380-411)
+            if self.it % self.refine_cfg.per_steps == 0:
                 self.restrict_and_gc_densities()
+                info = self.adjust_refinement()
+                if info.n_add > 0 or info.n_rm > 0:
+                    self.cc, self.fc = self.field.compute(
+                        self.cc, self.fc, 0, time, True)
 
         self.output.status(self, _time.time() - t_start)
         return out_cnt
 
+    def _time_state_vars(self) -> List[int]:
+        """Variables with time-state copies: the densities and, with
+        dielectrics, the surface charge."""
+        surf = [self.i_surf_sigma] if self.surfaces is not None else []
+        return self.all_densities + surf
+
     def _copy_state(self, n_states: int):
         """copy_current_state (streamer.f90:571-583)."""
-        for iv in self.all_densities:
+        for iv in self._time_state_vars():
             self.cc[iv + n_states] = self.cc[iv]
         self.cc[self.i_phi + 1] = self.cc[self.i_phi]
 
     def _restore_state(self, n_states: int, params):
         """restore_previous_state (streamer.f90:586-599)."""
-        for iv in self.all_densities:
+        for iv in self._time_state_vars():
             self.cc[iv] = self.cc[iv + n_states]
         self.cc[self.i_phi] = self.cc[self.i_phi + 1]
         self.cc, self.fc = self.field.from_potential(self.cc, self.fc,

@@ -10,7 +10,11 @@ from these kernels. In 2D (csrc/smoother.cu):
   uniform linear form ``W0*nb_slab + W1*f1 + W2*f2 + A`` (corners kept),
   which covers same-level copies, physical boundaries and the
   mg_sides_rb refinement-boundary scheme;
-* K1 ``fill_sweep_2d``: K3 then K2 in one kernel.
+* K1 ``fill_sweep_2d``: K3 then K2 in one kernel;
+* K3-swap ``fill_2d_swap``: K3 plus the parity-swap terms
+  ``W3*swap(f1) + W4*swap(f2)`` (swap exchanges the transverse cell pairs
+  (j, j^1)) of the extrapolating refinement-boundary ghosts of boxes with
+  variable permittivity.
 
 In 3D (csrc/smoother_3d.cu):
 
@@ -49,7 +53,7 @@ KERNEL_SOURCES = {"afs_smoother_2d": _PKG / "csrc" / "smoother.cu",
                   "afs_smoother_3d": _PKG / "csrc" / "smoother_3d.cu"}
 BUILD_DIR = _PKG / "build"
 
-_MODE_SWEEP, _MODE_FILL, _MODE_FILL_SWEEP = 0, 1, 2
+_MODE_SWEEP, _MODE_FILL, _MODE_FILL_SWEEP, _MODE_FILL_SWAP = 0, 1, 2, 3
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +132,8 @@ def _check(phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
         raise ValueError(f"unsupported dtype {phi3.dtype}")
     n, C = phi3.shape[0], phi3.shape[1]
     nc = C - 2
+    if nc % 2:
+        raise ValueError(f"nc must be even, got {nc}")
     cube = (nc,) * ndim
     face = (nc,) * (ndim - 1)
     spec = {"R": (R, (n,) + cube, phi3.dtype),
@@ -190,8 +196,9 @@ def _sweep_blocks(B, R, mask, cs):
     return out
 
 
-def _fill_blocks(phi3, A, g, W):
-    """Own blocks phi3[g[:, 0]] with rebuilt side ghosts."""
+def _fill_blocks(phi3, A, g, W, swap: bool = False):
+    """Own blocks phi3[g[:, 0]] with rebuilt side ghosts (with ``swap``
+    the parity-swap terms W3*swap(f1) + W4*swap(f2) added last)."""
     nc = phi3.shape[-1] - 2
     gl = g.long()
     B = phi3[gl[:, 0]]
@@ -210,6 +217,9 @@ def _fill_blocks(phi3, A, g, W):
         w = W[:, d]
         ghost = (w[:, 0:1] * slab + w[:, 1:2] * f1 + w[:, 2:3] * f2
                  + A[:, d])
+        if swap:
+            ghost = (ghost + w[:, 3:4] * gc.pair_swap(f1)
+                     + w[:, 4:5] * gc.pair_swap(f2))
         if d == 0:
             out[:, 0, inner] = ghost
         elif d == 1:
@@ -231,6 +241,12 @@ def fill_2d_plain(phi3, A, g, W):
     """Plain version of K3 without parity-swap terms (pallas_smoother.py
     _fill_2d, has_swap=False)."""
     return _fill_blocks(phi3, A, g, W)
+
+
+def fill_2d_swap_plain(phi3, A, g, W):
+    """Plain version of K3 with parity-swap terms (pallas_smoother.py
+    _fill_2d, has_swap=True)."""
+    return _fill_blocks(phi3, A, g, W, swap=True)
 
 
 def fill_sweep_2d_plain(phi3, R, mask, A, g, W, cs):
@@ -307,6 +323,16 @@ def fill_2d(phi3, A, g, W):
     return out
 
 
+def fill_2d_swap(phi3, A, g, W):
+    """K3-swap: side-ghost exchange of every block with the parity-swap
+    terms of the extrapolating refinement-boundary ghosts."""
+    if phi3.device.type == "cpu":
+        return fill_2d_swap_plain(phi3, A, g, W)
+    out = _launch(_MODE_FILL_SWAP, 2, phi3, A=A, g=g, W=W)
+    fill_2d_swap.launches += 1
+    return out
+
+
 def fill_sweep_2d(phi3, R, mask, A, g, W, cs):
     """K1: side-ghost exchange, then a red-black half sweep on the filled
     blocks."""
@@ -337,10 +363,11 @@ def fill_3d(phi3, A, g, W):
 
 
 KERNELS = {"fill_sweep_2d": fill_sweep_2d, "sweep_2d": sweep_2d,
-           "fill_2d": fill_2d, "sweep_3d": sweep_3d, "fill_3d": fill_3d}
+           "fill_2d": fill_2d, "fill_2d_swap": fill_2d_swap,
+           "sweep_3d": sweep_3d, "fill_3d": fill_3d}
 PLAIN = {"fill_sweep_2d": fill_sweep_2d_plain, "sweep_2d": sweep_2d_plain,
-         "fill_2d": fill_2d_plain, "sweep_3d": sweep_3d_plain,
-         "fill_3d": fill_3d_plain}
+         "fill_2d": fill_2d_plain, "fill_2d_swap": fill_2d_swap_plain,
+         "sweep_3d": sweep_3d_plain, "fill_3d": fill_3d_plain}
 
 
 def reset_launch_counts() -> None:
@@ -363,9 +390,18 @@ class SmootherTables:
     ``bc_recipe`` lists (direction, bc type, gamma) for the physical
     boundaries, whose values the A constants fold in at every level visit
     (solvers/mg_blocks.build_A_blocks); ``rb_dirs`` the directions with
-    refinement boundaries, whose coarse strips do the same."""
+    refinement boundaries, whose coarse strips do the same.
 
-    def __init__(self, tree, lvl: int, plan, tb, bc_fn, i_phi: int, device):
+    ``rb_extrap`` ({direction: bool per refinement-boundary entry}, the
+    multigrid's variable-eps mask) selects the extrapolating ghosts of
+    mg_sides_rb_extrap (pallas_smoother.py PallasSmoother2D :115-126): in
+    2D the weights 1.125, -0.375 and the parity-swap weights -0.375, 0.125,
+    in 3D the one-dimensional form 0.75, -0.25; their A constants take half
+    the parent copy. ``has_swap`` tells whether any parity-swap weight is
+    set (K3-swap)."""
+
+    def __init__(self, tree, lvl: int, plan, tb, bc_fn, i_phi: int, device,
+                 rb_extrap=None):
         self.nc, self.ndim = tree.nc, tree.ndim
         n_dir = 2 * tree.ndim
         ids = np.asarray(tb.ids, np.int64)
@@ -379,6 +415,7 @@ class SmootherTables:
         bc_recipe, rb_dirs = [], []
         self.bc_pos = [None] * n_dir
         self.rb_pos = [None] * n_dir
+        self.rb_extrap = [None] * n_dir
         for d, p in enumerate(plan.dirs):
             if len(p.copy_ids):
                 rows = pos[p.copy_ids]
@@ -407,8 +444,16 @@ class SmootherTables:
                                                  device=device)
             if len(p.rb_ids):
                 rows = pos[p.rb_ids]
-                W[rows, d, 1] = 0.75
-                W[rows, d, 2] = -0.25
+                emask = np.zeros(len(rows), bool)
+                if rb_extrap is not None and rb_extrap.get(d) is not None:
+                    emask = np.asarray(rb_extrap[d], bool)
+                W[rows[~emask], d, 1] = 0.75
+                W[rows[~emask], d, 2] = -0.25
+                if emask.any():
+                    W[rows[emask], d, 1:5] = ((1.125, -0.375, -0.375, 0.125)
+                                              if tree.ndim == 2
+                                              else (0.75, -0.25, 0.0, 0.0))
+                    self.rb_extrap[d] = torch.as_tensor(emask, device=device)
                 rb_dirs.append(d)
                 self.rb_pos[d] = torch.as_tensor(rows, dtype=torch.int64,
                                                  device=device)
@@ -416,6 +461,7 @@ class SmootherTables:
             raise ValueError("neighbor row table out of range")
         self.g = torch.as_tensor(g, dtype=torch.int32, device=device)
         self._W = W
+        self.has_swap = bool(np.any(W[:, :, 3:5] != 0.0))
         self.bc_recipe = tuple(bc_recipe)
         self.rb_dirs = tuple(rb_dirs)
         self.device = device

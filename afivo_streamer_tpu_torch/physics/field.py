@@ -8,7 +8,9 @@ rise/fall/pulse trains and tabulated time series (field_set_voltage
 against a residual threshold scaled by max|rhs| and a roundoff estimate),
 the field from the potential (field_from_potential ``:488-505``), and the
 built-in boundary conditions (homogeneous / neumann / all_neumann,
-``:547-608``).
+``:547-608``). With dielectrics (``surfaces`` set) the rhs takes the
+base-state surface charge and the face field the surface-charge jump;
+the permittivity enters through the multigrid's ``eps_data``.
 
 The whole solve runs on the per-level block arrays of
 solvers/mg_blocks.py: cc is read once and written once per solve, and the
@@ -94,6 +96,7 @@ class FieldSolver:
                                    "Boundary condition for electric potential")
         self.current_voltage = 0.0
         self.mg = Multigrid(mesh, i_phi, i_rhs, self.phi_bc)
+        self.surfaces = None  # solvers/surface.Surfaces with dielectrics
 
     # ------------------------------------------------- boundary conditions
     def phi_bc(self, iv, d, coords, params):
@@ -147,6 +150,10 @@ class FieldSolver:
         for s_cc, q in zip(self.charged_species_cc, self.charged_sign):
             acc = acc + (float(q) * fac) * cc[s_cc + s_in, allids]
         cc[self.i_rhs, allids] = acc
+        if self.surfaces is not None:
+            # the reference always deposits the base-state surface charge
+            # (field_set_rhs, m_field.f90:398-400)
+            cc = self.surfaces.charge_to_rhs(cc, self.i_rhs, fac)
         return cc
 
     # ------------------------------------------------------------ solve
@@ -201,6 +208,9 @@ class FieldSolver:
         """E = -grad phi; cell norm; ghost fill of the norm
         (field_from_potential)."""
         fc = self.mg.compute_phi_gradient(cc, fc, self.fc_E, -1.0)
+        if self.surfaces is not None:
+            fc = self.surfaces.correct_field_fc(
+                cc, fc, self.fc_E, self.i_phi, uc.elem_charge / uc.eps0)
         cc = self.mg.compute_field_norm(cc, fc, self.fc_E,
                                         self.i_electric_fld)
         # gc for the norm: neumann-zero bc + unlimited interpolation rb

@@ -388,10 +388,14 @@ class FluidModel:
         self.prolong_limiter = prolong_limiter
         self.limiter = limiter
         self.field_compute = None  # wired by the simulation (m_field)
+        #: callable(lvl) -> bool mask [n_leaves, nc^ndim] of the cells the
+        #: update may change (set_box_mask), or None
+        self.mask_provider = None
+        self.dielectric = None  # physics/dielectric.Dielectric when used
 
     def _gc2_plan(self, lvl: int) -> Gc2LevelPlan:
         return self.mesh.cached(("gc2", lvl), lambda: Gc2LevelPlan(
-            self.tree, lvl, self.mesh.device))
+            self.tree, lvl, self.mesh.device), (lvl,))
 
     def _consistent_plan(self):
         return self.mesh.cached("consistent", lambda: build_consistent_plan(
@@ -422,7 +426,7 @@ class FluidModel:
         sign_t = self.mesh.cached(
             ("flux_sign", cc.dtype),
             lambda: torch.as_tensor(sign, **dev).reshape(
-                (1, n_sp) + (1,) * ndim))
+                (1, n_sp) + (1,) * ndim), ())
 
         for lvl in range(1, t.highest_lvl + 1):
             plan = self._gc2_plan(lvl)
@@ -488,6 +492,13 @@ class FluidModel:
                     torch.maximum(v_lo.abs(), v_hi.abs()) * inv_dx
                     + 2.0 * torch.maximum(dc_lo, dc_hi) * inv_dx ** 2)
 
+                # no fluxes out of dielectric boxes (flux_upwind,
+                # m_fluid.f90:139-144)
+                if self.dielectric is not None:
+                    first = sp.cc_flat(ndim, nc, *([np.array([1])] * ndim))
+                    diel = (cc[self.dielectric.i_eps, leaves, int(first[0])]
+                            > 1.0).reshape((n,) + (1,) * ndim)
+                    fluxes = [torch.where(diel, 0.0, f) for f in fluxes]
                 for m, f_iv in enumerate(idx.flux_fc):
                     ro.fc_set_faces(fc, f_iv, d, leaves, fluxes[m], nc,
                                     ndim)
@@ -519,6 +530,10 @@ class FluidModel:
             leaves = tb.d.leaves
             n = len(tb.leaves)
             dr = t.lvl_dr(lvl)
+            # cells the update may change (set_box_mask,
+            # m_fluid.f90:469-515); the weighted sum below ignores it
+            mask = (None if self.mask_provider is None
+                    else self.mask_provider(lvl))
 
             # weighted sum of previous states for ALL densities, written
             # unconditionally (flux_update_densities,
@@ -541,8 +556,10 @@ class FluidModel:
                         F_lo = F_lo * tb.d.rfac_lo.to(cc.dtype)[:, :, None]
                         F_hi = F_hi * tb.d.rfac_hi.to(cc.dtype)[:, :, None]
                     div = div + (F_lo - F_hi) / float(dr[d])
-                ro.cc_add_interior(cc, iv + s_out, leaves,
-                                   dt * div.reshape(n, -1), nc, ndim)
+                upd = dt * div.reshape(n, -1)
+                if mask is not None:
+                    upd = torch.where(mask, upd, 0.0)
+                ro.cc_add_interior(cc, iv + s_out, leaves, upd, nc, ndim)
 
             # chemistry source terms (add_source_terms)
             fields_td = (ro.cc_get_interior(cc, idx.i_electric_fld, leaves,
@@ -581,8 +598,10 @@ class FluidModel:
 
             # apply source terms (plasma species only)
             for spi, s_cc in enumerate(idx.species_cc):
-                ro.cc_add_interior(cc, s_cc + s_out, leaves,
-                                   dt * derivs[:, :, spi], nc, ndim)
+                upd = dt * derivs[:, :, spi]
+                if mask is not None:
+                    upd = torch.where(mask, upd, 0.0)
+                ro.cc_add_interior(cc, s_cc + s_out, leaves, upd, nc, ndim)
 
         diag = {"rates": total_rates, "JdotE": total_JdotE}
         return cc, dt_chem, diag
@@ -613,6 +632,12 @@ class FluidModel:
         cc, fc, dt_cfl, dt_drt = self.compute_fluxes(cc, fc, s_deriv, params)
         cc, dt_chem, diag = self.update_densities(
             cc, fc, dt, s_deriv, s_prev, w_prev, s_out, i_step == n_steps)
+        if self.dielectric is not None:
+            # surface charge from the fluxes, secondary and photon emission
+            # (forward_euler, m_fluid.f90:77-94)
+            cc = self.dielectric.update_surface_charge(cc, fc, dt, s_prev,
+                                                       w_prev, s_out)
+            cc = self.dielectric.photon_emission(cc, fc, dt, s_out)
         # NOTE: the reference *assigns* dt_lim in each substep
         # (m_fluid.f90:96-98), so af_advance returns the limit of the LAST
         # substep, not the minimum over substeps.

@@ -9,7 +9,7 @@ holds domain/solver settings. Variable indices are plain ints into the SoA
 
 from __future__ import annotations
 
-from typing import List
+from typing import Callable, Dict, List
 
 import numpy as np
 
@@ -23,6 +23,9 @@ class Registry:
     def __init__(self):
         self.cc_names: List[str] = []
         self.fc_names: List[str] = []
+        #: ghost-cell and prolongation methods of the base variables, in
+        #: the order they were set (af_set_cc_methods)
+        self.methods: Dict[int, Dict] = {}
 
     def add_cc(self, name: str, n_copies: int = 1) -> int:
         """Add a variable and its n_copies - 1 time-state copies; returns
@@ -35,6 +38,18 @@ class Registry:
     def add_fc(self, name: str) -> int:
         self.fc_names.append(name)
         return len(self.fc_names) - 1
+
+    def set_cc_methods(self, iv: int, bc: Callable, rb: str,
+                       prolong: str) -> None:
+        """Boundary condition, refinement-boundary ghost method and
+        prolongation method of variable ``iv`` (af_set_cc_methods)."""
+        self.methods[iv] = dict(bc=bc, rb=rb, prolong=prolong)
+
+    @property
+    def auto_vars(self) -> List[int]:
+        """Variables prolonged into new boxes and ghost-filled at
+        refinement (cc_auto_vars), in the order their methods were set."""
+        return list(self.methods)
 
     @property
     def n_cc(self) -> int:

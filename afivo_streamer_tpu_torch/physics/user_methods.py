@@ -18,6 +18,10 @@ import path) defining ``user_initialize(cfg, sim)``, which sets hooks on
 * ``generic(sim, time)`` — called every iteration
 * ``log_subroutine(sim, file)`` / ``log_variables(sim) -> (names, values)``
 * ``lsf(r) -> values`` and ``lsf_bc`` — custom electrode geometry
+
+The simulation takes ``initial_conditions`` (called on the boxes of the
+initial mesh and on the new boxes of every setup refinement pass) and
+refuses the other hooks, which need modules this package does not hold.
 """
 
 from __future__ import annotations

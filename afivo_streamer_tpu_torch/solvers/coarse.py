@@ -9,7 +9,9 @@ inverted on the host; a solve is then one matrix-vector product on the
 device.
 
 Supports the constant Laplacian/Helmholtz operator with cylindrical radial
-factors.
+factors, or any per-cell level-1 operator (``level1_op``, a
+multigrid.LevelOp such as the variable-permittivity one): the dense solve
+must use the fine levels' stencil, or FAS stalls.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ _MAX_DENSE = 32768  # beyond this a dense inverse is unreasonable
 
 
 class CoarseSolver:
-    def __init__(self, tree: Tree, sides_bc: Callable, lam: float, device):
+    def __init__(self, tree: Tree, sides_bc: Callable, lam: float, device,
+                 level1_op=None):
         self.tree = tree
         self.sides_bc = sides_bc
         ndim, nc = tree.ndim, tree.nc
@@ -58,7 +61,16 @@ class CoarseSolver:
         # global per-cell coefficients
         C0 = np.zeros(N)
         CNb = [np.zeros(N) for _ in range(2 * ndim)]
-        for idx in itertools.product(*[range(s) for s in self.shape]):
+        if level1_op is not None:
+            shape = (len(ids1), nc ** ndim)
+            rows = rows_map.ravel()
+            for dst, c in zip([C0] + CNb,
+                              [level1_op.c0] + list(level1_op.c_nb)):
+                dst[rows] = np.broadcast_to(
+                    np.asarray(c).reshape(len(ids1), -1) if np.ndim(c)
+                    else np.full(shape, c), shape).ravel()
+        for idx in (() if level1_op is not None else
+                    itertools.product(*[range(s) for s in self.shape])):
             r = int(np.ravel_multi_index(idx, self.shape))
             cs = [inv_dr2[d // 2] for d in range(2 * ndim)]
             if tree.coord == "cyl":

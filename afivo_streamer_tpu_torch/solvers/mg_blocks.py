@@ -32,7 +32,8 @@ from ..ops import smoother as ks
 
 class LevelBlockPlan:
     """Block-row index tables of one level for the block cycle: the
-    rb-ghost coarse-strip rows in the coarse level's block array, the
+    rb-ghost coarse-strip rows in the coarse level's block array (and the
+    parent rows and cells that the extrapolating rb ghosts copy), the
     edge- and corner-fill tables, the transfer tables between the level's
     blocks and their parents' (children in the order [parent, parity],
     with the cylindrical restriction weights) and the parent mask of the
@@ -54,6 +55,8 @@ class LevelBlockPlan:
         # rb coarse-strip rows per direction
         self.rb_cpos = [None] * (2 * ndim)
         self.rb_tmp = [None] * (2 * ndim)
+        self.rb_ppos = [None] * (2 * ndim)
+        self.rb_pcopy = [None] * (2 * ndim)
         self.n_c = 0
         if lvl > 1:
             tb_c = mesh.tb(lvl - 1)
@@ -63,6 +66,8 @@ class LevelBlockPlan:
                 if len(p.rb_ids):
                     self.rb_cpos[d] = dev(pos_c[p.rb_coarse])
                     self.rb_tmp[d] = p.d.rb_tmp
+                    self.rb_ppos[d] = dev(pos_c[p.rb_parent])
+                    self.rb_pcopy[d] = p.d.rb_pcopy
 
         # all edge and corner groups as flat indices into the block array
         self.corners = gc.corner_tables(plan, pos_l, S, device)
@@ -224,7 +229,9 @@ def build_A_blocks(mg, lvl: int, Pc, params, dtype):
     """Ghost constants A [n, 2 ndim] + [nc]^(ndim-1) of one level:
     physical boundary values folded with the runtime voltage;
     mg_sides_rb coarse strips interpolated from the coarse block array
-    ``Pc`` (``m_af_multigrid.f90:361-388``)."""
+    ``Pc`` (``m_af_multigrid.f90:361-388``), or, for the extrapolating
+    entries of boxes with variable eps, half the parent copy gathered from
+    ``Pc`` (pallas_smoother.py PallasSmoother2D.build_consts :162-174)."""
     sm = mg.smoother(lvl)
     bp = mg.blocks(lvl)
     plan = mg.mesh.gc(lvl)
@@ -245,10 +252,14 @@ def build_A_blocks(mg, lvl: int, Pc, params, dtype):
                                          device=device))
             Ad.index_add_(0, sm.bc_pos[d], val)
         if d in sm.rb_dirs and Pc is not None:
-            strips = Pc.reshape(Pc.shape[0], -1)[bp.rb_cpos[d][:, None],
-                                                 bp.rb_tmp[d]]
-            Ad.index_add_(0, sm.rb_pos[d],
-                          0.5 * gc.mg_rb_interp(strips, ndim, nc))
+            flat = Pc.reshape(Pc.shape[0], -1)
+            contrib = 0.5 * gc.mg_rb_interp(
+                flat[bp.rb_cpos[d][:, None], bp.rb_tmp[d]], ndim, nc)
+            if sm.rb_extrap[d] is not None:
+                pc = flat[bp.rb_ppos[d][:, None], bp.rb_pcopy[d]]
+                contrib = torch.where(sm.rb_extrap[d][:, None], 0.5 * pc,
+                                      contrib)
+            Ad.index_add_(0, sm.rb_pos[d], contrib)
         cols.append(Ad)
     return torch.stack(cols, dim=1).reshape(
         (n, 2 * ndim) + (nc,) * (ndim - 1)).contiguous()
@@ -259,12 +270,18 @@ def smooth_blocks(mg, lvl: int, P_l, R_l, A_l, cs_l, n_cycle: int,
     """gsrb_boxes on a level's block array (``m_af_multigrid.f90:648-687``):
     2 n_cycle (sweep, fill) half sweeps. In 2D that is sweep;
     [fill+sweep] ...; fill, i.e. K2, K1 for every interior pair, then K3;
-    in 3D K4 then K5 for every half sweep. Edge and corner ghosts are
-    stored after the final upward half sweep."""
+    on a 2D level with extrapolating (parity-swap) ghosts K2 then K3-swap
+    for every half sweep, as K1 has no swap terms; in 3D K4 then K5 for
+    every half sweep. Edge and corner ghosts are stored after the final
+    upward half sweep."""
     sm = mg.smoother(lvl)
     masks = mg.parity_masks(2 * n_cycle)
     W = sm.W(P_l.dtype)
-    if sm.ndim == 2:
+    if sm.has_swap:
+        for mask in masks:
+            P_l = ks.sweep_2d(P_l, R_l, mask, sm.g, cs_l)
+            P_l = ks.fill_2d_swap(P_l, A_l, sm.g, W)
+    elif sm.ndim == 2:
         P_l = ks.sweep_2d(P_l, R_l, masks[0], sm.g, cs_l)
         for mask in masks[1:]:
             P_l = ks.fill_sweep_2d(P_l, R_l, mask, A_l, sm.g, W, cs_l)
@@ -279,10 +296,12 @@ def smooth_blocks(mg, lvl: int, P_l, R_l, A_l, cs_l, n_cycle: int,
 
 
 def fill_blocks(mg, lvl: int, P_l, A_l):
-    """Side ghosts (K3 in 2D, K5 in 3D), then edges and corners, of one
-    level's blocks (af_gc_tree on one level)."""
+    """Side ghosts (K3, or K3-swap on a level with extrapolating ghosts, in
+    2D; K5 in 3D), then edges and corners, of one level's blocks (af_gc_tree
+    on one level)."""
     sm = mg.smoother(lvl)
-    fill = ks.fill_2d if sm.ndim == 2 else ks.fill_3d
+    fill = (ks.fill_2d_swap if sm.has_swap
+            else ks.fill_2d if sm.ndim == 2 else ks.fill_3d)
     P_l = fill(P_l, A_l, sm.g, sm.W(P_l.dtype))
     return corner_fill_blocks(P_l, mg.blocks(lvl), sm.nc)
 

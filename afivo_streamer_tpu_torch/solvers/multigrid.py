@@ -44,9 +44,15 @@ class LevelOp:
 
     Normal box: the constant 5/7-point Laplacian - helmholtz_lambda
     (mg_box_lpl_stencil, ``m_af_multigrid.f90:1227-1245``); cylindrical
-    coordinates scale the radial couplings by the flux factors."""
+    coordinates scale the radial couplings by the flux factors.
 
-    def __init__(self, tree, lvl: int, lam: float):
+    With the permittivity ``eps`` of the level's blocks ([n, (nc+2)^ndim],
+    ghost layer included): the variable-permittivity operator
+    (mg_box_lpld_stencil, ``m_af_multigrid.f90:1476-1560``) with the
+    harmonic-mean couplings 2 eps0 eps_nb / (eps0 + eps_nb), and ``veps``
+    flags the boxes where eps varies anywhere in the block."""
+
+    def __init__(self, tree, lvl: int, lam: float, eps=None):
         nc, ndim = tree.nc, tree.ndim
         dr = tree.lvl_dr(lvl)
         inv_dr2 = 1.0 / dr**2
@@ -65,6 +71,27 @@ class LevelOp:
             c0 = c0 - (c_lo - c_nb[0]) - (c_hi - c_nb[1])
             c_nb[0] = c_lo
             c_nb[1] = c_hi
+        self.veps = None
+        if eps is not None:
+            n = len(ids)
+            E = np.asarray(eps).reshape((n,) + (nc + 2,) * ndim)
+            e0 = E[(slice(None),) + (slice(1, nc + 1),) * ndim]
+            c_nb = []
+            for d in range(2 * ndim):
+                delta = -1 if d % 2 == 0 else 1
+                sl = [slice(1, nc + 1)] * ndim
+                sl[d // 2] = slice(1 + delta, nc + 1 + delta)
+                enb = E[(slice(None),) + tuple(sl)]
+                c_nb.append(inv_dr2[d // 2] * 2.0 * e0 * enb / (e0 + enb))
+            if tree.coord == "cyl":
+                r0 = tree.box_r_min(ids)[:, 0]
+                i = np.arange(1, nc + 1)
+                r_cc = r0[:, None] + (i[None, :] - 0.5) * dr[0]
+                c_nb[0] = c_nb[0] * ((r_cc - 0.5 * dr[0]) / r_cc)[:, :, None]
+                c_nb[1] = c_nb[1] * ((r_cc + 0.5 * dr[0]) / r_cc)[:, :, None]
+            c0 = -sum(c_nb) - lam
+            eps = np.asarray(eps)
+            self.veps = (eps.max(axis=1) - eps.min(axis=1)) > 1e-8
         # difference-form sum coefficient s = c0 + sum(c_nb), in float64:
         # the operator is applied as L(phi) = sum_d c_d (phi_d - phi_0)
         # + s phi_0, which avoids the |phi|/dx^2-scale cancellation of the
@@ -75,7 +102,13 @@ class LevelOp:
 
 
 class Multigrid:
-    """FAS multigrid solver bound to a (mesh, variable set, BC spec)."""
+    """FAS multigrid solver bound to a (mesh, variable set, BC spec).
+
+    ``eps_data(lvl)``, when set, gives the permittivity blocks of a level
+    (host float64 [n, (nc+2)^ndim]) for the variable-permittivity operator.
+    The per-level operator, smoother and transfer tables are cached with
+    the mesh's plans and rebuilt for the levels a refinement epoch
+    changed."""
 
     def __init__(self, mesh: MeshPlans, i_phi: int, i_rhs: int,
                  sides_bc: Callable, helmholtz_lambda: float = 0.0,
@@ -87,13 +120,10 @@ class Multigrid:
         self.lam = helmholtz_lambda
         self.n_cycle_down = n_cycle_down
         self.n_cycle_up = n_cycle_up
-        self._cache = {}
+        self.eps_data = None
 
-    def _get(self, key, make):
-        self.mesh.check_fixed()
-        if key not in self._cache:
-            self._cache[key] = make()
-        return self._cache[key]
+    def _get(self, key, make, lvls=None):
+        return self.mesh.cached(("mg", self.i_phi) + key, make, lvls)
 
     # ----------------------------------------------------------- tables
     @property
@@ -101,17 +131,38 @@ class Multigrid:
         return self.tree.highest_lvl
 
     def op(self, lvl: int) -> LevelOp:
-        return self._get(("op", lvl),
-                         lambda: LevelOp(self.tree, lvl, self.lam))
+        return self._get(("op", lvl), lambda: LevelOp(
+            self.tree, lvl, self.lam,
+            None if self.eps_data is None else self.eps_data(lvl)), (lvl,))
+
+    def rb_extrap(self, lvl: int):
+        """{direction: bool per refinement-boundary entry} of the entries
+        whose box has variable eps, which take the extrapolating ghost
+        (JAX Multigrid._veps_mask, mg_auto_rb -> mg_sides_rb_extrap); only
+        directions with such an entry; None without eps."""
+        op = self.op(lvl)
+        if op.veps is None:
+            return None
+        pos = np.full(int(self.tree.highest_id) + 1, -1, np.int64)
+        pos[np.asarray(self.mesh.tb(lvl).ids, np.int64)] = np.arange(
+            len(op.veps))
+        out = {}
+        for d, p in enumerate(self.mesh.gc(lvl).dirs):
+            m = op.veps[pos[p.rb_ids]] if len(p.rb_ids) else None
+            if m is not None and m.any():
+                out[d] = m
+        return out
 
     def smoother(self, lvl: int) -> SmootherTables:
         return self._get(("sm", lvl), lambda: SmootherTables(
             self.tree, lvl, self.mesh.gc(lvl), self.mesh.tb(lvl),
-            self.sides_bc, self.i_phi, self.mesh.device))
+            self.sides_bc, self.i_phi, self.mesh.device,
+            self.rb_extrap(lvl)), (lvl,))
 
     def blocks(self, lvl: int) -> mgb.LevelBlockPlan:
         return self._get(("blk", lvl),
-                         lambda: mgb.LevelBlockPlan(self.mesh, lvl))
+                         lambda: mgb.LevelBlockPlan(self.mesh, lvl),
+                         (lvl - 1, lvl))
 
     def cs(self, lvl: int, dtype) -> torch.Tensor:
         return self.smoother(lvl).cs(self.op(lvl), dtype)
@@ -124,17 +175,22 @@ class Multigrid:
                                     dtype=torch.float32,
                                     device=self.mesh.device)
                     for k in range(1, n_half + 1)]
-        return self._get(("masks", n_half), make)
+        return self._get(("masks", n_half), make, ())
 
     def coarse_solver(self) -> CoarseSolver:
-        return self._get("coarse", lambda: CoarseSolver(
-            self.tree, self.sides_bc, self.lam, self.mesh.device))
+        # the level-1 boxes and their permittivity never change after
+        # setup: built once, at the first solve
+        return self._get(("coarse",), lambda: CoarseSolver(
+            self.tree, self.sides_bc, self.lam, self.mesh.device,
+            level1_op=None if self.eps_data is None else self.op(1)), ())
 
     # --------------------------------------------------------- cycles
     def fill_ghosts_phi(self, cc, params):
         for lvl in range(1, self.n_levels + 1):
+            emask = {d: m for d, m in enumerate(self.smoother(lvl).rb_extrap)
+                     if m is not None}
             gc.fill_ghosts_lvl(cc, self.mesh.gc(lvl), [self.i_phi], gc.RB_MG,
-                               self.sides_bc, params)
+                               self.sides_bc, params, rb_extrap_mask=emask)
         return cc
 
     def vcycle(self, cc, params):
@@ -156,7 +212,7 @@ class Multigrid:
             return (self.mesh.all_ids(),
                     torch.as_tensor(inv_dr, dtype=torch.float64,
                                     device=self.mesh.device))
-        return self._get("ids_inv_dr", make)
+        return self._get(("ids_inv_dr",), make)
 
     def compute_phi_gradient(self, cc, fc, i_fc: int, fac: float):
         """fc = fac * grad(phi) on all boxes (mg_compute_phi_gradient /

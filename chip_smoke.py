@@ -8,24 +8,35 @@ failure exits non-zero):
 
 1. build the smoother kernels from afivo_streamer_tpu_torch/csrc (one nvcc
    per source, started together);
-2. hold each kernel (2D: K1 fill_sweep_2d, K2 sweep_2d, K3 fill_2d; 3D:
-   K4 sweep_3d, K5 fill_3d) against its plain PyTorch version on the card
-   at the slices' shapes (n = 4096 boxes, nc = 8) in float64 and float32,
-   and time both;
+2. hold each kernel (2D: K1 fill_sweep_2d, K2 sweep_2d, K3 fill_2d,
+   K3-swap fill_2d_swap; 3D: K4 sweep_3d, K5 fill_3d) against its plain
+   PyTorch version on the card at the slices' shapes (n = 4096 boxes,
+   nc = 8, random ghost weights with the parity-swap columns nonzero) in
+   float64 and float32, and time both (wall: CUDA events around 50
+   back-to-back calls; device: the device events under torch.profiler);
 3. run the committed 2D slice config on the card and on the CPU (plain
    kernels) at 64 x 64 cells for 3 steps and compare the states; 3b. the
-   same for the 3D slice config at 32^3 cells;
+   same for the 3D slice config at 32^3 cells; 3c. the dielectric slice
+   with live refinement (52,480 cells on 6 levels) for 8 steps: the same
+   mesh at every refinement epoch, the densities, phi and the surface
+   charge, and K3-swap launched;
 4. run the full-size 2D slice (uniform 512 x 512 cells, 5460 boxes,
    float64) through Simulation/run, counting the kernel launches;
 5. run the full-size 3D slice (uniform 128^3 cells, 4680 boxes, float64,
-   10 steps) the same way.
+   10 steps) the same way;
+6. run the dielectric slice at the card's size (uniform level 6 and
+   refinement to level 8 around the seed and in the regions, live, 20
+   steps) the same way, with the time of each refinement epoch and of the
+   host plan rebuilds, and the device busy share of two more steps.
 
 The launch counts are set to 0 just before each full-size run and read
 just after it. The line before the last is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,23 +45,39 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "afivo_streamer_tpu_torch" / "data"
 CFG = {2: DATA / "air_cyl_slice.cfg", 3: DATA / "air_3d_slice.cfg"}
+DIELECTRIC_CFG = DATA / "dielectric_2d_slice.cfg"
+USER_MODULE = ROOT / "afivo_streamer_tpu_torch" / "programs" / "dielectric_2d.py"
 TABLE = DATA / "td_air_synthetic.txt"
 SOURCE = {2: "afivo_streamer_tpu_torch/csrc/smoother.cu",
           3: "afivo_streamer_tpu_torch/csrc/smoother_3d.cu"}
 REPLACES = {"fill_sweep_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:397",
             "sweep_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:229",
             "fill_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:302",
+            "fill_2d_swap": "afivo_streamer_tpu/ops/pallas_smoother.py:276",
             "sweep_3d": "afivo_streamer_tpu/ops/pallas_smoother.py:574",
             "fill_3d": "afivo_streamer_tpu/ops/pallas_smoother.py:637"}
 N_BOXES, NC = 4096, 8
 #: kernel vs plain tolerance: float64 to rounding (the kernel may fuse a
 #: multiply-add), float32 to its own rounding
 TOL = {"float64": 1e-12, "float32": 2e-5}
+#: the parity-swap fill is held to float32 1e-5
+TOL_SWAP_F32 = 1e-5
 SMALL_STEPS = 3
 #: full-size runs per dimension: refine_max_dx, leaf cells, boxes, steps
 FULL = {2: (3.2e-5, 512 ** 2, 5460, 20), 3: (1.25e-4, 128 ** 3, 4680, 10)}
+#: the kernels of each full-size run's path (phases 4, 5 and 6)
+PATH_KERNELS = {2: ("fill_sweep_2d", "sweep_2d", "fill_2d"),
+                3: ("sweep_3d", "fill_3d"),
+                "dielectric": ("fill_sweep_2d", "sweep_2d", "fill_2d",
+                               "fill_2d_swap")}
 #: the cuda-vs-cpu runs per dimension: refine_max_dx and a label
 SMALL = {2: (2.5e-4, "64x64"), 3: (5e-4, "32^3")}
+#: the dielectric slice: steps on the card and the CPU (phase 3c), and the
+#: card's size (phase 6): overrides and steps
+DIELECTRIC_SMALL_STEPS = 8
+DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
+                    "-refine_regions_dr=7.8125e-6 7.8125e-6",
+                    "-refine_min_dx=4e-6"], 20)
 BACKGROUND_FIELD = 1.8e6  # V/m, the configs' field_given_by
 
 
@@ -87,13 +114,13 @@ def kernel_inputs(torch, dtype, device, seed, ndim):
 
 
 def ndim_of(name):
-    return int(name[-2])
+    return int(re.search(r"_(\d)d", name).group(1))
 
 
 def call(fn, x, name):
     if name in ("sweep_2d", "sweep_3d"):
         return fn(x["phi3"], x["R"], x["mask"], x["g"], x["cs"])
-    if name in ("fill_2d", "fill_3d"):
+    if name in ("fill_2d", "fill_2d_swap", "fill_3d"):
         return fn(x["phi3"], x["A"], x["g"], x["W"])
     return fn(x["phi3"], x["R"], x["mask"], x["A"], x["g"], x["W"], x["cs"])
 
@@ -111,6 +138,30 @@ def time_ms(torch, fn, reps=50):
     return start.elapsed_time(stop) / reps
 
 
+def device_us(torch, fn, reps=20):
+    """Device time per call in microseconds: the device events only, under
+    torch.profiler (no launch gaps); None if the trace has none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if getattr(e, "device_type", None) == cuda)
+    return total / reps if total > 0 else None
+
+
+def free_earlier_runs(torch):
+    """Free the simulations of earlier phases (they hold reference
+    cycles), so the next phase's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(torch, ks):
     """Phase 2: every kernel against its plain version, float64 and
     float32; returns per-kernel float64 results."""
@@ -126,12 +177,17 @@ def phase_kernels(torch, ks):
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             scale = float(want.abs().max())
-            ok = err <= TOL[dname] * max(scale, 1.0)
+            tol = (TOL_SWAP_F32 if name == "fill_2d_swap"
+                   and dtype == torch.float32 else TOL[dname])
+            ok = err <= tol * max(scale, 1.0)
             ms = time_ms(torch, lambda: call(fn, x, name))
             plain_ms = time_ms(torch, lambda: call(ks.PLAIN[name], x, name))
+            d_us = device_us(torch, lambda: call(fn, x, name))
+            d_plain = device_us(torch, lambda: call(ks.PLAIN[name], x, name))
             log(f"phase 2: {name} {dname} max_abs_err={err:.3e} "
-                f"(tol {TOL[dname]:.0e} x {max(scale, 1.0):.3g}) "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+                f"(tol {tol:.0e} x {max(scale, 1.0):.3g}) wall (CUDA events"
+                f" over 50 calls) kernel {ms:.4f} ms plain {plain_ms:.4f} ms;"
+                f" device (profiler) kernel {d_us} us plain {d_plain} us")
             if not ok:
                 raise RuntimeError(f"{name} {dname} disagrees with its plain "
                                    f"version: {err}")
@@ -180,11 +236,171 @@ def phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim):
         f"variable-scaled deviation {worst:.3e} (limit 1e-9)")
 
 
+def dielectric_argv(out, device, extra=()):
+    return [str(DIELECTRIC_CFG), "-ndim=2", f"-input_data%file={TABLE}",
+            f"-user%module={USER_MODULE}", f"-output%name={out}",
+            f"-device={device}", *extra]
+
+
+def record_epochs(sim, epochs, torch):
+    """Record each refinement epoch of ``sim``: the level id lists, the
+    boxes added and removed, its seconds (synchronised) and the seconds of
+    plan building so far."""
+    orig = sim.adjust_refinement
+
+    def wrapped():
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = orig()
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize()
+        epochs.append({"ids": [list(map(int, x)) for x in sim.tree.lvl_ids],
+                       "add": info.n_add, "rm": info.n_rm,
+                       "s": time.perf_counter() - t0})
+        return info
+    sim.adjust_refinement = wrapped
+
+
+def phase_dielectric_cpu_vs_cuda(torch, ks, Simulation, out_dir):
+    """Phase 3c: the dielectric slice with live refinement on the card and
+    on the CPU for 8 steps: the same mesh at every epoch, the densities,
+    phi and the surface charge within rtol 1e-9 of their scale."""
+    sims, epochs = {}, {}
+    before = ks.fill_2d_swap.launches
+    for dev in ("cpu", "cuda"):
+        sim = Simulation(argv=dielectric_argv(out_dir / f"diel_{dev}", dev))
+        epochs[dev] = [{"ids": [list(map(int, x)) for x in sim.tree.lvl_ids],
+                        "add": 0, "rm": 0, "s": 0.0}]
+        record_epochs(sim, epochs[dev], torch)
+        sim.run(max_steps=DIELECTRIC_SMALL_STEPS)
+        sims[dev] = sim
+    swaps = ks.fill_2d_swap.launches - before
+    if [e["ids"] for e in epochs["cpu"]] != [e["ids"] for e in epochs["cuda"]]:
+        raise RuntimeError("dielectric slice: the meshes differ")
+    changed = sum(1 for e in epochs["cpu"] if e["add"] or e["rm"])
+    a, b = sims["cpu"], sims["cuda"]
+    n = a.tree.highest_id
+    use = torch.as_tensor(a.tree.in_use[:n])
+    check = {"densities": [iv for iv in a.all_densities],
+             "phi": [a.i_phi],
+             "surface charge": [a.i_surf_sigma]}
+    worst = {}
+    for label, ivs in check.items():
+        w = 0.0
+        for iv in ivs:
+            ref = a.cc[iv, :n][use]
+            got = b.cc[iv, :n].cpu()[use]
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            w = max(w, err / scale if scale > 0 else err)
+        worst[label] = w
+    log(f"phase 3c: dielectric slice cuda vs cpu, {DIELECTRIC_SMALL_STEPS} "
+        f"steps: same mesh at {len(epochs['cpu'])} epochs "
+        f"({changed} changed it, {n} box rows); worst scaled deviation "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" (limit 1e-9); fill_2d_swap launches {swaps}")
+    if max(worst.values()) > 1e-9:
+        raise RuntimeError(f"dielectric slice: cuda vs cpu {worst}")
+    if swaps <= 0:
+        raise RuntimeError("dielectric slice: K3-swap was not launched")
+    if a.global_dt != b.global_dt and abs(a.global_dt / b.global_dt - 1) > 1e-9:
+        raise RuntimeError("dielectric slice: dt differs")
+
+
+def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir):
+    """Phase 6: the dielectric slice at the card's size for 20 steps;
+    returns the launch counts of the run's kernels."""
+    extra, steps = DIELECTRIC_FULL
+    free_earlier_runs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ks.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(argv=dielectric_argv(out_dir / "diel_full", "cuda",
+                                          extra))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup_build = sim.mesh.build_seconds
+    epochs = []
+    record_epochs(sim, epochs, torch)
+    sim.run(max_steps=steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {name: ks.KERNELS[name].launches
+                for name in PATH_KERNELS["dielectric"]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t = sim.tree
+    n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** 2
+    per_lvl = [len(x) for x in t.lvl_ids]
+    changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
+    ep_s = [e["s"] for e in epochs]
+    log(f"phase 6: {n_leaf} leaf cells, {sum(per_lvl)} boxes, boxes per "
+        f"level {per_lvl}, {len(sim.surfaces.active())} surfaces; setup "
+        f"{t1 - t0:.2f} s (plan building {setup_build:.2f} s); {steps} "
+        f"steps {t2 - t1:.2f} s = {1e3 * (t2 - t1) / steps:.2f} ms/step; "
+        f"t = {sim.global_time:.4e} s, dt = {sim.global_dt:.4e} s; peak "
+        f"memory {peak_gb:.3f} GB")
+    log(f"phase 6: {len(epochs)} refinement epochs, {len(changed)} changed "
+        f"the mesh (epochs {changed}, boxes added/removed "
+        f"{[(epochs[k]['add'], epochs[k]['rm']) for k in changed]}); "
+        f"seconds per epoch (criterion, new mesh, prolongation) "
+        f"{[round(x, 3) for x in ep_s]}; host plan rebuilds in the run "
+        f"{sim.mesh.build_seconds - setup_build:.2f} s")
+    log(f"phase 6: kernel launches {launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"a kernel was not launched: {launches}")
+    n = t.highest_id
+    if not bool(torch.isfinite(sim.cc[:, :n]).all()) or \
+            not bool(torch.isfinite(sim.fc[:, :, :n]).all()):
+        raise RuntimeError("non-finite state after the dielectric slice")
+    emax = float(sim.cc[sim.i_electric_fld, :n].max())
+    log(f"phase 6: max(E) = {emax:.4e} V/m (background "
+        f"{BACKGROUND_FIELD:.2e})")
+    if not emax > BACKGROUND_FIELD:
+        raise RuntimeError("max(E) did not rise above the background field")
+    mg = sim.field.mg
+    params = {"voltage": sim.field.current_voltage}
+    P, R = mgb.gather_levels(mg, sim.cc)
+    vc_ms = time_ms(torch, lambda: mgb.fas_vcycle_blocks(mg, P, R, params),
+                    reps=10)
+    swap_lvls = [l for l in range(1, t.highest_lvl + 1)
+                 if mg.smoother(l).has_swap]
+    log(f"phase 6: {vc_ms:.3f} ms per V-cycle ({t.highest_lvl} levels, "
+        f"K3-swap on levels {swap_lvls}, float64)")
+    log(f"phase 6: device busy share: "
+        f"{busy_share(torch, sim, 1e3 * (t2 - t1) / steps)}")
+    return launches
+
+
+def busy_share(torch, sim, ms_per_step):
+    """Device-kernel time per step of two more steps under torch.profiler
+    over the unprofiled ms per step (the profiler slows the host), or 'not
+    measured' if the trace has no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.run(max_steps=sim.it + 2)  # run() counts its closing check
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == cuda)
+    if dev_us <= 0:
+        return "not measured"
+    dev_ms = dev_us * 1e-3 / 2
+    return (f"{dev_ms / ms_per_step:.3f} ({dev_ms:.2f} ms of device kernels "
+            f"per step against {ms_per_step:.2f} ms per unprofiled step; "
+            f"{dev_ms * 2e-3 / wall:.3f} of the profiled wall time)")
+
+
 def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim):
     """Phase 4 (2D) and 5 (3D): a full-size slice on the card; returns the
     launch counts of that run's kernels."""
     phase = "4" if ndim == 2 else "5"
     refine_max_dx, want_cells, want_boxes, steps = FULL[ndim]
+    free_earlier_runs(torch)
     torch.cuda.reset_peak_memory_stats()
     ks.reset_launch_counts()
     t0 = time.perf_counter()
@@ -192,18 +408,23 @@ def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim):
                                      refine_max_dx, "cuda"))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    epochs = []
+    record_epochs(sim, epochs, torch)
     sim.run(max_steps=steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {name: fn.launches for name, fn in ks.KERNELS.items()
-                if ndim_of(name) == ndim}
+    launches = {name: ks.KERNELS[name].launches
+                for name in PATH_KERNELS[ndim]}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_leaf = sum(len(l) for l in sim.tree.lvl_leaves) * sim.tree.nc ** ndim
     n_boxes = sim.tree.highest_id
     log(f"phase {phase}: {n_leaf} leaf cells, {n_boxes} boxes, "
         f"{sim.tree.highest_lvl} levels; setup {t1 - t0:.2f} s, "
         f"{steps} steps {t2 - t1:.2f} s = "
-        f"{1e3 * (t2 - t1) / steps:.2f} ms/step; t = "
+        f"{1e3 * (t2 - t1) / steps:.2f} ms/step, of which "
+        f"{len(epochs)} refinement epochs (mesh unchanged in "
+        f"{sum(not (e['add'] or e['rm']) for e in epochs)}) "
+        f"{sum(e['s'] for e in epochs):.2f} s; t = "
         f"{sim.global_time:.4e} s, dt = {sim.global_dt:.4e} s; peak memory "
         f"{peak_gb:.3f} GB")
     log(f"phase {phase}: kernel launches {launches}")
@@ -268,10 +489,14 @@ def main():
     out_dir = ROOT / "out" / "chip_smoke"
     for ndim in (2, 3):
         phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim)
+    phase_dielectric_cpu_vs_cuda(torch, ks, Simulation, out_dir)
     launches = {}
     for ndim in (2, 3):
         launches.update(phase_full_slice(torch, ks, Simulation, mgb,
                                          out_dir, ndim))
+    # K3-swap's count is that of the dielectric run, its main path
+    launches["fill_2d_swap"] = phase_dielectric_full(
+        torch, ks, Simulation, mgb, out_dir)["fill_2d_swap"]
 
     kernels = [{"name": name, "route": "cuda",
                 "source": SOURCE[ndim_of(name)],

@@ -4,12 +4,14 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 
     python -m pytest tests/test_torch_cuda.py -m gpu -q
 
-* each CUDA smoother kernel (K1-K3 in 2D, K4-K5 in 3D) against its plain
-  PyTorch version on the same inputs, float64 and float32;
-* the 2D and 3D slices on the card against the same slices on the CPU
-  (plain kernels).
+* each CUDA smoother kernel (K1-K3 and K3-swap in 2D, K4-K5 in 3D)
+  against its plain PyTorch version on the same inputs, float64 and
+  float32;
+* the 2D and 3D slices, and the dielectric slice with live refinement, on
+  the card against the same slices on the CPU (plain kernels).
 """
 
+import re
 from pathlib import Path
 
 import pytest
@@ -65,11 +67,12 @@ def call(fn, x, name):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name", ["fill_sweep_2d", "sweep_2d", "fill_2d",
-                                  "sweep_3d", "fill_3d"])
+                                  "fill_2d_swap", "sweep_3d", "fill_3d"])
 def test_cuda_kernel_matches_plain(name, dtype, cuda):
     """Tolerance: float64 1e-12, float32 2e-5 (the kernel may fuse a
     multiply-add where the plain version rounds twice)."""
-    x = inputs(512, 8, dtype, cuda, ndim=int(name[-2]))
+    x = inputs(512, 8, dtype, cuda,
+               ndim=int(re.search(r"_(\d)d", name).group(1)))
     want = call(ks.PLAIN[name], x, name)
     before = ks.KERNELS[name].launches
     got = call(ks.KERNELS[name], x, name)
@@ -113,13 +116,28 @@ def test_slice_3d_cuda_matches_cpu(cuda, tmp_path):
     assert ks.fill_3d.launches > before[1]
 
 
-def slice_cuda_vs_cpu(tmp_path, cfg, ndim):
+@pytest.mark.gpu
+def test_dielectric_slice_cuda_matches_cpu(cuda, tmp_path):
+    """The dielectric slice (live refinement, extrapolating ghosts) for 2
+    steps, through K3-swap: the same mesh and state on the card as on the
+    CPU, rtol 1e-9 per variable."""
+    before = ks.fill_2d_swap.launches
+    sims = slice_cuda_vs_cpu(
+        tmp_path, "dielectric_2d_slice.cfg", 2, [
+            "-refine_max_dx=2.5e-4",
+            f"-user%module={ROOT / 'afivo_streamer_tpu_torch' / 'programs'}"
+            "/dielectric_2d.py"])
+    assert ks.fill_2d_swap.launches > before
+    for a, b in zip(sims[0].tree.lvl_ids, sims[1].tree.lvl_ids):
+        assert (a == b).all()
+
+
+def slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=("-refine_max_dx=5e-4",)):
     from afivo_streamer_tpu_torch.driver import Simulation
     sims = []
     for dev in ("cpu", "cuda"):
         sim = Simulation(argv=[
-            str(DATA / cfg), f"-ndim={ndim}",
-            "-refine_max_dx=5e-4",
+            str(DATA / cfg), f"-ndim={ndim}", *extra,
             f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
             f"-output%name={tmp_path}/{dev}", f"-device={dev}"])
         sim.run(max_steps=2)
@@ -130,3 +148,4 @@ def slice_cuda_vs_cpu(tmp_path, cfg, ndim):
         scale = float(ref.abs().max())
         torch.testing.assert_close(sims[1].cc[iv, :n].cpu(), ref, rtol=1e-9,
                                    atol=1e-9 * scale)
+    return sims

@@ -7,11 +7,15 @@ a second time, so that it has refinement boundaries, edges and corners
 without diagonal neighbors):
 
 * equal tree tables;
-* equal ghost fills (mg_sides_rb, interp, interp_lim; side + corner, and
-  the 3D edges);
+* equal ghost fills (mg_sides_rb, interp, interp_lim, prolong_copy and
+  the extrapolating ghosts of variable-eps boxes; side + corner, and the
+  3D edges);
 * equal restriction (plain and cylindrical-volume weighted);
 * equal linear prolongation of a correction (the block form of the port
-  against the host af_prolong_linear);
+  against the host af_prolong_linear), and every prolongation method into
+  a set of new boxes;
+* plans that follow a refinement: after a mesh change the cached plans
+  of the changed levels are rebuilt and equal fresh ones, the others kept;
 * equal 2-ghost extended arrays (incl. the limited refinement-boundary
   prolongation with the limiter each package's driver chooses for the
   dimension: MC in 2D, gminmod43 in 3D) and fine-to-coarse flux matching
@@ -186,3 +190,84 @@ def test_consistent_fluxes_match(coord):
     assert groups, "the mesh must have coarse-fine faces"
     got = tfl.consistent_fluxes(torch.as_tensor(fc.copy()), groups, [0, 1])
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("coord", COORDS)
+def test_ghost_fill_prolong_copy_and_extrap_match(coord):
+    """af_gc_prolong_copy (the permittivity's refinement-boundary ghosts),
+    and mg_sides_rb with a random extrapolation mask (the ghosts of boxes
+    with variable eps: the 2D pair-swap form, the 1D form in 3D)."""
+    tj, tt = trees(coord)
+    cc = random_cc(tj, seed=6)
+    mesh = MeshPlans(tt, "cpu")
+    rng = np.random.default_rng(7)
+    want, got = cc.copy(), torch.as_tensor(cc.copy())
+    n_extrap = 0
+    for lvl in range(1, tj.highest_lvl + 1):
+        pj = gc.get_gc_plan(tj, lvl)
+        want = gc.fill_ghosts_lvl(want, pj, [1], gc.RB_PROLONG_COPY,
+                                  bc(gc), {})
+        tgc.fill_ghosts_lvl(got, mesh.gc(lvl), [1], tgc.RB_PROLONG_COPY,
+                            bc(tgc), {})
+        em = {d: rng.random(len(p.rb_ids)) < 0.5
+              for d, p in enumerate(pj.dirs) if len(p.rb_ids)}
+        em = {d: m for d, m in em.items() if m.any()}
+        n_extrap += sum(int(m.sum()) for m in em.values())
+        want = gc.fill_ghosts_lvl(want, pj, [0, 2], gc.RB_MG, bc(gc), {},
+                                  rb_extrap_mask=em)
+        tgc.fill_ghosts_lvl(got, mesh.gc(lvl), [0, 2], tgc.RB_MG, bc(tgc), {},
+                            rb_extrap_mask={d: torch.as_tensor(m)
+                                            for d, m in em.items()})
+    assert n_extrap > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("coord", COORDS)
+@pytest.mark.parametrize("method", ["zeroth", "sparse", "linear", "limit",
+                                    "linear_cons"])
+def test_prolong_into_new_boxes_matches(coord, method):
+    """af_prolong_* into a set of children (every other box of each level,
+    as the new boxes of a refinement epoch), with the default limiter."""
+    tj, tt = trees(coord)
+    cc = random_cc(tj, seed=8)
+    want, got = cc.copy(), torch.as_tensor(cc.copy())
+    for lvl in range(2, tj.highest_lvl + 1):
+        ids = np.asarray(tj.lvl_ids[lvl - 1])[::2]
+        want = pr.prolong(want, pr.ProlongRestrictPlan(tj, ids), [0, 2],
+                          method)
+        tpr.prolong(got, tpr.ProlongRestrictPlan(tt, ids, "cpu"), [0, 2],
+                    method)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("coord", ["xyz", "xyz3d"])
+def test_mesh_plans_follow_refinement(coord):
+    """Refining the finest level adds a level and changes the previous
+    finest (its boxes get children): those levels' plans are rebuilt and
+    equal the plans of a fresh MeshPlans; level 1's are kept."""
+    _, tt = trees(coord)
+    mesh = MeshPlans(tt, "cpu")
+    old = {l: (mesh.gc(l), mesh.tb(l)) for l in range(1, tt.highest_lvl + 1)}
+    top = tt.highest_lvl
+
+    def flags(ids):
+        out = np.full([len(ids)] + [NC] * tt.ndim, KEEP_REF, np.int64)
+        for n, b in enumerate(ids):
+            r0 = tt.box_r_min(np.asarray([int(b)]))[0]
+            if np.all(r0 < 0.1) and tt.lvl[int(b)] == top:
+                out[n] = DO_REF
+        return out
+    info = tt.adjust_refinement(flags, ref_buffer=0)
+    assert info.n_add > 0 and tt.highest_lvl == top + 1
+    fresh = MeshPlans(tt, "cpu")
+    assert mesh.gc(1) is old[1][0] and mesh.tb(1) is old[1][1]
+    assert mesh.tb(top) is not old[top][1]
+    for lvl in range(1, tt.highest_lvl + 1):
+        a, b = mesh.tb(lvl), fresh.tb(lvl)
+        for name in ("ids", "leaves", "parents"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        for pa, pb in zip(mesh.gc(lvl).dirs, fresh.gc(lvl).dirs):
+            for name in ("copy_ids", "copy_nb", "bc_ids", "rb_ids",
+                         "rb_parent"):
+                np.testing.assert_array_equal(getattr(pa, name),
+                                              getattr(pb, name))

@@ -50,7 +50,7 @@ def test_device_cuda_without_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra, module", [
-    (["-refine_adx=1.0"], "physics/refine.py"),
+    (["-refine_electrode_dx=1e-4"], "physics/refine.py"),
     (["-photoi%enabled=t"], "physics/photoi.py"),
     (["-use_electrode=t"], "solvers/lsf.py"),
     (["-model%type=ee53"], "physics/model.py"),

@@ -2,7 +2,11 @@
 afivo_streamer_tpu_torch/data/air_cyl_slice.cfg (a uniform 32 x 32-cell
 cylindrical mesh, 20 boxes) and air_3d_slice.cfg (a uniform 32^3-cell
 Cartesian mesh, 72 boxes), in the JAX package (host NumPy path) and in
-the port (CPU, plain smoother kernels), float64.
+the port (CPU, plain smoother kernels), float64. With live refinement:
+dielectric_2d_slice.cfg (a dielectric slab, 52,480 cells on 6 levels) for
+8 steps, with an epoch that removes boxes, and air_cyl_slice.cfg with the
+alpha*dx criterion and seed refinement on (11,392 cells on 6 levels) for
+6 steps; the same mesh at every refinement epoch.
 
 Tolerance rtol 1e-8 on every cc variable, with an absolute floor of 1e-8
 times the variable's largest magnitude (the FAS rhs of parent boxes is a
@@ -31,7 +35,8 @@ from test_torch_physics import REACTIONS
 
 torch.set_num_threads(1)
 
-DATA = Path(__file__).resolve().parent.parent / "afivo_streamer_tpu_torch" / "data"
+ROOT = Path(__file__).resolve().parent.parent
+DATA = ROOT / "afivo_streamer_tpu_torch" / "data"
 RTOL = 1e-8
 #: config and box count of each dimension's slice at -refine_max_dx=5e-4
 SLICES = {2: ("air_cyl_slice.cfg", 20), 3: ("air_3d_slice.cfg", 72)}
@@ -184,3 +189,73 @@ def field_solve_both(j, tmp_path):
     np.testing.assert_allclose(tfc.numpy()[f, :, :n], jfc[f, :, :n],
                                rtol=RTOL,
                                atol=RTOL * float(np.abs(jfc[f]).max()))
+
+
+def record_epochs(sim, out):
+    """Record the level id lists and the change counts after each
+    refinement epoch of ``sim``."""
+    orig = sim.adjust_refinement
+
+    def wrapped(*args, **kwargs):
+        info = orig(*args, **kwargs)
+        out.append(([np.array(x) for x in sim.tree.lvl_ids], info.n_add,
+                    info.n_rm))
+        return info
+    sim.adjust_refinement = wrapped
+
+
+@pytest.mark.parametrize("cfg, extra, steps", [
+    ("dielectric_2d_slice.cfg", [], 8),
+    ("air_cyl_slice.cfg", ["-refine_max_dx=2.5e-4", "-refine_min_dx=3e-5",
+                           "-refine_adx=1", "-refine_init_time=1e-8"], 6),
+], ids=["dielectric", "cyl-live-amr"])
+def test_live_refinement_slice_matches_jax(tmp_path, cfg, extra, steps):
+    """The same mesh at setup and after every refinement epoch, then the
+    state (densities, phi, E, surface charge), dt and the _rtest.log rows
+    at rtol 1e-8."""
+    base = [str(DATA / cfg), "-ndim=2",
+            f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
+            "-output%dt=5e-14"] + extra
+    user = {"j": [], "t": []}
+    if cfg.startswith("dielectric"):
+        user = {"j": [f"-user%module={ROOT / 'programs' / 'dielectric_2d'}"
+                      "/user.py"],
+                "t": [f"-user%module={DATA.parent / 'programs'}"
+                      "/dielectric_2d.py"]}
+    j = JSim(argv=base + user["j"] + [f"-output%name={tmp_path / 'j'}"])
+    t = TSim(argv=base + user["t"] + [f"-output%name={tmp_path / 't'}",
+                                      "-device=cpu"])
+    for a, b in zip(j.tree.lvl_ids, t.tree.lvl_ids):
+        np.testing.assert_array_equal(a, b)
+    epochs = {"j": [], "t": []}
+    record_epochs(j, epochs["j"])
+    record_epochs(t, epochs["t"])
+    j.run(max_steps=steps)
+    t.run(max_steps=steps)
+    assert len(epochs["t"]) == len(epochs["j"]) == steps // 2
+    for (mj, aj, rj), (mt, at, rt) in zip(epochs["j"], epochs["t"]):
+        assert (at, rt) == (aj, rj) and len(mt) == len(mj)
+        for a, b in zip(mj, mt):
+            np.testing.assert_array_equal(a, b)
+    if cfg.startswith("dielectric"):
+        assert any(a + r for _m, a, r in epochs["j"]), "no epoch changed"
+        got = interop.surface_data(t)
+        want = {s.id_out: s.sd for s in j.surfaces.active()}
+        assert got.keys() == want.keys() and len(want) == 25
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=RTOL,
+                                       atol=RTOL * float(np.abs(
+                                           want[k]).max()))
+    assert t.global_dt == pytest.approx(j.global_dt, rel=RTOL)
+    assert t.global_time == pytest.approx(j.global_time, rel=RTOL)
+    n = j.tree.highest_id
+    use = j.tree.in_use[:n]
+    skip = {j.i_tmp}
+    if t.surfaces is not None:
+        skip |= set(t.surfaces.state_vars)  # compared per surface above
+    assert_state_close(j.cc[:, :n][:, use], t.cc.numpy()[:, :n][:, use],
+                       skip=skip)
+    rows_j = np.loadtxt(tmp_path / "j_rtest.log", skiprows=1)
+    rows_t = np.loadtxt(tmp_path / "t_rtest.log", skiprows=1)
+    assert rows_j.shape == rows_t.shape and rows_j.shape[0] >= 3
+    np.testing.assert_allclose(rows_t, rows_j, rtol=RTOL, atol=0.0)

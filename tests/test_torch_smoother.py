@@ -1,11 +1,16 @@
-"""The port's smoother kernels K1-K5 (afivo_streamer_tpu_torch/ops/smoother.py).
+"""The port's smoother kernels K1-K5 and K3-swap
+(afivo_streamer_tpu_torch/ops/smoother.py).
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the JAX package's Pallas kernels run in interpret mode, on random
 non-symmetric inputs (n = 6 boxes, nc = 8; in 3D random face weights and
-constants per face, so an axis swap fails), float64, rtol 1e-13. The CUDA
-kernels are held against the plain versions in tests/test_torch_cuda.py.
+constants per face, so an axis swap fails; all 8 ghost-weight columns
+nonzero, so K3 must ignore the parity-swap columns 3-4 and K3-swap must
+use them), float64, rtol 1e-13. The CUDA kernels are held against the
+plain versions in tests/test_torch_cuda.py.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -47,6 +52,46 @@ def random_inputs(seed=0, n=N, nc=NC, ndim=2):
         cs=cs)
 
 
+class _Ref:
+    """A block of an array as a kernel ref (read by index, written by
+    index into a new array)."""
+
+    def __init__(self, a):
+        self.a = a
+
+    def __getitem__(self, k):
+        return self.a[k]
+
+    def __setitem__(self, k, v):
+        self.a = self.a.at[k].set(v)
+
+
+def _grid_pallas_call(kernel, grid_spec, out_shape, interpret=False):
+    """pallas_call run as a plain loop over the grid: the blocks named by
+    each BlockSpec's index map are handed to the kernel body as refs. The
+    parity-swap branch of _fill_2d captures a constant array, which this
+    JAX version's pallas_call refuses even in interpret mode; this loop
+    runs the same kernel body."""
+    def run(*args):
+        k = grid_spec.num_scalar_prefetch
+        scal, ins = args[:k], args[k:]
+        out = jnp.zeros(out_shape.shape, out_shape.dtype)
+
+        def block(spec, arr, i):
+            idx = spec.index_map(i, *scal)
+            return tuple(slice(int(b) * s, int(b) * s + s)
+                         for b, s in zip(idx, spec.block_shape))
+        for i in range(grid_spec.grid[0]):
+            refs = [_Ref(a[block(sp_, a, i)])
+                    for sp_, a in zip(grid_spec.in_specs, ins)]
+            sl = block(grid_spec.out_specs, out, i)
+            o = _Ref(out[sl])
+            kernel(*scal, *refs, o)
+            out = out.at[sl].set(o.a)
+        return out
+    return run
+
+
 def jax_call(name, x):
     a = {k: jnp.asarray(v) for k, v in x.items()}
     if name == "sweep_3d":
@@ -58,9 +103,9 @@ def jax_call(name, x):
     elif name == "sweep_2d":
         out = ps._sweep_2d(a["phi3"], a["R"], a["mask"], a["g"], a["cs"],
                            NC, N, interpret=True)
-    elif name == "fill_2d":
-        out = ps._fill_2d(a["phi3"], a["A"], a["g"], a["W"], NC, N, False,
-                          interpret=True)
+    elif name in ("fill_2d", "fill_2d_swap"):
+        out = ps._fill_2d(a["phi3"], a["A"], a["g"], a["W"], NC, N,
+                          name == "fill_2d_swap", interpret=True)
     else:
         out = ps._fill_sweep_2d(a["phi3"], a["R"], a["mask"], a["A"],
                                 a["g"], a["W"], a["cs"], NC, N,
@@ -72,22 +117,25 @@ def torch_call(fn, x):
     t = {k: torch.as_tensor(v) for k, v in x.items()}
     if fn in (ks.sweep_2d, ks.sweep_2d_plain, ks.sweep_3d, ks.sweep_3d_plain):
         return fn(t["phi3"], t["R"], t["mask"], t["g"], t["cs"])
-    if fn in (ks.fill_2d, ks.fill_2d_plain, ks.fill_3d, ks.fill_3d_plain):
+    if fn in (ks.fill_2d, ks.fill_2d_plain, ks.fill_2d_swap,
+              ks.fill_2d_swap_plain, ks.fill_3d, ks.fill_3d_plain):
         return fn(t["phi3"], t["A"], t["g"], t["W"])
     return fn(t["phi3"], t["R"], t["mask"], t["A"], t["g"], t["W"], t["cs"])
 
 
 SEEDS = {"fill_sweep_2d": 1, "sweep_2d": 2, "fill_2d": 3, "sweep_3d": 4,
-         "fill_3d": 6}
+         "fill_3d": 6, "fill_2d_swap": 7}
 
 
 def ndim_of(name):
-    return int(name[-2])
+    return int(re.search(r"_(\d)d", name).group(1))
 
 
 @pytest.mark.parametrize("name", list(SEEDS))
-def test_plain_kernel_matches_pallas_interpret(name):
+def test_plain_kernel_matches_pallas_interpret(name, monkeypatch):
     x = random_inputs(seed=SEEDS[name], ndim=ndim_of(name))
+    if name == "fill_2d_swap":
+        monkeypatch.setattr(ps.pl, "pallas_call", _grid_pallas_call)
     want = jax_call(name, x)
     got = torch_call(ks.KERNELS[name], x)  # CPU tensors -> plain version
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
@@ -101,3 +149,28 @@ def test_wrapper_counts_only_kernel_launches():
         torch_call(fn, x[ndim_of(name)])
     assert all(fn.launches == 0 for fn in ks.KERNELS.values())
 
+
+def test_fill_2d_swap_is_the_host_extrapolating_ghost():
+    """On a block whose four sides all carry the extrapolating weights,
+    K3-swap gives the host form of JAX ghostcell._rb_extrap_ghost
+    (0.5 pcopy + 1.125 f1 - 0.375 (f2 + swap(f1)) + 0.125 swap(f2)), with
+    A the half parent copy."""
+    x = random_inputs(seed=8)
+    x["W"][:] = 0.0
+    x["W"][:, :, 1:5] = (1.125, -0.375, -0.375, 0.125)
+    got = torch_call(ks.fill_2d_swap, x).numpy()
+    own = x["phi3"][x["g"][:, 0]]
+    n, nc = N, NC
+
+    def pswap(a):
+        return a.reshape(a.shape[:-1] + (nc // 2, 2))[..., ::-1].reshape(
+            a.shape)
+    sides = [(own[:, 1, 1:-1], own[:, 2, 1:-1], got[:, 0, 1:-1]),
+             (own[:, nc, 1:-1], own[:, nc - 1, 1:-1], got[:, nc + 1, 1:-1]),
+             (own[:, 1:-1, 1], own[:, 1:-1, 2], got[:, 1:-1, 0]),
+             (own[:, 1:-1, nc], own[:, 1:-1, nc - 1], got[:, 1:-1, nc + 1])]
+    for d, (f1, f2, ghost) in enumerate(sides):
+        pcopy = 2.0 * x["A"][:, d]
+        want = (0.5 * pcopy + 1.125 * f1 - 0.375 * (f2 + pswap(f1))
+                + 0.125 * pswap(f2))
+        np.testing.assert_allclose(ghost, want, rtol=1e-13, atol=1e-13)
