@@ -165,6 +165,10 @@ def _launch(mode, ndim, phi3, R=None, mask=None, A=None, g=None, W=None,
         raise ValueError(f"phi3 must have {ndim + 1} dims, got "
                          f"{tuple(phi3.shape)}")
     n, nc = _check(phi3, R, mask, A, g, W, cs)
+    if (ndim == 2 and mode in (_MODE_FILL, _MODE_FILL_SWAP)
+            and phi3.data_ptr() % 16):
+        raise ValueError("the 2D fill reads phi3 in 16-byte vectors: its "
+                         "data must start on a 16-byte boundary")
     out = torch.empty_like(phi3)
     stream = torch.cuda.current_stream(phi3.device).cuda_stream
     err = _library(f"afs_smoother_{ndim}d")(
@@ -376,6 +380,31 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
+
+
+def min_bytes(name: str, n: int, nc: int, dtype=torch.float64) -> int:
+    """Least bytes kernel ``name`` moves on n boxes of nc^ndim cells: each
+    input value it reads read once and the output written once. A fill
+    (K1's too) reads no side or face ghost of the input, which it
+    overwrites; W counts only the columns the kernel reads (3 of 8, 5 with
+    the parity-swap terms), g only the columns it reads (the own row for a
+    sweep, all for a fill); the mask is float32 and g int32 whatever
+    ``dtype`` is."""
+    ndim = 3 if name.endswith("_3d") else 2
+    nd, C = 2 * ndim, nc + 2
+    item = torch.empty((), dtype=dtype).element_size()
+    ghosts = n * nd * nc ** (ndim - 1)  # the side or face ghosts
+    phi_in, floats = n * C ** ndim, n * C ** ndim  # phi3 in, new blocks out
+    g_cols, mask = 1, 0
+    if name.startswith("fill"):
+        phi_in -= ghosts
+        floats += ghosts  # A
+        floats += n * nd * (5 if name == "fill_2d_swap" else 3)  # W
+        g_cols = 1 + nd
+    if "sweep" in name:
+        floats += n * (1 + 2 + nd) * nc ** ndim  # R and cs
+        mask = 4 * nc ** ndim
+    return (phi_in + floats) * item + 4 * n * g_cols + mask
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,12 @@ failure exits non-zero):
    K3-swap fill_2d_swap; 3D: K4 sweep_3d, K5 fill_3d) against its plain
    PyTorch version on the card at the slices' shapes (n = 4096 boxes,
    nc = 8, random ghost weights with the parity-swap columns nonzero) in
-   float64 and float32, and time both (wall: CUDA events around 50
-   back-to-back calls; device: the device events under torch.profiler);
+   float64 and float32, and time both: wall (CUDA events around 50
+   back-to-back calls), device time (the device events under
+   torch.profiler) with a warm L2 (the same inputs every call) and with a
+   cold one (the inputs taken in turn from copies that hold four times
+   the L2), the host's enqueue time per call, and each kernel's bound
+   (ops/smoother.min_bytes over the memory rate) and share of it;
 3. run the committed 2D slice config on the card and on the CPU (plain
    kernels) at 64 x 64 cells for 3 steps and compare the states; 3b. the
    same for the 3D slice config at 32^3 cells; 3c. the dielectric slice
@@ -21,21 +25,26 @@ failure exits non-zero):
    mesh at every refinement epoch, the densities, phi and the surface
    charge, and K3-swap launched;
 4. run the full-size 2D slice (uniform 512 x 512 cells, 5460 boxes,
-   float64) through Simulation/run, counting the kernel launches;
+   float64) through Simulation/run, counting the kernel launches, then
+   time K3 on its finest level (4096 boxes) with that level's own tables;
 5. run the full-size 3D slice (uniform 128^3 cells, 4680 boxes, float64,
    10 steps) the same way;
 6. run the dielectric slice at the card's size (uniform level 6 and
    refinement to level 8 around the seed and in the regions, live, 20
    steps) the same way, with the time of each refinement epoch and of the
-   host plan rebuilds, and the device busy share of two more steps.
+   host plan rebuilds, and the device busy share of two more steps, then
+   time K3-swap on its largest level that runs it.
 
 The launch counts are set to 0 just before each full-size run and read
 just after it. The line before the last is a JSON object with one entry
-per kernel; the last line is ``{"ok": true, "device": {...}}``.
+per kernel (``ms`` and ``plain_ms`` are the cold float64 device times);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -79,6 +88,21 @@ DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
                     "-refine_regions_dr=7.8125e-6 7.8125e-6",
                     "-refine_min_dx=4e-6"], 20)
 BACKGROUND_FIELD = 1.8e6  # V/m, the configs' field_given_by
+#: the H100 SXM's device memory rate and its peak rates outside the tensor
+#: cores (NVIDIA's data sheet, at the full 700 W), for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+#: a cold-L2 timing takes its inputs in turn from copies that together
+#: hold at least this many bytes (four times the 50 MB L2), and at least
+#: this many copies
+COLD_BYTES, COLD_MIN_SETS = 200e6, 8
+#: spin kernels that open and close each profiled window (see device_us)
+PAD_SPINS = 8
+#: why no PyTorch call serves as a kernel's yardstick (library_ms is null)
+NO_LIBRARY_CALL = {
+    "sweep": "a red-black update with per-cell coefficients",
+    "fill": "a gather of neighbor blocks by a table summed with per-box "
+            "weights"}
 
 
 def log(msg):
@@ -138,21 +162,144 @@ def time_ms(torch, fn, reps=50):
     return start.elapsed_time(stop) / reps
 
 
-def device_us(torch, fn, reps=20):
-    """Device time per call in microseconds: the device events only, under
-    torch.profiler (no launch gaps); None if the trace has none."""
+def device_us(torch, fns, reps=20, tries=10):
+    """Device time per call in microseconds under torch.profiler (the
+    device events only, no launch gaps) of max(reps, len(fns)) calls that
+    take the callables ``fns`` in turn, after one warm-up pass over them:
+    for each kernel in the trace, its mean duration times its launches per
+    call (its count over the calls, at least 1). The profiler on the card
+    drops events from a trace at times (after a long trace, the first few
+    of every later one): PAD_SPINS spin kernels before and after the calls
+    take that loss and are not counted. A trace that still holds less than
+    three quarters of the launches so counted is taken again, up to
+    ``tries`` times (empty traces come in runs of up to three)."""
     from torch.profiler import ProfilerActivity, profile
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    reps = max(reps, len(fns))
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(1000)
+            for i in range(reps):
+                fns[i % len(fns)]()
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == cuda and e.count > 0
+               and "spin_kernel" not in e.key]
+        per_call = [max(1, round(e.count / reps)) for e in dev]
+        seen = sum(e.count for e in dev)
+        if dev and seen >= 0.75 * reps * sum(per_call):
+            return sum(e.self_device_time_total / e.count * k
+                       for e, k in zip(dev, per_call))
+        log(f"device time: the trace of {reps} calls holds "
+            f"{[(e.key[:50], e.count) for e in dev]}; tracing again")
+        time.sleep(0.2)
+    raise RuntimeError("torch.profiler dropped device events in every try")
+
+
+def enqueue_us(torch, fn, reps=200):
+    """Host time per call in microseconds of ``reps`` calls with no
+    synchronise between them: what the wrapper costs the host."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if getattr(e, "device_type", None) == cuda)
-    return total / reps if total > 0 else None
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / reps
+
+
+def cold_sets(x, nbytes):
+    """Copies of the inputs ``x``, enough that one pass over them moves at
+    least COLD_BYTES: called in turn, each call finds its inputs evicted
+    from the 50 MB L2 by the calls since its last turn."""
+    k = max(COLD_MIN_SETS, math.ceil(COLD_BYTES / nbytes))
+    return [{key: v.clone() for key, v in x.items()} for _ in range(k)]
+
+
+def min_flops(name, n, nc):
+    """Floating-point operations of kernel ``name`` on n boxes: 6 per side
+    ghost (10 with the parity-swap terms) and, for a sweep, 3 nd + 4 per
+    cell the red-black mask updates (half of them)."""
+    ndim = ndim_of(name)
+    nd = 2 * ndim
+    flops = 0
+    if name.startswith("fill"):
+        flops += n * nd * nc ** (ndim - 1) * (10 if name == "fill_2d_swap"
+                                               else 6)
+    if "sweep" in name:
+        flops += n * nc ** ndim // 2 * (3 * nd + 4)
+    return flops
+
+
+def measure(torch, ks, name, x, smi):
+    """The kernel ``name`` and its plain version on the inputs ``x``: wall
+    time of 50 back-to-back calls (CUDA events), device time with a warm
+    L2 (the same inputs every call) and with a cold L2 (cold_sets), host
+    enqueue time, and the bound: the larger of min_bytes over the memory
+    rate and min_flops over the peak rate of the dtype."""
+    fn, plain = ks.KERNELS[name], ks.PLAIN[name]
+    phi3 = x["phi3"]
+    n, nc = phi3.shape[0], phi3.shape[-1] - 2
+    dname = str(phi3.dtype).split(".")[1]
+    nbytes = ks.min_bytes(name, n, nc, phi3.dtype)
+    by_bytes = nbytes / HBM_BYTES_PER_S
+    by_ops = min_flops(name, n, nc) / PEAK_FLOPS[dname]
+    sets = cold_sets(x, nbytes)
+    r = {"bytes": nbytes, "bound_us": 1e6 * max(by_bytes, by_ops),
+         "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+         "sets": len(sets),
+         "wall_ms": time_ms(torch, lambda: call(fn, x, name)),
+         "plain_wall_ms": time_ms(torch, lambda: call(plain, x, name)),
+         "warm_us": device_us(torch, [lambda: call(fn, x, name)]),
+         "plain_warm_us": device_us(torch, [lambda: call(plain, x, name)]),
+         "cold_us": device_us(torch, [functools.partial(call, fn, s, name)
+                                      for s in sets]),
+         "plain_cold_us": device_us(torch, [
+             functools.partial(call, plain, s, name) for s in sets]),
+         "enqueue_us": enqueue_us(torch, lambda: call(fn, x, name))}
+    del sets
+    r["share"] = r["bound_us"] / r["cold_us"]
+    r["text"] = (
+        f"{nbytes} bytes, bound {r['bound_us']:.3f} us (by {r['bound_by']}:"
+        f" {HBM_BYTES_PER_S / 1e12} TB/s, {PEAK_FLOPS[dname] / 1e12:.0f} "
+        f"TFLOP/s; {smi}); device cold {r['cold_us']:.3f} us ({r['sets']} "
+        f"input sets), share of bound {r['share']:.3f}; device warm "
+        f"{r['warm_us']:.3f} us; host enqueue {r['enqueue_us']:.2f} us per "
+        f"call; plain cold {r['plain_cold_us']:.3f} us, warm "
+        f"{r['plain_warm_us']:.3f} us; wall (CUDA events over 50 calls) "
+        f"kernel {r['wall_ms']:.4f} ms plain {r['plain_wall_ms']:.4f} ms; "
+        f"library call none (no single PyTorch call does "
+        f"{NO_LIBRARY_CALL['sweep' if 'sweep' in name else 'fill']})")
+    if r["share"] > 1.0:
+        raise RuntimeError(f"{name} {dname}: the cold device time is below "
+                           f"the memory bound: {r['text']}")
+    return r
+
+
+def check_against_plain(torch, ks, name, x):
+    """Max abs deviation of the kernel from its plain version on ``x``,
+    held to TOL (TOL_SWAP_F32 for K3-swap in float32) times the scale."""
+    want = call(ks.PLAIN[name], x, name)
+    got = call(ks.KERNELS[name], x, name)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = max(float(want.abs().max()), 1.0)
+    dname = str(x["phi3"].dtype).split(".")[1]
+    tol = (TOL_SWAP_F32 if name == "fill_2d_swap" and dname == "float32"
+           else TOL[dname])
+    text = f"max_abs_err={err:.3e} (tol {tol:.0e} x {scale:.3g})"
+    if err > tol * scale:
+        raise RuntimeError(f"{name} {dname} disagrees with its plain "
+                           f"version: {text}")
+    return err, text
 
 
 def free_earlier_runs(torch):
@@ -162,39 +309,41 @@ def free_earlier_runs(torch):
     torch.cuda.empty_cache()
 
 
-def phase_kernels(torch, ks):
+def phase_kernels(torch, ks, smi):
     """Phase 2: every kernel against its plain version, float64 and
-    float32; returns per-kernel float64 results."""
+    float32, and its times (measure); returns per-kernel float64
+    results."""
     results = {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[1]
         xs = {nd: kernel_inputs(torch, dtype, "cuda", 20261016, nd)
               for nd in (2, 3)}
-        for name, fn in ks.KERNELS.items():
+        for name in ks.KERNELS:
             x = xs[ndim_of(name)]
-            want = call(ks.PLAIN[name], x, name)
-            got = call(fn, x, name)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            scale = float(want.abs().max())
-            tol = (TOL_SWAP_F32 if name == "fill_2d_swap"
-                   and dtype == torch.float32 else TOL[dname])
-            ok = err <= tol * max(scale, 1.0)
-            ms = time_ms(torch, lambda: call(fn, x, name))
-            plain_ms = time_ms(torch, lambda: call(ks.PLAIN[name], x, name))
-            d_us = device_us(torch, lambda: call(fn, x, name))
-            d_plain = device_us(torch, lambda: call(ks.PLAIN[name], x, name))
-            log(f"phase 2: {name} {dname} max_abs_err={err:.3e} "
-                f"(tol {tol:.0e} x {max(scale, 1.0):.3g}) wall (CUDA events"
-                f" over 50 calls) kernel {ms:.4f} ms plain {plain_ms:.4f} ms;"
-                f" device (profiler) kernel {d_us} us plain {d_plain} us")
-            if not ok:
-                raise RuntimeError(f"{name} {dname} disagrees with its plain "
-                                   f"version: {err}")
+            err, err_text = check_against_plain(torch, ks, name, x)
+            r = measure(torch, ks, name, x, smi)
+            log(f"phase 2: {name} {dname} {err_text}; {r['text']}")
             if dtype == torch.float64:
-                results[name] = {"max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms}
+                results[name] = dict(r, max_abs_err=err)
+        free_earlier_runs(torch)
     return results
+
+
+def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi):
+    """The fill ``name`` held against its plain version and timed on level
+    ``lvl`` of the simulation's field solve, with the phi3, A, g and W a
+    V-cycle hands it there; after the run's launch counts were read."""
+    mg = sim.field.mg
+    P, _ = mgb.gather_levels(mg, sim.cc)
+    sm = mg.smoother(lvl)
+    dtype = P[0].dtype
+    A = mgb.build_A_blocks(mg, lvl, P[lvl - 2] if lvl > 1 else None,
+                           {"voltage": sim.field.current_voltage}, dtype)
+    x = {"phi3": P[lvl - 1], "A": A, "g": sm.g, "W": sm.W(dtype)}
+    _, err_text = check_against_plain(torch, ks, name, x)
+    r = measure(torch, ks, name, x, smi)
+    log(f"phase {phase}: {name} on level {lvl} ({x['phi3'].shape[0]} boxes,"
+        f" the level's own g, W and A): {err_text}; {r['text']}")
 
 
 def slice_argv(out, ndim, refine_max_dx, device):
@@ -308,7 +457,7 @@ def phase_dielectric_cpu_vs_cuda(torch, ks, Simulation, out_dir):
         raise RuntimeError("dielectric slice: dt differs")
 
 
-def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir):
+def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir, smi):
     """Phase 6: the dielectric slice at the card's size for 20 steps;
     returns the launch counts of the run's kernels."""
     extra, steps = DIELECTRIC_FULL
@@ -369,6 +518,8 @@ def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir):
         f"K3-swap on levels {swap_lvls}, float64)")
     log(f"phase 6: device busy share: "
         f"{busy_share(torch, sim, 1e3 * (t2 - t1) / steps)}")
+    time_on_level(torch, ks, mgb, sim, "fill_2d_swap",
+                  max(swap_lvls, key=lambda l: mg.smoother(l).n), "6", smi)
     return launches
 
 
@@ -395,7 +546,7 @@ def busy_share(torch, sim, ms_per_step):
             f"{dev_ms * 2e-3 / wall:.3f} of the profiled wall time)")
 
 
-def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim):
+def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim, smi):
     """Phase 4 (2D) and 5 (3D): a full-size slice on the card; returns the
     launch counts of that run's kernels."""
     phase = "4" if ndim == 2 else "5"
@@ -450,6 +601,9 @@ def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim):
                     reps=10)
     log(f"phase {phase}: {vc_ms:.3f} ms per V-cycle ({sim.tree.highest_lvl} "
         f"levels, float64)")
+    if ndim == 2:
+        time_on_level(torch, ks, mgb, sim, "fill_2d", sim.tree.highest_lvl,
+                      phase, smi)
     return launches
 
 
@@ -467,6 +621,7 @@ def main():
     from afivo_streamer_tpu_torch.driver import Simulation
     from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
 
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -485,7 +640,7 @@ def main():
             if "registers" in line or "spill" in line:
                 log(f"phase 1: ptxas {line.strip()}")
 
-    results = phase_kernels(torch, ks)
+    results = phase_kernels(torch, ks, smi)
     out_dir = ROOT / "out" / "chip_smoke"
     for ndim in (2, 3):
         phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim)
@@ -493,18 +648,24 @@ def main():
     launches = {}
     for ndim in (2, 3):
         launches.update(phase_full_slice(torch, ks, Simulation, mgb,
-                                         out_dir, ndim))
+                                         out_dir, ndim, smi))
     # K3-swap's count is that of the dielectric run, its main path
     launches["fill_2d_swap"] = phase_dielectric_full(
-        torch, ks, Simulation, mgb, out_dir)["fill_2d_swap"]
+        torch, ks, Simulation, mgb, out_dir, smi)["fill_2d_swap"]
 
     kernels = [{"name": name, "route": "cuda",
                 "source": SOURCE[ndim_of(name)],
                 "replaces": REPLACES[name], "launches": launches[name],
                 "max_abs_err": results[name]["max_abs_err"],
-                "ms": results[name]["ms"],
-                "plain_ms": results[name]["plain_ms"]}
+                "ms": 1e-3 * results[name]["cold_us"],
+                "plain_ms": 1e-3 * results[name]["plain_cold_us"],
+                "bound_ms": 1e-3 * results[name]["bound_us"],
+                "bound_by": results[name]["bound_by"], "library_ms": None,
+                "warm_ms": 1e-3 * results[name]["warm_us"],
+                "wall_ms": results[name]["wall_ms"],
+                "enqueue_us": results[name]["enqueue_us"]}
                for name in ks.KERNELS]
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

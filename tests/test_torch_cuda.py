@@ -6,7 +6,9 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 
 * each CUDA smoother kernel (K1-K3 and K3-swap in 2D, K4-K5 in 3D)
   against its plain PyTorch version on the same inputs, float64 and
-  float32;
+  float32; the 2D fill (K3, K3-swap) besides at n in {1, 3, 33, 4096}
+  and nc in {2, 4, 8, 16}, with neighbor rows that are the box's own,
+  and its refusal of a misaligned block array;
 * the 2D and 3D slices, and the dielectric slice with live refinement, on
   the card against the same slices on the CPU (plain kernels).
 """
@@ -80,6 +82,74 @@ def test_cuda_kernel_matches_plain(name, dtype, cuda):
     assert ks.KERNELS[name].launches == before + 1
     tol = 1e-12 if dtype == torch.float64 else 2e-5
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def fill_inputs(n, nc, dtype, device, self_rows=0.25, seed=11,
+                own="permuted"):
+    """Blocks, ghost constants and weights (all 8 columns nonzero) and a
+    neighbor table with permuted own rows (or with ``own="identity"`` the
+    box's index, as on every level the V-cycle builds) and a share
+    ``self_rows`` of neighbor rows that point at the box's own row."""
+    x = inputs(n, nc, dtype, "cpu", seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = x["g"]
+    if own == "identity":
+        g[:, 0] = torch.arange(n, dtype=torch.int32)
+    selfs = torch.rand((n, 4), generator=gen) < self_rows
+    g[:, 1:][selfs] = g[:, :1].expand(n, 4)[selfs]
+    return {k: x[k].to(device) for k in ("phi3", "A", "g", "W")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("own", ["permuted", "identity"])
+@pytest.mark.parametrize("nc", [2, 4, 8, 16])
+@pytest.mark.parametrize("n", [1, 3, 33, 4096])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["fill_2d", "fill_2d_swap"])
+def test_cuda_fill_matches_plain(name, dtype, n, nc, own, cuda):
+    """The warp-per-box fill (nc = 8 compiled in, other nc at run time; n
+    leaves the last block of four boxes part empty; own rows permuted, so
+    the copy started before g is redone, or the box's index) against its
+    plain version: a new output, the input unchanged. Tolerance: float64
+    1e-12, float32 1e-5 (a fused multiply-add rounds once)."""
+    x = fill_inputs(n, nc, dtype, cuda, own=own)
+    before = x["phi3"].clone()
+    want = call(ks.PLAIN[name], x, name)
+    count = ks.KERNELS[name].launches
+    got = call(ks.KERNELS[name], x, name)
+    torch.cuda.synchronize()
+    assert ks.KERNELS[name].launches == count + 1
+    assert got.data_ptr() != x["phi3"].data_ptr()
+    assert torch.equal(x["phi3"], before)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fill_2d", "fill_2d_swap"])
+def test_cuda_fill_with_only_self_rows(name, cuda):
+    """Every neighbor row is the box's own row (a level of one box, or
+    boxes with physical boundaries on all sides)."""
+    x = fill_inputs(64, 8, torch.float64, cuda, self_rows=1.0)
+    want = call(ks.PLAIN[name], x, name)
+    got = call(ks.KERNELS[name], x, name)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_fill_refuses_misaligned_blocks(dtype, cuda):
+    """The fill reads phi3 in 16-byte vectors: a view that starts one
+    element into its storage is refused before any launch."""
+    x = fill_inputs(8, 8, dtype, cuda)
+    flat = torch.empty(x["phi3"].numel() + 1, dtype=dtype, device=cuda)
+    view = flat[1:].view_as(x["phi3"])
+    view.copy_(x["phi3"])
+    counts = (ks.fill_2d.launches, ks.fill_2d_swap.launches)
+    for fn in (ks.fill_2d, ks.fill_2d_swap):
+        with pytest.raises(ValueError, match="16-byte"):
+            fn(view, x["A"], x["g"], x["W"])
+    assert (ks.fill_2d.launches, ks.fill_2d_swap.launches) == counts
 
 
 @pytest.mark.gpu

@@ -174,3 +174,26 @@ def test_fill_2d_swap_is_the_host_extrapolating_ghost():
         want = (0.5 * pcopy + 1.125 * f1 - 0.375 * (f2 + pswap(f1))
                 + 0.125 * pswap(f2))
         np.testing.assert_allclose(ghost, want, rtol=1e-13, atol=1e-13)
+
+
+#: hand counts at n = 4096, nc = 8, float64 (each input value read once,
+#: the output written once; the fills read 68 of a 2D block's 100 input
+#: values and 616 of a 3D block's 1000, not the ghosts they overwrite; W
+#: and g only where read): bytes, and of them the int32 g and float32
+#: mask bytes, which float32 leaves as they are
+MIN_BYTES = {"fill_sweep_2d": (21_709_056, 81_920 + 256),
+             "sweep_2d": (21_250_304, 16_384 + 256),
+             "fill_2d": (7_028_736, 81_920),
+             "fill_2d_swap": (7_290_880, 81_920),
+             "sweep_3d": (216_549_376, 16_384 + 2_048),
+             "fill_3d": (66_240_512, 114_688)}
+
+
+@pytest.mark.parametrize("name", list(MIN_BYTES))
+def test_min_bytes_matches_hand_count(name):
+    f64, fixed = MIN_BYTES[name]
+    assert ks.min_bytes(name, 4096, 8, torch.float64) == f64
+    assert ks.min_bytes(name, 4096, 8) == f64
+    # float32 halves the float bytes only
+    assert ks.min_bytes(name, 4096, 8, torch.float32) == (f64 - fixed) // 2 \
+        + fixed
