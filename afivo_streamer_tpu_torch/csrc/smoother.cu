@@ -3,8 +3,8 @@
 // level-local block arrays of the 2D block V-cycle.
 //
 // Replaces the TPU Pallas kernels of afivo_streamer_tpu/ops/pallas_smoother.py:
-//   K1 _fill_sweep_2d (pallas_call at :397)  -> mode 2, smoother_2d_kernel
-//   K2 _sweep_2d      (pallas_call at :229)  -> mode 0, smoother_2d_kernel
+//   K1 _fill_sweep_2d (pallas_call at :397)  -> mode 2, fill_sweep_2d_kernel
+//   K2 _sweep_2d      (pallas_call at :229)  -> mode 0, sweep_2d_kernel
 //   K3 _fill_2d       (pallas_call at :302)  -> mode 1 (has_swap=False),
 //                                               mode 3 (has_swap=True),
 //                                               fill_2d_kernel
@@ -36,12 +36,10 @@
 // largest input (6*64 values against 100 of phi at nc = 8), then R and
 // phi. The arithmetic is a dozen flops per cell.
 //
-// The sweeps (modes 0 and 2) are one thread per output cell of [n, C, C]:
+// K2 (sweep_2d_kernel) is one thread per output cell of [n, C, C]:
 // consecutive threads touch consecutive addresses of phi3, cs, R and out,
-// so every load and store is coalesced, and the 5 rows of g, the
-// neighbor slabs and the own block are re-read by the threads of one box
-// from L1/L2 rather than from device memory. A thread next to a side
-// recomputes the ghost value it needs (K1) instead of sharing it.
+// so every load and store is coalesced, and the own block's row of g is
+// re-read by the threads of one box from L1. It runs at ~0.7 of its bound.
 //
 // The fill (modes 1 and 3) must move only 7 MB at n = 4096, nc = 8 in
 // float64 (a 2.1 us bound; the function needs none of the input's side
@@ -59,15 +57,36 @@
 // does not wait for g (it is redone where the row differs); only the
 // neighbor's slab value does. After a warp barrier each lane reads f1 and
 // f2 from shared memory and writes its ghost there, and the warp stores
-// the block out in 16-byte vectors, contiguous and coalesced. No integer
-// division but by compile-time constants: nc is a template parameter,
-// instantiated at 8 (every config's box size); a second instance takes
-// any even nc at run time (lanes loop over the 4 nc ghosts, the copy
-// strides over the block). C is even, so each block is a whole number of
-// 16-byte vectors and starts on a 16-byte boundary when phi3 does (the
-// wrapper checks it). What is left between it and its bound is a fixed
-// cost of a short launch (the first loads' latency, one wave's start and
-// drain) more than the bytes.
+// the block out in 16-byte vectors, contiguous and coalesced. What is
+// left between it and its bound is a fixed cost of a short launch (the
+// first loads' latency, one wave's start and drain) more than the bytes.
+//
+// K1 moves 21.7 MB at n = 4096, nc = 8 in float64 (a 6.5 us bound), 3/4
+// of it R and cs. One thread per cell made every interior thread next to
+// a side rebuild the ghosts it read, each with its own g -> neighbor chain
+// and its own W and A loads, read cs in 8-byte scalars, and paid a 64-bit
+// division per thread: 0.45 of the bound. fill_sweep_2d_kernel is the
+// fill above (one warp per box, the block staged in shared memory, one
+// ghost per lane) followed by the sweep on the staged block: each lane
+// owns two adjacent interior cells of a row (nc is even), so R and each
+// of the six cs planes come in one 8-byte-per-cell vector per lane, a
+// whole plane per warp in one coalesced access (512 bytes at nc = 8 in
+// float64), and the mask, the same for every box, from L1. The sweep's
+// inputs do not depend on g, so with nc compiled in they load with the
+// fill's, before the neighbor slabs. Every lane computes its updated
+// cells from the filled block into a scratch row of shared memory before
+// any lane writes one back (the mask is an input, not assumed a
+// checkerboard), and the block goes out in 16-byte vectors. Both
+// warp-per-box kernels divide by compile-time constants only: nc is a
+// template parameter, instantiated at 8 (every config's box size); a
+// second instance takes any even nc at run time (lanes loop over the
+// ghosts, the cell pairs and the block). C is even, so each block is a
+// whole number of 16-byte vectors and starts on a 16-byte boundary when
+// phi3 does; the wrapper checks phi3 (and for K1 R, cs and mask) for it.
+// What is left between K1 and its bound is the fill's fixed cost per
+// launch and the sectors it touches but does not need (the side ghosts
+// copied with the block, and a 32-byte sector per value of a y-side
+// slab, which is a column of the neighbor block).
 
 #include <cuda_runtime.h>
 
@@ -82,66 +101,14 @@ constexpr int kModeFillSweep = 2;
 constexpr int kModeFillSwap = 3;
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Side ghost d (0 x-low, 1 x-high, 2 y-low, 3 y-high) at transverse cell
-// t (0-based) of box b, from the own block B and the neighbor block (K1).
+// K2: one thread per output cell.
 template <typename T>
-__device__ __forceinline__ T ghost_value(const T* __restrict__ phi3,
-                                         const T* __restrict__ B,
-                                         const int* __restrict__ g,
-                                         const T* __restrict__ W,
-                                         const T* __restrict__ A, long long b,
-                                         int d, int t, int nc) {
-  const int C = nc + 2;
-  const T* nb = phi3 + (long long)g[b * 5 + 1 + d] * C * C;
-  const T* w = W + (b * 4 + d) * 8;
-  const int j = t + 1;
-  // the own-block layers next to side d: f1 at row/column r1, f2 at r2
-  const int r1 = (d == 0 || d == 2) ? 1 : nc;
-  const int r2 = (d == 0 || d == 2) ? 2 : nc - 1;
-  const int nbr = (d == 0 || d == 2) ? nc : 1;
-  const bool along_x = d < 2;  // sides 0, 1 are rows of the block
-  auto at = [&](const T* X, int layer, int jj) {
-    return along_x ? X[layer * C + jj] : X[jj * C + layer];
-  };
-  return w[0] * at(nb, nbr, j) + w[1] * at(B, r1, j) + w[2] * at(B, r2, j) +
-         A[(b * 4 + d) * nc + t];
-}
-
-// Value of cell (r, c) of box b's block, after the side-ghost fill when
-// FILL is set (corners and interior are the own block's).
-template <typename T, bool FILL>
-__device__ __forceinline__ T cell_value(const T* __restrict__ phi3,
-                                        const T* __restrict__ B,
-                                        const int* __restrict__ g,
-                                        const T* __restrict__ W,
-                                        const T* __restrict__ A, long long b,
-                                        int r, int c, int nc) {
-  if (FILL) {
-    const bool r_in = r >= 1 && r <= nc;
-    const bool c_in = c >= 1 && c <= nc;
-    if (c_in && r == 0)
-      return ghost_value<T>(phi3, B, g, W, A, b, 0, c - 1, nc);
-    if (c_in && r == nc + 1)
-      return ghost_value<T>(phi3, B, g, W, A, b, 1, c - 1, nc);
-    if (r_in && c == 0)
-      return ghost_value<T>(phi3, B, g, W, A, b, 2, r - 1, nc);
-    if (r_in && c == nc + 1)
-      return ghost_value<T>(phi3, B, g, W, A, b, 3, r - 1, nc);
-  }
-  return B[r * (nc + 2) + c];
-}
-
-// K2 (MODE 0) and K1 (MODE 2): one thread per output cell.
-template <typename T, int MODE>
-__global__ void smoother_2d_kernel(const T* __restrict__ phi3,
-                                   const T* __restrict__ R,
-                                   const float* __restrict__ mask,
-                                   const T* __restrict__ A,
-                                   const int* __restrict__ g,
-                                   const T* __restrict__ W,
-                                   const T* __restrict__ cs,
-                                   T* __restrict__ out, int n, int nc) {
-  constexpr bool FILL = MODE == kModeFillSweep;
+__global__ void sweep_2d_kernel(const T* __restrict__ phi3,
+                                const T* __restrict__ R,
+                                const float* __restrict__ mask,
+                                const int* __restrict__ g,
+                                const T* __restrict__ cs,
+                                T* __restrict__ out, int n, int nc) {
   const int C = nc + 2;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)n * C * C) return;
@@ -150,13 +117,12 @@ __global__ void smoother_2d_kernel(const T* __restrict__ phi3,
   const int r = rem / C;
   const int c = rem - r * C;
   const T* B = phi3 + (long long)g[b * 5] * C * C;
-
+  const T B0 = B[rem];
   const bool interior = r >= 1 && r <= nc && c >= 1 && c <= nc;
   if (!interior) {
-    out[idx] = cell_value<T, FILL>(phi3, B, g, W, A, b, r, c, nc);
+    out[idx] = B0;
     return;
   }
-  const T B0 = B[r * C + c];
   const int k = (r - 1) * nc + (c - 1);
   if (!(mask[k] > 0.0f)) {
     out[idx] = B0;
@@ -164,13 +130,10 @@ __global__ void smoother_2d_kernel(const T* __restrict__ phi3,
   }
   const int s = nc * nc;
   const T* cb = cs + b * 6 * s;
-  const T up = cell_value<T, FILL>(phi3, B, g, W, A, b, r - 1, c, nc);
-  const T dn = cell_value<T, FILL>(phi3, B, g, W, A, b, r + 1, c, nc);
-  const T lf = cell_value<T, FILL>(phi3, B, g, W, A, b, r, c - 1, nc);
-  const T rt = cell_value<T, FILL>(phi3, B, g, W, A, b, r, c + 1, nc);
-  const T lphi = cb[5 * s + k] * B0 + cb[1 * s + k] * (up - B0) +
-                 cb[2 * s + k] * (dn - B0) + cb[3 * s + k] * (lf - B0) +
-                 cb[4 * s + k] * (rt - B0);
+  const T lphi = cb[5 * s + k] * B0 + cb[1 * s + k] * (B[rem - C] - B0) +
+                 cb[2 * s + k] * (B[rem + C] - B0) +
+                 cb[3 * s + k] * (B[rem - 1] - B0) +
+                 cb[4 * s + k] * (B[rem + 1] - B0);
   out[idx] = B0 + (R[b * s + k] - lphi) / cb[k];
 }
 
@@ -192,19 +155,21 @@ struct GhostIn {
   T slab, w0, w1, w2, w3, w4, a;
 };
 
-// Ghost k of a box: side d = k / nc (0 x-low, 1 x-high, 2 y-low, 3
-// y-high), transverse cell t = k % nc; no run-time division.
+// Quotient and remainder of k by nc (NC > 0 a compile-time nc); no
+// run-time division. Ghost k of a box is on side q (0 x-low, 1 x-high, 2
+// y-low, 3 y-high) at transverse cell r; interior cell k of a block at row
+// q, column r.
 template <int NC>
-__device__ __forceinline__ void side_of(int k, int nc, int& d, int& t) {
+__device__ __forceinline__ void div_nc(int k, int nc, int& q, int& r) {
   if constexpr (NC > 0) {
-    d = k / NC;
-    t = k - d * NC;
+    q = k / NC;
+    r = k - q * NC;
   } else {
-    d = 0;
-    t = k;
-    while (t >= nc) {
-      t -= nc;
-      ++d;
+    q = 0;
+    r = k;
+    while (r >= nc) {
+      r -= nc;
+      ++q;
     }
   }
 }
@@ -272,30 +237,21 @@ __device__ __forceinline__ void copy_block(V* dst, const V* __restrict__ src,
   for (int i = lane; i < nv; i += 32) dst[i] = src[i];
 }
 
-constexpr int kFillWarps = 4;
-constexpr size_t kMaxFillSmem = 48 * 1024;
-
-// K3 (SWAP false) and K3-swap (SWAP true): one warp per box, a few boxes
-// per block; NC > 0 is a compile-time nc, NC == 0 takes nc_rt.
+// The own block of box b staged in s with its side ghosts rebuilt (K3, or
+// K3-swap with SWAP) by one warp, one ghost per lane at nc = 8; NC > 0 is
+// a compile-time nc. Ends with a warp barrier.
 template <typename T, int NC, bool SWAP>
-__global__ void __launch_bounds__(kFillWarps * 32)
-    fill_2d_kernel(const T* __restrict__ phi3, const T* __restrict__ A,
-                   const int* __restrict__ g, const T* __restrict__ W,
-                   T* __restrict__ out, int n, int nc_rt) {
+__device__ __forceinline__ void stage_filled_block(
+    T* s, const T* __restrict__ phi3, const T* __restrict__ A,
+    const int* __restrict__ g, const T* __restrict__ W, long long b,
+    int lane, int nc) {
   using V = typename Vec16<T>::type;
   constexpr int kPerVec = (int)(sizeof(V) / sizeof(T));
-  const int nc = NC > 0 ? NC : nc_rt;
   const int CC = (nc + 2) * (nc + 2);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= n) return;  // b is the same for the whole warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s = reinterpret_cast<T*>(smem) + warp * CC;
 
   // this lane's first ghost: its weights and constant load with g
   int d, t;
-  side_of<NC>(lane, nc, d, t);
+  div_nc<NC>(lane, nc, d, t);
   const bool has_ghost = lane < 4 * nc;
   GhostIn<T> in{};
   if (has_ghost) load_side<T, SWAP>(in, A, W, b, d, t, nc);
@@ -326,17 +282,218 @@ __global__ void __launch_bounds__(kFillWarps * 32)
   if (has_ghost) put_ghost<T, SWAP>(s, in, d, t, nc);
   // ghosts beyond the warp's 32 lanes (nc > 8, the run-time instance)
   for (int k = lane + 32; k < 4 * nc; k += 32) {
-    side_of<NC>(k, nc, d, t);
+    div_nc<NC>(k, nc, d, t);
     GhostIn<T> more{};
     load_side<T, SWAP>(more, A, W, b, d, t, nc);
     more.slab = load_slab(phi3, nb_row(d), d, t, nc);
     put_ghost<T, SWAP>(s, more, d, t, nc);
   }
   __syncwarp();
+}
 
-  V* dst = reinterpret_cast<V*>(out + b * CC);
+// The warp's block s to out, 16 bytes per access.
+template <typename T>
+__device__ __forceinline__ void store_block(T* __restrict__ out, const T* s,
+                                            int lane, int CC) {
+  using V = typename Vec16<T>::type;
+  const V* sv = reinterpret_cast<const V*>(s);
+  V* dst = reinterpret_cast<V*>(out);
+  const int nv = CC / (int)(sizeof(V) / sizeof(T));
 #pragma unroll 4
   for (int i = lane; i < nv; i += 32) dst[i] = sv[i];
+}
+
+constexpr int kFillWarps = 4;
+constexpr size_t kMaxFillSmem = 48 * 1024;
+
+// K3 (SWAP false) and K3-swap (SWAP true): one warp per box, a few boxes
+// per block; NC > 0 is a compile-time nc, NC == 0 takes nc_rt.
+template <typename T, int NC, bool SWAP>
+__global__ void __launch_bounds__(kFillWarps * 32)
+    fill_2d_kernel(const T* __restrict__ phi3, const T* __restrict__ A,
+                   const int* __restrict__ g, const T* __restrict__ W,
+                   T* __restrict__ out, int n, int nc_rt) {
+  const int nc = NC > 0 ? NC : nc_rt;
+  const int CC = (nc + 2) * (nc + 2);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= n) return;  // b is the same for the whole warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem) + warp * CC;
+  stage_filled_block<T, NC, SWAP>(s, phi3, A, g, W, b, lane, nc);
+  store_block(out + b * CC, s, lane, CC);
+}
+
+// Two adjacent values of T: a lane's cell pair in K1's sweep.
+template <typename T>
+struct Vec2;
+template <>
+struct Vec2<double> {
+  using type = double2;
+};
+template <>
+struct Vec2<float> {
+  using type = float2;
+};
+
+// What the update of one cell pair reads besides the block: R, the six cs
+// planes (c0, the 4 neighbors, c_sum) and the mask at the pair.
+template <typename T>
+struct PairIn {
+  typename Vec2<T>::type r, c[6];
+  float2 m;
+};
+
+// Pair p of box b: interior cells 2p and 2p + 1 in row-major order (nc is
+// even, so a pair never straddles two rows), one vector per array.
+template <typename T>
+__device__ __forceinline__ void load_pair(PairIn<T>& in,
+                                          const T* __restrict__ R,
+                                          const float* __restrict__ mask,
+                                          const T* __restrict__ cs,
+                                          long long b, int p, int S) {
+  using P = typename Vec2<T>::type;
+  in.r = reinterpret_cast<const P*>(R + b * S)[p];
+#pragma unroll
+  for (int q = 0; q < 6; ++q)
+    in.c[q] = reinterpret_cast<const P*>(cs + (b * 6 + q) * S)[p];
+  in.m = __ldg(reinterpret_cast<const float2*>(mask) + p);
+}
+
+// One cell of the red-black update at x in the filled block (row stride
+// C), in the operation order of the TPU kernel; the mask selects the new
+// value or the old.
+template <typename T>
+__device__ __forceinline__ T update_cell(const T* x, int C, T rv, float mv,
+                                         T c0, T c1, T c2, T c3, T c4, T c5) {
+  const T B0 = x[0];
+  const T lphi = c5 * B0 + c1 * (x[-C] - B0) + c2 * (x[C] - B0) +
+                 c3 * (x[-1] - B0) + c4 * (x[1] - B0);
+  const T nw = B0 + (rv - lphi) / c0;
+  return mv > 0.0f ? nw : B0;
+}
+
+// The updated values of pair p, from the filled block s, into the
+// scratch u ([nc, nc], row major).
+template <typename T, int NC>
+__device__ __forceinline__ void update_pair(T* u, const T* s,
+                                            const PairIn<T>& in, int p,
+                                            int nc) {
+  using P = typename Vec2<T>::type;
+  int r, c;
+  div_nc<NC>(2 * p, nc, r, c);
+  const int C = nc + 2;
+  const T* x = s + (r + 1) * C + c + 1;
+  P v;
+  v.x = update_cell(x, C, in.r.x, in.m.x, in.c[0].x, in.c[1].x, in.c[2].x,
+                    in.c[3].x, in.c[4].x, in.c[5].x);
+  v.y = update_cell(x + 1, C, in.r.y, in.m.y, in.c[0].y, in.c[1].y,
+                    in.c[2].y, in.c[3].y, in.c[4].y, in.c[5].y);
+  reinterpret_cast<P*>(u)[p] = v;
+}
+
+// K1: the fill of K3 on a staged block, then the red-black update of the
+// filled block, one warp per box and two adjacent interior cells per
+// lane; NC > 0 is a compile-time nc, NC == 0 takes nc_rt.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kFillWarps * 32)
+    fill_sweep_2d_kernel(const T* __restrict__ phi3, const T* __restrict__ R,
+                         const float* __restrict__ mask,
+                         const T* __restrict__ A, const int* __restrict__ g,
+                         const T* __restrict__ W, const T* __restrict__ cs,
+                         T* __restrict__ out, int n, int nc_rt) {
+  using P = typename Vec2<T>::type;
+  // cell pairs per lane with a compile-time nc (one at nc = 8)
+  constexpr int kPairs = NC > 0 ? (NC * NC / 2 + 31) / 32 : 1;
+  const int nc = NC > 0 ? NC : nc_rt;
+  const int C = nc + 2;
+  const int CC = C * C;
+  const int S = nc * nc;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long b = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= n) return;  // b is the same for the whole warp
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem) + warp * (CC + S);  // the block
+  T* u = s + CC;  // its updated interior cells
+
+  // with nc compiled in, the sweep's inputs load first: they do not
+  // depend on g, and are in flight while the fill waits for it
+  PairIn<T> in[kPairs];
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int p = lane + 32 * i;
+      if (p < S / 2) load_pair<T>(in[i], R, mask, cs, b, p, S);
+    }
+  }
+  stage_filled_block<T, NC, false>(s, phi3, A, g, W, b, lane, nc);
+
+  // every updated value from the filled block before any goes back into
+  // it: the mask is an input, so no cell is assumed left alone
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int p = lane + 32 * i;
+      if (p < S / 2) update_pair<T, NC>(u, s, in[i], p, nc);
+    }
+  } else {
+    for (int p = lane; p < S / 2; p += 32) {
+      PairIn<T> one;
+      load_pair<T>(one, R, mask, cs, b, p, S);
+      update_pair<T, NC>(u, s, one, p, nc);
+    }
+  }
+  __syncwarp();
+  for (int p = lane; p < S / 2; p += 32) {  // each lane its own pairs
+    int r, c;
+    div_nc<NC>(2 * p, nc, r, c);
+    const P v = reinterpret_cast<const P*>(u)[p];
+    T* x = s + (r + 1) * C + c + 1;
+    x[0] = v.x;
+    x[1] = v.y;
+  }
+  __syncwarp();
+  store_block(out + b * CC, s, lane, CC);
+}
+
+// Boxes (warps) per block of a warp-per-box kernel whose box takes
+// box_bytes of shared memory.
+inline int warps_for(size_t box_bytes) {
+  return kMaxFillSmem / box_bytes < (size_t)kFillWarps
+             ? (int)(kMaxFillSmem / box_bytes)
+             : kFillWarps;
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Launch K1: as K3, and R, cs and mask on 16-byte boundaries too; a box
+// takes its block and its interior in shared memory.
+template <typename T>
+int launch_fill_sweep(const T* phi3, const T* R, const float* mask,
+                      const T* A, const int* g, const T* W, const T* cs,
+                      T* out, int n, int nc, cudaStream_t stream) {
+  const size_t box_bytes =
+      ((size_t)(nc + 2) * (nc + 2) + (size_t)nc * nc) * sizeof(T);
+  if (nc < 2 || nc % 2 != 0 || box_bytes > kMaxFillSmem)
+    return (int)cudaErrorInvalidValue;
+  if (!(aligned16(phi3) && aligned16(out) && aligned16(R) && aligned16(cs) &&
+        aligned16(mask)))
+    return (int)cudaErrorMisalignedAddress;
+  const int warps = warps_for(box_bytes);
+  const unsigned blocks = (unsigned)((n + warps - 1) / warps);
+  const size_t smem = warps * box_bytes;
+  if (nc == 8) {
+    fill_sweep_2d_kernel<T, 8><<<blocks, warps * 32, smem, stream>>>(
+        phi3, R, mask, A, g, W, cs, out, n, nc);
+  } else {
+    fill_sweep_2d_kernel<T, 0><<<blocks, warps * 32, smem, stream>>>(
+        phi3, R, mask, A, g, W, cs, out, n, nc);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Launch K3 or K3-swap: nc even (a block is then a whole number of 16-byte
@@ -348,12 +505,9 @@ int launch_fill(const T* phi3, const T* A, const int* g, const T* W, T* out,
   const size_t box_bytes = (size_t)(nc + 2) * (nc + 2) * sizeof(T);
   if (nc < 2 || nc % 2 != 0 || box_bytes > kMaxFillSmem)
     return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(phi3) | reinterpret_cast<uintptr_t>(out)) %
-          16 != 0)
+  if (!(aligned16(phi3) && aligned16(out)))
     return (int)cudaErrorMisalignedAddress;
-  const int warps = kMaxFillSmem / box_bytes < (size_t)kFillWarps
-                        ? (int)(kMaxFillSmem / box_bytes)
-                        : kFillWarps;
+  const int warps = warps_for(box_bytes);
   const unsigned blocks = (unsigned)((n + warps - 1) / warps);
   const size_t smem = warps * box_bytes;
   if (nc == 8) {
@@ -370,9 +524,6 @@ template <typename T>
 int launch(int mode, const void* phi3, const void* R, const void* mask,
            const void* A, const void* g, const void* W, const void* cs,
            void* out, int n, int nc, cudaStream_t stream) {
-  const long long total = (long long)n * (nc + 2) * (nc + 2);
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
   const T* p = static_cast<const T*>(phi3);
   const T* r = static_cast<const T*>(R);
   const float* m = static_cast<const float*>(mask);
@@ -382,11 +533,13 @@ int launch(int mode, const void* phi3, const void* R, const void* mask,
   const T* c = static_cast<const T*>(cs);
   T* o = static_cast<T*>(out);
   if (mode == kModeSweep) {
-    smoother_2d_kernel<T, kModeSweep>
-        <<<blocks, threads, 0, stream>>>(p, r, m, a, gi, w, c, o, n, nc);
+    const long long total = (long long)n * (nc + 2) * (nc + 2);
+    const int threads = 256;
+    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+    sweep_2d_kernel<T>
+        <<<blocks, threads, 0, stream>>>(p, r, m, gi, c, o, n, nc);
   } else if (mode == kModeFillSweep) {
-    smoother_2d_kernel<T, kModeFillSweep>
-        <<<blocks, threads, 0, stream>>>(p, r, m, a, gi, w, c, o, n, nc);
+    return launch_fill_sweep<T>(p, r, m, a, gi, w, c, o, n, nc, stream);
   } else if (mode == kModeFill) {
     return launch_fill<T, false>(p, a, gi, w, o, n, nc, stream);
   } else if (mode == kModeFillSwap) {

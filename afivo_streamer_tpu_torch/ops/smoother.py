@@ -54,6 +54,11 @@ KERNEL_SOURCES = {"afs_smoother_2d": _PKG / "csrc" / "smoother.cu",
 BUILD_DIR = _PKG / "build"
 
 _MODE_SWEEP, _MODE_FILL, _MODE_FILL_SWEEP, _MODE_FILL_SWAP = 0, 1, 2, 3
+#: the inputs each warp-per-box or block-per-box kernel reads in vectors
+#: of up to 16 bytes, by (ndim, mode)
+_VECTOR_INPUTS = {(2, _MODE_FILL): ("phi3",), (2, _MODE_FILL_SWAP): ("phi3",),
+                  (2, _MODE_FILL_SWEEP): ("phi3", "R", "mask", "cs"),
+                  (3, _MODE_FILL): ("phi3",)}
 
 
 # ---------------------------------------------------------------------------
@@ -165,10 +170,11 @@ def _launch(mode, ndim, phi3, R=None, mask=None, A=None, g=None, W=None,
         raise ValueError(f"phi3 must have {ndim + 1} dims, got "
                          f"{tuple(phi3.shape)}")
     n, nc = _check(phi3, R, mask, A, g, W, cs)
-    if (ndim == 2 and mode in (_MODE_FILL, _MODE_FILL_SWAP)
-            and phi3.data_ptr() % 16):
-        raise ValueError("the 2D fill reads phi3 in 16-byte vectors: its "
-                         "data must start on a 16-byte boundary")
+    vectors = {"phi3": phi3, "R": R, "mask": mask, "cs": cs}
+    for name in _VECTOR_INPUTS.get((ndim, mode), ()):
+        if vectors[name].data_ptr() % 16:
+            raise ValueError(f"the kernel reads {name} in vectors: its data "
+                             f"must start on a 16-byte boundary")
     out = torch.empty_like(phi3)
     stream = torch.cuda.current_stream(phi3.device).cuda_stream
     err = _library(f"afs_smoother_{ndim}d")(

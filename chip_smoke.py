@@ -26,9 +26,11 @@ failure exits non-zero):
    charge, and K3-swap launched;
 4. run the full-size 2D slice (uniform 512 x 512 cells, 5460 boxes,
    float64) through Simulation/run, counting the kernel launches, then
-   time K3 on its finest level (4096 boxes) with that level's own tables;
+   time K1 and K3 on its finest level (4096 boxes) with that level's own
+   tables and inputs, each held against its plain version there;
 5. run the full-size 3D slice (uniform 128^3 cells, 4680 boxes, float64,
-   10 steps) the same way;
+   10 steps) the same way, then time K5 on its finest level (4096
+   boxes);
 6. run the dielectric slice at the card's size (uniform level 6 and
    refinement to level 8 around the seed and in the regions, live, 20
    steps) the same way, with the time of each refinement epoch and of the
@@ -79,6 +81,9 @@ PATH_KERNELS = {2: ("fill_sweep_2d", "sweep_2d", "fill_2d"),
                 3: ("sweep_3d", "fill_3d"),
                 "dielectric": ("fill_sweep_2d", "sweep_2d", "fill_2d",
                                "fill_2d_swap")}
+#: the kernels timed on the finest level of each full-size frozen slice
+#: (phases 4 and 5), with that level's own inputs
+LEVEL_KERNELS = {2: ("fill_sweep_2d", "fill_2d"), 3: ("fill_3d",)}
 #: the cuda-vs-cpu runs per dimension: refine_max_dx and a label
 SMALL = {2: (2.5e-4, "64x64"), 3: (5e-4, "32^3")}
 #: the dielectric slice: steps on the card and the CPU (phase 3c), and the
@@ -330,20 +335,26 @@ def phase_kernels(torch, ks, smi):
 
 
 def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi):
-    """The fill ``name`` held against its plain version and timed on level
-    ``lvl`` of the simulation's field solve, with the phi3, A, g and W a
-    V-cycle hands it there; after the run's launch counts were read."""
+    """The kernel ``name`` held against its plain version and timed on
+    level ``lvl`` of the simulation's field solve, with what a V-cycle
+    hands it there: the level's blocks phi3, ghost constants A and tables
+    g and W, and for a sweep its rhs R, stencil cs and the mask of the
+    second half sweep (the first that K1 does); after the run's launch
+    counts were read."""
     mg = sim.field.mg
-    P, _ = mgb.gather_levels(mg, sim.cc)
+    P, R = mgb.gather_levels(mg, sim.cc)
     sm = mg.smoother(lvl)
     dtype = P[0].dtype
     A = mgb.build_A_blocks(mg, lvl, P[lvl - 2] if lvl > 1 else None,
                            {"voltage": sim.field.current_voltage}, dtype)
     x = {"phi3": P[lvl - 1], "A": A, "g": sm.g, "W": sm.W(dtype)}
+    if "sweep" in name:
+        x.update(R=R[lvl - 1], cs=mg.cs(lvl, dtype),
+                 mask=mg.parity_masks(2)[1])
     _, err_text = check_against_plain(torch, ks, name, x)
     r = measure(torch, ks, name, x, smi)
     log(f"phase {phase}: {name} on level {lvl} ({x['phi3'].shape[0]} boxes,"
-        f" the level's own g, W and A): {err_text}; {r['text']}")
+        f" the level's own tables and inputs): {err_text}; {r['text']}")
 
 
 def slice_argv(out, ndim, refine_max_dx, device):
@@ -601,8 +612,8 @@ def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim, smi):
                     reps=10)
     log(f"phase {phase}: {vc_ms:.3f} ms per V-cycle ({sim.tree.highest_lvl} "
         f"levels, float64)")
-    if ndim == 2:
-        time_on_level(torch, ks, mgb, sim, "fill_2d", sim.tree.highest_lvl,
+    for name in LEVEL_KERNELS[ndim]:
+        time_on_level(torch, ks, mgb, sim, name, sim.tree.highest_lvl,
                       phase, smi)
     return launches
 

@@ -6,9 +6,10 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 
 * each CUDA smoother kernel (K1-K3 and K3-swap in 2D, K4-K5 in 3D)
   against its plain PyTorch version on the same inputs, float64 and
-  float32; the 2D fill (K3, K3-swap) besides at n in {1, 3, 33, 4096}
-  and nc in {2, 4, 8, 16}, with neighbor rows that are the box's own,
-  and its refusal of a misaligned block array;
+  float32; the kernels that stage a box in shared memory (K1, K3,
+  K3-swap, K5) besides at n in {1, 3, 33, 4096} and nc in {2, 4, 8, 16},
+  with neighbor rows that are the box's own, K1 with a mask that is no
+  checkerboard, and their refusal of a misaligned input;
 * the 2D and 3D slices, and the dielectric slice with live refinement, on
   the card against the same slices on the CPU (plain kernels).
 """
@@ -32,7 +33,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def inputs(n, nc, dtype, device, seed=7, ndim=2):
+def inputs(n, nc, dtype, device, seed=7, ndim=2, sweep=True):
+    """Random inputs of every kernel (without R and cs unless ``sweep``)."""
     gen = torch.Generator().manual_seed(seed)
     C = nc + 2
     nd = 2 * ndim
@@ -40,22 +42,27 @@ def inputs(n, nc, dtype, device, seed=7, ndim=2):
     g = torch.empty((n, 1 + nd), dtype=torch.int32)
     g[:, 0] = torch.randperm(n, generator=gen).to(torch.int32)
     g[:, 1:] = torch.randint(0, n, (n, nd), generator=gen, dtype=torch.int32)
-    cs = torch.randn((n, 2 + nd) + cube, generator=gen, dtype=torch.float64)
-    cs[:, 0] = -1.0 - torch.rand((n,) + cube, generator=gen,
-                                 dtype=torch.float64)
     idx = torch.arange(1, nc + 1)
     parity = sum(torch.meshgrid(*[idx] * ndim, indexing="ij"))
     x = {"phi3": torch.randn((n,) + (C,) * ndim, generator=gen,
                              dtype=torch.float64),
-         "R": torch.randn((n,) + cube, generator=gen, dtype=torch.float64),
          "A": torch.randn((n, nd) + (nc,) * (ndim - 1), generator=gen,
                           dtype=torch.float64),
-         "W": torch.randn(n, nd, 8, generator=gen, dtype=torch.float64),
-         "cs": cs}
+         "W": torch.randn(n, nd, 8, generator=gen, dtype=torch.float64)}
+    if sweep:
+        x["R"] = torch.randn((n,) + cube, generator=gen, dtype=torch.float64)
+        x["cs"] = torch.randn((n, 2 + nd) + cube, generator=gen,
+                              dtype=torch.float64)
+        x["cs"][:, 0] = -1.0 - torch.rand((n,) + cube, generator=gen,
+                                          dtype=torch.float64)
     x = {k: v.to(dtype) for k, v in x.items()}
     x["g"] = g
     x["mask"] = ((parity % 2) == 0).to(torch.float32)
     return {k: v.to(device).contiguous() for k, v in x.items()}
+
+
+def ndim_of(name):
+    return int(re.search(r"_(\d)d", name).group(1))
 
 
 def call(fn, x, name):
@@ -73,8 +80,7 @@ def call(fn, x, name):
 def test_cuda_kernel_matches_plain(name, dtype, cuda):
     """Tolerance: float64 1e-12, float32 2e-5 (the kernel may fuse a
     multiply-add where the plain version rounds twice)."""
-    x = inputs(512, 8, dtype, cuda,
-               ndim=int(re.search(r"_(\d)d", name).group(1)))
+    x = inputs(512, 8, dtype, cuda, ndim=ndim_of(name))
     want = call(ks.PLAIN[name], x, name)
     before = ks.KERNELS[name].launches
     got = call(ks.KERNELS[name], x, name)
@@ -84,20 +90,31 @@ def test_cuda_kernel_matches_plain(name, dtype, cuda):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
-def fill_inputs(n, nc, dtype, device, self_rows=0.25, seed=11,
+def fill_inputs(name, n, nc, dtype, device, self_rows=0.25, seed=11,
                 own="permuted"):
-    """Blocks, ghost constants and weights (all 8 columns nonzero) and a
-    neighbor table with permuted own rows (or with ``own="identity"`` the
-    box's index, as on every level the V-cycle builds) and a share
-    ``self_rows`` of neighbor rows that point at the box's own row."""
-    x = inputs(n, nc, dtype, "cpu", seed=seed)
+    """The inputs of kernel ``name``: blocks, ghost constants and weights
+    (all 8 columns nonzero), a neighbor table with permuted own rows (or
+    with ``own="identity"`` the box's index, as on every level the V-cycle
+    builds) and a share ``self_rows`` of neighbor rows that point at the
+    box's own row, and for K1 the sweep's R, cs and checkerboard mask."""
+    ndim = ndim_of(name)
+    x = inputs(n, nc, dtype, "cpu", seed=seed, ndim=ndim,
+               sweep=name == "fill_sweep_2d")
     gen = torch.Generator().manual_seed(seed + 1)
     g = x["g"]
+    nd = 2 * ndim
     if own == "identity":
         g[:, 0] = torch.arange(n, dtype=torch.int32)
-    selfs = torch.rand((n, 4), generator=gen) < self_rows
-    g[:, 1:][selfs] = g[:, :1].expand(n, 4)[selfs]
-    return {k: x[k].to(device) for k in ("phi3", "A", "g", "W")}
+    selfs = torch.rand((n, nd), generator=gen) < self_rows
+    g[:, 1:][selfs] = g[:, :1].expand(n, nd)[selfs]
+    return {k: v.to(device) for k, v in x.items()}
+
+
+#: the kernels that stage each box in shared memory, and their float32
+#: tolerance (a fused multiply-add rounds once where the plain version
+#: rounds twice; K1's sweep divides as well)
+STAGED = {"fill_2d": 1e-5, "fill_2d_swap": 1e-5, "fill_3d": 1e-5,
+          "fill_sweep_2d": 2e-5}
 
 
 @pytest.mark.gpu
@@ -105,14 +122,15 @@ def fill_inputs(n, nc, dtype, device, self_rows=0.25, seed=11,
 @pytest.mark.parametrize("nc", [2, 4, 8, 16])
 @pytest.mark.parametrize("n", [1, 3, 33, 4096])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("name", ["fill_2d", "fill_2d_swap"])
+@pytest.mark.parametrize("name", list(STAGED))
 def test_cuda_fill_matches_plain(name, dtype, n, nc, own, cuda):
-    """The warp-per-box fill (nc = 8 compiled in, other nc at run time; n
-    leaves the last block of four boxes part empty; own rows permuted, so
-    the copy started before g is redone, or the box's index) against its
-    plain version: a new output, the input unchanged. Tolerance: float64
-    1e-12, float32 1e-5 (a fused multiply-add rounds once)."""
-    x = fill_inputs(n, nc, dtype, cuda, own=own)
+    """The kernels that stage a box in shared memory (nc = 8 compiled in,
+    other nc at run time; in 2D n leaves the last block of four boxes part
+    empty; own rows permuted, so the copy started before g is redone, or
+    the box's index) against their plain versions: a new output, the
+    input unchanged, one launch. Tolerance: float64 1e-12, float32
+    STAGED."""
+    x = fill_inputs(name, n, nc, dtype, cuda, own=own)
     before = x["phi3"].clone()
     want = call(ks.PLAIN[name], x, name)
     count = ks.KERNELS[name].launches
@@ -121,16 +139,36 @@ def test_cuda_fill_matches_plain(name, dtype, n, nc, own, cuda):
     assert ks.KERNELS[name].launches == count + 1
     assert got.data_ptr() != x["phi3"].data_ptr()
     assert torch.equal(x["phi3"], before)
-    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    tol = 1e-12 if dtype == torch.float64 else STAGED[name]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["fill_2d", "fill_2d_swap"])
+@pytest.mark.parametrize("nc", [4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_fill_sweep_with_random_mask(dtype, nc, cuda):
+    """K1 with a mask that is no checkerboard (neighbors of an updated
+    cell updated too): every new value comes from the filled block before
+    any is written back, as in the plain version."""
+    x = fill_inputs("fill_sweep_2d", 257, nc, dtype, cuda)
+    gen = torch.Generator().manual_seed(nc)
+    mask = (torch.rand((nc, nc), generator=gen) < 0.5).to(torch.float32)
+    idx = torch.arange(nc)
+    parity = (idx[:, None] + idx[None, :]) % 2
+    assert not any(torch.equal(mask, (parity == p).float()) for p in (0, 1))
+    x["mask"] = mask.to(cuda)
+    want = call(ks.PLAIN["fill_sweep_2d"], x, "fill_sweep_2d")
+    got = call(ks.KERNELS["fill_sweep_2d"], x, "fill_sweep_2d")
+    tol = 1e-12 if dtype == torch.float64 else STAGED["fill_sweep_2d"]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(STAGED))
 def test_cuda_fill_with_only_self_rows(name, cuda):
     """Every neighbor row is the box's own row (a level of one box, or
     boxes with physical boundaries on all sides)."""
-    x = fill_inputs(64, 8, torch.float64, cuda, self_rows=1.0)
+    x = fill_inputs(name, 64, 8, torch.float64, cuda, self_rows=1.0)
     want = call(ks.PLAIN[name], x, name)
     got = call(ks.KERNELS[name], x, name)
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
@@ -139,17 +177,23 @@ def test_cuda_fill_with_only_self_rows(name, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_cuda_fill_refuses_misaligned_blocks(dtype, cuda):
-    """The fill reads phi3 in 16-byte vectors: a view that starts one
-    element into its storage is refused before any launch."""
-    x = fill_inputs(8, 8, dtype, cuda)
-    flat = torch.empty(x["phi3"].numel() + 1, dtype=dtype, device=cuda)
-    view = flat[1:].view_as(x["phi3"])
-    view.copy_(x["phi3"])
-    counts = (ks.fill_2d.launches, ks.fill_2d_swap.launches)
-    for fn in (ks.fill_2d, ks.fill_2d_swap):
-        with pytest.raises(ValueError, match="16-byte"):
-            fn(view, x["A"], x["g"], x["W"])
-    assert (ks.fill_2d.launches, ks.fill_2d_swap.launches) == counts
+    """The staged kernels read phi3 (K1 also R, cs and the mask) in
+    vectors: a view that starts one element into its storage is refused
+    before any launch."""
+    def misaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view_as(t)
+        view.copy_(t)
+        return view
+    counts = {name: ks.KERNELS[name].launches for name in STAGED}
+    for name in STAGED:
+        x = fill_inputs(name, 8, 8, dtype, cuda)
+        for key in (("phi3", "R", "cs", "mask") if name == "fill_sweep_2d"
+                    else ("phi3",)):
+            y = dict(x, **{key: misaligned(x[key])})
+            with pytest.raises(ValueError, match="16-byte"):
+                call(ks.KERNELS[name], y, name)
+    assert {name: ks.KERNELS[name].launches for name in STAGED} == counts
 
 
 @pytest.mark.gpu

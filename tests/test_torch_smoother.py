@@ -3,7 +3,8 @@
 
 On the CPU the wrappers run their plain PyTorch versions; those are held
 against the JAX package's Pallas kernels run in interpret mode, on random
-non-symmetric inputs (n = 6 boxes, nc = 8; in 3D random face weights and
+non-symmetric inputs (n = 6 boxes, nc = 8, and for K1 and K5 also n = 5
+at nc = 4 and 16, and K1 with a random mask; in 3D random face weights and
 constants per face, so an axis swap fails; all 8 ghost-weight columns
 nonzero, so K3 must ignore the parity-swap columns 3-4 and K3-swap must
 use them), float64, rtol 1e-13. The CUDA kernels are held against the
@@ -93,22 +94,25 @@ def _grid_pallas_call(kernel, grid_spec, out_shape, interpret=False):
 
 
 def jax_call(name, x):
+    """The Pallas kernel ``name`` in interpret mode on the inputs ``x``
+    (n boxes and nc from the shape of phi3)."""
     a = {k: jnp.asarray(v) for k, v in x.items()}
+    n, nc = x["phi3"].shape[0], x["phi3"].shape[-1] - 2
     if name == "sweep_3d":
         out = ps._sweep_3d(a["phi3"], a["R"], a["mask"], a["g"], a["cs"],
-                           NC, N, interpret=True)
+                           nc, n, interpret=True)
     elif name == "fill_3d":
-        out = ps._fill_3d(a["phi3"], a["A"], a["g"], a["W"], NC, N,
+        out = ps._fill_3d(a["phi3"], a["A"], a["g"], a["W"], nc, n,
                           interpret=True)
     elif name == "sweep_2d":
         out = ps._sweep_2d(a["phi3"], a["R"], a["mask"], a["g"], a["cs"],
-                           NC, N, interpret=True)
+                           nc, n, interpret=True)
     elif name in ("fill_2d", "fill_2d_swap"):
-        out = ps._fill_2d(a["phi3"], a["A"], a["g"], a["W"], NC, N,
+        out = ps._fill_2d(a["phi3"], a["A"], a["g"], a["W"], nc, n,
                           name == "fill_2d_swap", interpret=True)
     else:
         out = ps._fill_sweep_2d(a["phi3"], a["R"], a["mask"], a["A"],
-                                a["g"], a["W"], a["cs"], NC, N,
+                                a["g"], a["W"], a["cs"], nc, n,
                                 interpret=True)
     return np.asarray(out)
 
@@ -138,6 +142,33 @@ def test_plain_kernel_matches_pallas_interpret(name, monkeypatch):
         monkeypatch.setattr(ps.pl, "pallas_call", _grid_pallas_call)
     want = jax_call(name, x)
     got = torch_call(ks.KERNELS[name], x)  # CPU tensors -> plain version
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("nc", [4, 16])
+@pytest.mark.parametrize("name", ["fill_sweep_2d", "fill_3d"])
+def test_plain_kernel_matches_pallas_interpret_other_sizes(name, nc):
+    """K1 and K5 at n = 5 boxes and nc = 4, 16: their CUDA kernels compile
+    nc = 8 in and take any other even nc at run time, and the card tests
+    hold both against these plain versions."""
+    x = random_inputs(seed=SEEDS[name] + nc, n=5, nc=nc, ndim=ndim_of(name))
+    want = jax_call(name, x)
+    got = torch_call(ks.KERNELS[name], x)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
+
+
+@pytest.mark.parametrize("n, nc", [(6, 8), (5, 4)])
+def test_fill_sweep_2d_random_mask_matches_pallas_interpret(n, nc):
+    """K1 with a random mask that is no checkerboard: an updated cell may
+    have updated neighbors, which must still enter with their filled
+    values."""
+    x = random_inputs(seed=9 + nc, n=n, nc=nc)
+    rng = np.random.default_rng(nc)
+    x["mask"] = (rng.random((nc, nc)) < 0.5).astype(np.float32)
+    parity = np.add.outer(np.arange(nc), np.arange(nc)) % 2
+    assert not any(np.array_equal(x["mask"], (parity == p)) for p in (0, 1))
+    want = jax_call("fill_sweep_2d", x)
+    got = torch_call(ks.fill_sweep_2d, x)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-13)
 
 
