@@ -7,6 +7,9 @@ the main loop (``:177-415``) with output cadence, step rejection and retry
 (up to 10 attempts), and a refinement epoch every ``refine_per_steps``
 steps: restriction of the densities, the refinement criterion, the new
 mesh with prolongation into its new boxes, and a fresh field solve.
+Helmholtz photoionization (physics/photoi.py) is updated every
+``photoi%per_steps`` steps before the advance and after every epoch that
+changed the mesh.
 
 Dielectrics (``use_dielectric``) add the permittivity variable, the
 surfaces on its jumps and their charge (solvers/surface.py,
@@ -40,6 +43,7 @@ from .physics.fluid import FluidModel, FluidIndices
 from .physics.gas import Gas
 from .physics.init_cond import InitCond
 from .physics.model import Model
+from .physics.photoi import Photoionization
 from .physics.refine import RefineCriterion, RefineSettings
 from .physics.streamer import (Registry, StreamerSettings,
                                bc_species_neumann_zero,
@@ -71,7 +75,6 @@ def _refuse(cfg, user):
         ("gas%dynamics", False, "physics/gas_dynamics.py"),
         ("use_electrode", False, "solvers/lsf.py (electrodes)"),
         ("plasma_region_enabled", False, "physics/fluid.py plasma region"),
-        ("photoi%enabled", False, "physics/photoi.py"),
         ("compiled%enabled", False, "parallel/compiled.py"),
     ]
     for key, default, module in checks:
@@ -205,6 +208,17 @@ class Simulation:
         reg.set_cc_methods(self.i_electric_fld, bc_species_neumann_zero,
                            rb=gc.RB_INTERP, prolong="linear")
 
+        # ---- photoionization (registers photo and the Helmholtz modes)
+        self.photoi = Photoionization(cfg, self.mesh, reg, self.gas, self.td,
+                                      self.chem, self.i_rhs, self.i_electron,
+                                      self.i_electric_fld)
+        if self.photoi.enabled:
+            self.photoi.species_cc = self.species_cc[
+                self.photoi.species_index]
+            if self.photoi.source_type == "from_species":
+                self.photoi.i_excited_cc = self.species_cc[
+                    self.chem.species_index(self.photoi.excited_species)]
+
         # ---- storage (grown with the mesh, _sync_capacity)
         batch = BoxBatch(self.tree, reg.n_cc, reg.n_fc,
                          capacity(self.tree.highest_id), self.dtype,
@@ -230,7 +244,9 @@ class Simulation:
             i_electric_fld=self.i_electric_fld, fc_E=self.fc_E,
             flux_species=self.flux_species, flux_fc=self.fc_flux,
             flux_charge_sign=np.asarray(self.flux_charge_sign, np.float64),
-            all_densities=self.all_densities, species_cc=self.species_cc)
+            all_densities=self.all_densities, species_cc=self.species_cc,
+            i_photo=self.photoi.i_photo,
+            photoi_species_cc=self.photoi.species_cc)
         self.fluid = FluidModel(self.mesh, idx, self.chem, self.td, self.gas,
                                 self.bc_species, self.dt_cfg,
                                 prolong_limiter=pr.default_prolong_limiter(
@@ -251,6 +267,7 @@ class Simulation:
         self.global_JdotE = 0.0
         self.global_JdotE_current = 0.0
         self.global_displ_current = 0.0
+        self._photoi_prev_time = 0.0
         self.refine_prepulse_time = cfg.add_get(
             "refine_prepulse_time", 1.0e-9,
             "Start refining electrode some time before the next pulse")
@@ -381,6 +398,14 @@ class Simulation:
             gc.fill_ghosts_lvl(self.cc, self.mesh.gc(lvl), self.all_densities,
                                gc.RB_INTERP_LIM, self.bc_species)
 
+    def _photoi_set_src(self, time: float):
+        """The photoionization source for the state at ``time``
+        (streamer.f90:236-242)."""
+        self.cc = self.photoi.set_src(
+            self.cc, time - self._photoi_prev_time,
+            {"voltage": self.field.current_voltage})
+        self._photoi_prev_time = time
+
     # -------------------------------------------------------- main loop
     def _substep(self, cc, fc, dt, dt_lim, time, s_deriv, s_prev, w_prev,
                  s_out, i_step, n_steps, params):
@@ -437,6 +462,10 @@ class Simulation:
             start_of_new_pulse = dt >= time_until_next_pulse
             if start_of_new_pulse:
                 dt = max(time_until_next_pulse, self.dt_cfg.dt_min)
+
+            # photoionization update (streamer.f90:236-242)
+            if self.photoi.enabled and self.it % self.photoi.per_steps == 0:
+                self._photoi_set_src(time)
 
             # attempt loop with state copy/rejection (streamer.f90:251-288)
             params = {"voltage": self.field.current_voltage}
@@ -521,6 +550,8 @@ class Simulation:
                 if info.n_add > 0 or info.n_rm > 0:
                     self.cc, self.fc = self.field.compute(
                         self.cc, self.fc, 0, time, True)
+                    if self.photoi.enabled:
+                        self._photoi_set_src(time)
 
         self.output.status(self, _time.time() - t_start)
         return out_cnt

@@ -1,7 +1,8 @@
 """State exchange with NumPy arrays in the JAX package's layout.
 
 ``state_from_numpy`` loads a state (``cc``/``fc`` arrays, the tree
-topology, the step counter and the times, and with dielectrics the
+topology, the step counter and the times (that of the last
+photoionization update among them), and with dielectrics the
 surfaces and their per-surface data arrays) into a port ``Simulation``
 built from the same configuration; ``state_to_numpy`` gives the port's
 state back in the same form and ``surface_data`` the surface state in the
@@ -52,7 +53,7 @@ def state_from_numpy(sim, cc: np.ndarray, fc: np.ndarray,
                      tree: Optional[Dict[str, np.ndarray]] = None,
                      it: int = 0, global_time: float = 0.0,
                      global_dt: Optional[float] = None,
-                     surfaces=None) -> None:
+                     surfaces=None, photoi_prev_time: float = 0.0) -> None:
     """Load a NumPy state into ``sim`` (in place).
 
     ``cc``/``fc`` hold at least the rows of the boxes of the mesh;
@@ -60,7 +61,8 @@ def state_from_numpy(sim, cc: np.ndarray, fc: np.ndarray,
     ``surfaces`` (the JAX package's Surfaces: a ``surfaces`` list whose
     entries carry ``sd`` [photon flux, sigma states...] arrays) replaces
     ``sim``'s surfaces, and the data of the active ones goes into their
-    state rows."""
+    state rows. ``photoi_prev_time`` is the time of the last
+    photoionization update (the JAX Simulation's ``_photoi_prev_time``)."""
     if tree is not None:
         own = tree_arrays(sim.tree)
         if any(not np.array_equal(np.asarray(tree[k]), own[k])
@@ -98,6 +100,7 @@ def state_from_numpy(sim, cc: np.ndarray, fc: np.ndarray,
     sim.global_time = float(global_time)
     if global_dt is not None:
         sim.global_dt = float(global_dt)
+    sim._photoi_prev_time = float(photoi_prev_time)
 
 
 def surface_data(sim) -> Dict[int, np.ndarray]:
@@ -116,4 +119,5 @@ def state_to_numpy(sim) -> Dict:
     return {"cc": sim.cc.cpu().numpy(), "fc": sim.fc.cpu().numpy(),
             "tree": tree_arrays(sim.tree), "it": sim.it,
             "global_time": sim.global_time, "global_dt": sim.global_dt,
+            "photoi_prev_time": sim._photoi_prev_time,
             "surfaces": surface_data(sim)}

@@ -366,6 +366,8 @@ class FluidIndices:
     flux_charge_sign: np.ndarray
     all_densities: List[int]     # cc base indices of all evolving densities
     species_cc: List[int]        # cc index per chemistry species
+    i_photo: int = -1            # photoionization source, -1 when off
+    photoi_species_cc: int = -1  # the species it ionizes
 
 
 class FluidModel:
@@ -595,6 +597,13 @@ class FluidModel:
                 total_rates = total_rates + (full * vol[:, :, None]).sum(
                     dim=(0, 1))
                 total_JdotE = total_JdotE + self._sum_JdotE(fc, leaves, vol)
+
+            # photoionization source
+            if idx.i_photo >= 0:
+                photo = ro.cc_get_interior(cc, idx.i_photo, leaves, nc, ndim)
+                derivs[:, :, idx.species_cc.index(idx.i_electron)] += photo
+                derivs[:, :, idx.species_cc.index(
+                    idx.photoi_species_cc)] += photo
 
             # apply source terms (plasma species only)
             for spi, s_cc in enumerate(idx.species_cc):

@@ -23,7 +23,12 @@ failure exits non-zero):
    same for the 3D slice config at 32^3 cells; 3c. the dielectric slice
    with live refinement (52,480 cells on 6 levels) for 8 steps: the same
    mesh at every refinement epoch, the densities, phi and the surface
-   charge, and K3-swap launched;
+   charge, and K3-swap launched; 3d, 3e. the cylindrical and the 3D slice
+   with live refinement and Helmholtz photoionization (16,960 cells on 6
+   levels for 8 steps; 219,136 cells on 4 levels for 6 steps;
+   photoionization every 2 steps): the same mesh at every epoch, one of
+   which removes boxes, the same FMG cycle count of every Helmholtz mode
+   at every update, and every variable;
 4. run the full-size 2D slice (uniform 512 x 512 cells, 5460 boxes,
    float64) through Simulation/run, counting the kernel launches, then
    time K1 and K3 on its finest level (4096 boxes) with that level's own
@@ -35,11 +40,27 @@ failure exits non-zero):
    refinement to level 8 around the seed and in the regions, live, 20
    steps) the same way, with the time of each refinement epoch and of the
    host plan rebuilds, and the device busy share of two more steps, then
-   time K3-swap on its largest level that runs it.
+   time K3-swap on its largest level that runs it;
+7. the main path at full size: the cylindrical slice with live refinement
+   (a uniform level 6, 262,144 cells, refined to level 8 around the seed
+   and in a region that expires) and Helmholtz photoionization every 5
+   steps, 20 steps, with the time of each step, refinement epoch and
+   photoionization update, the FMG cycles of each mode, the launches of
+   each kernel in the run and inside the updates, the V-cycle time of the
+   field solve and of a Helmholtz mode, and the device busy share; then
+   (2b) K1, K2 and K3 held against their plain versions and timed on the
+   finest and on the largest level of the Helmholtz mode with the largest
+   lambda, with that mode's own stencil, ghost weights and inputs;
+8. the 3D slice with live refinement (a uniform level 4, 128^3 cells,
+   refined to level 6) and photoionization, 10 steps, the same way, then
+   (2b) K4 and K5 on the finest and the largest level of that mode.
 
 The launch counts are set to 0 just before each full-size run and read
 just after it. The line before the last is a JSON object with one entry
-per kernel (``ms`` and ``plain_ms`` are the cold float64 device times);
+per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
+``launches`` is the count of the main path's run, phase 7 for the 2D
+kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
+``launches_by_phase`` holds every full-size run's);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,6 +113,16 @@ DIELECTRIC_SMALL_STEPS = 8
 DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
                     "-refine_regions_dr=7.8125e-6 7.8125e-6",
                     "-refine_min_dx=4e-6"], 20)
+#: the slices with live refinement and photoionization per dimension:
+#: config, steps of the cuda-vs-cpu run (phases 3d, 3e; photoionization
+#: every 2 steps there), and at the card's size (phases 7, 8) the
+#: overrides, the steps and the least leaf cells (the frozen slice's)
+AMR_CFG = {2: DATA / "air_cyl_amr_slice.cfg", 3: DATA / "air_3d_amr_slice.cfg"}
+AMR_SMALL_STEPS = {2: 8, 3: 6}
+AMR_FULL = {2: (["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
+                 "-refine_regions_dr=7.8125e-6"], 20, 512 ** 2),
+            3: (["-refine_max_dx=1.25e-4", "-refine_min_dx=3.125e-5",
+                 "-refine_regions_dr=3.125e-5"], 10, 128 ** 3)}
 BACKGROUND_FIELD = 1.8e6  # V/m, the configs' field_given_by
 #: the H100 SXM's device memory rate and its peak rates outside the tensor
 #: cores (NVIDIA's data sheet, at the full 700 W), for the kernels' bounds
@@ -101,7 +132,8 @@ PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
 #: hold at least this many bytes (four times the 50 MB L2), and at least
 #: this many copies
 COLD_BYTES, COLD_MIN_SETS = 200e6, 8
-#: spin kernels that open and close each profiled window (see device_us)
+#: spin kernels that open and close each profiled window, doubled with
+#: every retry (see device_us)
 PAD_SPINS = 8
 #: why no PyTorch call serves as a kernel's yardstick (library_ms is null)
 NO_LIBRARY_CALL = {
@@ -176,22 +208,25 @@ def device_us(torch, fns, reps=20, tries=10):
     drops events from a trace at times (after a long trace, the first few
     of every later one): PAD_SPINS spin kernels before and after the calls
     take that loss and are not counted. A trace that still holds less than
-    three quarters of the launches so counted is taken again, up to
-    ``tries`` times (empty traces come in runs of up to three)."""
+    three quarters of the launches so counted is taken again with twice
+    the spin kernels (after the long trace of a 3D step the loss was 17
+    events in every try), up to ``tries`` times (empty traces come in runs
+    of up to three)."""
     from torch.profiler import ProfilerActivity, profile
     for fn in fns:
         fn()
     torch.cuda.synchronize()
     reps = max(reps, len(fns))
     cuda = torch.autograd.DeviceType.CUDA
-    for _ in range(tries):
+    for attempt in range(tries):
+        pads = PAD_SPINS << min(attempt, 6)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(PAD_SPINS):
+            for _ in range(pads):
                 torch.cuda._sleep(1000)
             for i in range(reps):
                 fns[i % len(fns)]()
-            for _ in range(PAD_SPINS):
+            for _ in range(pads):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         dev = [e for e in prof.key_averages()
@@ -334,14 +369,15 @@ def phase_kernels(torch, ks, smi):
     return results
 
 
-def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi):
+def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi, mg=None,
+                  what="the field solve"):
     """The kernel ``name`` held against its plain version and timed on
-    level ``lvl`` of the simulation's field solve, with what a V-cycle
-    hands it there: the level's blocks phi3, ghost constants A and tables
-    g and W, and for a sweep its rhs R, stencil cs and the mask of the
-    second half sweep (the first that K1 does); after the run's launch
-    counts were read."""
-    mg = sim.field.mg
+    level ``lvl`` of the multigrid ``mg`` (the simulation's field solve by
+    default), with what a V-cycle hands it there: the level's blocks phi3,
+    ghost constants A and tables g and W, and for a sweep its rhs R,
+    stencil cs and the mask of the second half sweep (the first that K1
+    does); after the run's launch counts were read."""
+    mg = mg or sim.field.mg
     P, R = mgb.gather_levels(mg, sim.cc)
     sm = mg.smoother(lvl)
     dtype = P[0].dtype
@@ -353,8 +389,9 @@ def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi):
                  mask=mg.parity_masks(2)[1])
     _, err_text = check_against_plain(torch, ks, name, x)
     r = measure(torch, ks, name, x, smi)
-    log(f"phase {phase}: {name} on level {lvl} ({x['phi3'].shape[0]} boxes,"
-        f" the level's own tables and inputs): {err_text}; {r['text']}")
+    log(f"phase {phase}: {name} on level {lvl} of {what} "
+        f"({x['phi3'].shape[0]} boxes, the level's own tables and inputs): "
+        f"{err_text}; {r['text']}")
 
 
 def slice_argv(out, ndim, refine_max_dx, device):
@@ -534,6 +571,212 @@ def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir, smi):
     return launches
 
 
+def amr_argv(out, ndim, device, extra=()):
+    return [str(AMR_CFG[ndim]), f"-ndim={ndim}", f"-input_data%file={TABLE}",
+            f"-output%name={out}", f"-device={device}", *extra]
+
+
+def record_photoi(sim, ks, updates, torch):
+    """Record each photoionization update of ``sim``: the step, the FMG
+    cycles of each mode, its seconds (synchronised), the seconds of host
+    plan building among them (the first update builds the modes' tables
+    and dense level-1 inverses, an update after a changing epoch those of
+    the changed levels) and the kernel launches inside it."""
+    orig = sim.photoi.set_src
+
+    def wrapped(cc, dt=None, params=None):
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize()
+        before = {k: fn.launches for k, fn in ks.KERNELS.items()}
+        built = sim.mesh.build_seconds
+        t0 = time.perf_counter()
+        cc = orig(cc, dt, params)
+        if sim.device.type == "cuda":
+            torch.cuda.synchronize()
+        updates.append({
+            "it": sim.it, "cycles": list(sim.photoi.fmg_cycles),
+            "s": time.perf_counter() - t0,
+            "build_s": sim.mesh.build_seconds - built,
+            "launches": {k: fn.launches - before[k]
+                         for k, fn in ks.KERNELS.items()}})
+        return cc
+    sim.photoi.set_src = wrapped
+
+
+def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim):
+    """Phase 3d (cylindrical) and 3e (3D): the slice with live refinement
+    and photoionization every 2 steps on the card and on the CPU: the same
+    mesh at every epoch (one of them changing it), the same FMG cycle
+    counts of every mode at every update, and every variable but the
+    scratch one within rtol 1e-9 of its scale."""
+    phase = "3d" if ndim == 2 else "3e"
+    steps = AMR_SMALL_STEPS[ndim]
+    sims, epochs, updates = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        sim = Simulation(argv=amr_argv(out_dir / f"amr{ndim}d_{dev}", ndim,
+                                       dev, ["-photoi%per_steps=2"]))
+        epochs[dev] = [{"ids": [list(map(int, x)) for x in sim.tree.lvl_ids],
+                        "add": 0, "rm": 0, "s": 0.0}]
+        updates[dev] = []
+        record_epochs(sim, epochs[dev], torch)
+        record_photoi(sim, ks, updates[dev], torch)
+        sim.run(max_steps=steps)
+        sims[dev] = sim
+    if [e["ids"] for e in epochs["cpu"]] != [e["ids"] for e in epochs["cuda"]]:
+        raise RuntimeError(f"phase {phase}: the meshes differ")
+    changed = sum(1 for e in epochs["cpu"] if e["add"] or e["rm"])
+    cycles = {dev: [(u["it"], u["cycles"]) for u in updates[dev]]
+              for dev in updates}
+    if cycles["cpu"] != cycles["cuda"]:
+        raise RuntimeError(f"phase {phase}: the FMG cycle counts differ: "
+                           f"{cycles}")
+    a, b = sims["cpu"], sims["cuda"]
+    n = a.tree.highest_id
+    use = torch.as_tensor(a.tree.in_use[:n])
+    worst, worst_name = 0.0, ""
+    for iv, name in enumerate(a.registry.cc_names):
+        if iv == a.i_tmp:
+            continue
+        ref = a.cc[iv, :n][use]
+        got = b.cc[iv, :n].cpu()[use]
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        rel = err / scale if scale > 0 else err
+        if rel > worst:
+            worst, worst_name = rel, name
+    n_leaf = sum(len(l) for l in a.tree.lvl_leaves) * a.tree.nc ** ndim
+    log(f"phase {phase}: {AMR_CFG[ndim].name} cuda vs cpu, {steps} steps, "
+        f"{n_leaf} leaf cells at the end: same mesh at {len(epochs['cpu'])} "
+        f"epochs ({changed} changed it), {len(updates['cpu'])} "
+        f"photoionization updates with the same FMG cycles per mode "
+        f"{[c for _it, c in cycles['cpu']]}; worst scaled deviation "
+        f"{worst:.3e} ({worst_name}; limit 1e-9); max|photo| = "
+        f"{float(b.cc[b.photoi.i_photo, :n].abs().max()):.4e}")
+    if worst > 1e-9:
+        raise RuntimeError(f"phase {phase}: cuda vs cpu {worst} {worst_name}")
+    if changed < 1 or len(updates["cpu"]) < 2:
+        raise RuntimeError(f"phase {phase}: needs a changing epoch and two "
+                           f"photoionization updates")
+    if a.global_dt != b.global_dt and abs(a.global_dt / b.global_dt - 1) > 1e-9:
+        raise RuntimeError(f"phase {phase}: dt differs")
+
+
+def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi):
+    """Phase 7 (the main path: cylindrical) and 8 (3D): the slice with live
+    refinement and photoionization at the card's size; returns the launch
+    counts of the run's kernels. Then phase 2b: the run's kernels on the
+    finest level of the Helmholtz mode with the largest lambda."""
+    phase = "7" if ndim == 2 else "8"
+    extra, steps, min_cells = AMR_FULL[ndim]
+    names = PATH_KERNELS[ndim]
+    free_earlier_runs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ks.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(argv=amr_argv(out_dir / f"amr_full{ndim}d", ndim, "cuda",
+                                   extra))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup_launches = {k: ks.KERNELS[k].launches for k in names}
+    setup_build = sim.mesh.build_seconds
+    t = sim.tree
+    cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    boxes0 = [len(x) for x in t.lvl_ids]
+    epochs, updates = [], []
+    record_epochs(sim, epochs, torch)
+    record_photoi(sim, ks, updates, torch)
+    sim.run(max_steps=steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: ks.KERNELS[k].launches for k in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    per_lvl = [len(x) for x in t.lvl_ids]
+    changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
+    ms_step = 1e3 * (t2 - t1) / steps
+    log(f"phase {phase}: {AMR_CFG[ndim].name} {' '.join(extra)}: {cells0} "
+        f"leaf cells and boxes per level {boxes0} after setup, {n_leaf} and "
+        f"{per_lvl} ({sum(per_lvl)} boxes) after {steps} steps; setup "
+        f"{t1 - t0:.2f} s (plan building {setup_build:.2f} s); {steps} steps "
+        f"{t2 - t1:.2f} s = {ms_step:.2f} ms/step, of which the epochs "
+        f"{sum(e['s'] for e in epochs):.2f} s and the photoionization "
+        f"updates {sum(u['s'] for u in updates):.2f} s; t = "
+        f"{sim.global_time:.4e} s, dt = {sim.global_dt:.4e} s; peak memory "
+        f"{peak_gb:.3f} GB")
+    log(f"phase {phase}: {len(epochs)} refinement epochs, {len(changed)} "
+        f"changed the mesh (epochs {changed}, boxes added/removed "
+        f"{[(epochs[k]['add'], epochs[k]['rm']) for k in changed]}); seconds "
+        f"per epoch {[round(e['s'], 3) for e in epochs]}; host plan rebuilds "
+        f"in the run {sim.mesh.build_seconds - setup_build:.2f} s")
+    log(f"phase {phase}: {len(updates)} photoionization updates at steps "
+        f"{[u['it'] for u in updates]}: ms per update "
+        f"{[round(1e3 * u['s'], 1) for u in updates]}, of which host plan "
+        f"building {[round(1e3 * u['build_s'], 1) for u in updates]}, FMG "
+        f"cycles per mode "
+        f"{[u['cycles'] for u in updates]} (one host sync per cycle and "
+        f"mode), kernel launches per update "
+        f"{[{k: u['launches'][k] for k in names} for u in updates]}")
+    in_updates = {k: sum(u["launches"][k] for u in updates) for k in names}
+    log(f"phase {phase}: kernel launches {launches} (setup "
+        f"{setup_launches}); per step of the run "
+        + str({k: round((launches[k] - setup_launches[k]) / steps, 2)
+               for k in names})
+        + ", of which inside photoionization updates "
+        + str({k: round(in_updates[k] / steps, 2) for k in names}))
+    if min(cells0, n_leaf) < min_cells:
+        raise RuntimeError(f"fewer leaf cells than the frozen slice: "
+                           f"{cells0}, {n_leaf} < {min_cells}")
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"a kernel was not launched: {launches}")
+    if not changed or len(updates) < 2:
+        raise RuntimeError("needs a changing epoch and two photoionization "
+                           "updates")
+    n = t.highest_id
+    if not bool(torch.isfinite(sim.cc[:, :n]).all()) or \
+            not bool(torch.isfinite(sim.fc[:, :, :n]).all()):
+        raise RuntimeError("non-finite state after the run")
+    emax = float(sim.cc[sim.i_electric_fld, :n].max())
+    photo_max = float(sim.cc[sim.photoi.i_photo, :n].max())
+    log(f"phase {phase}: max(E) = {emax:.4e} V/m (background "
+        f"{BACKGROUND_FIELD:.2e}), max(photo) = {photo_max:.4e} 1/(m3 s)")
+    if not emax > BACKGROUND_FIELD or not photo_max > 0.0:
+        raise RuntimeError("max(E) did not rise above the background field "
+                           "or the photoionization source is empty")
+
+    # V-cycle times on the final state: the field solve, and the Helmholtz
+    # mode with the largest lambda on the photoionization source (set_src
+    # writes it into rhs; the field solve of the next step rewrites rhs)
+    params = {"voltage": sim.field.current_voltage}
+    mode = max(range(sim.photoi.n_modes), key=lambda k: sim.photoi.lambdas[k])
+    mg_h = sim.photoi.mgs[mode]
+    P, R = mgb.gather_levels(sim.field.mg, sim.cc)
+    vc_ms = time_ms(torch, lambda: mgb.fas_vcycle_blocks(sim.field.mg, P, R,
+                                                         params), reps=10)
+    sim.cc = sim.photoi.set_src(sim.cc, 0.0, params)
+    P, R = mgb.gather_levels(mg_h, sim.cc)
+    vc_h_ms = time_ms(torch, lambda: mgb.fas_vcycle_blocks(mg_h, P, R,
+                                                           params), reps=10)
+    fmg_h_ms = time_ms(torch, lambda: mgb.fas_fmg_blocks(mg_h, P, R, params),
+                       reps=5)
+    log(f"phase {phase}: {vc_ms:.3f} ms per V-cycle of the field solve, "
+        f"{vc_h_ms:.3f} ms per V-cycle and {fmg_h_ms:.3f} ms per FMG cycle "
+        f"of Helmholtz mode {mode + 1} (lambda = "
+        f"{sim.photoi.lambdas[mode]:.6g} 1/m; {t.highest_lvl} levels, "
+        f"float64)")
+    largest = max(range(1, t.highest_lvl + 1),
+                  key=lambda l: len(t.lvl_ids[l - 1]))
+    for lvl in sorted({t.highest_lvl, largest}, reverse=True):
+        lam2dx2 = (sim.photoi.lambdas[mode] * float(t.lvl_dr(lvl)[0])) ** 2
+        for name in names:
+            time_on_level(torch, ks, mgb, sim, name, lvl, "2b", smi, mg=mg_h,
+                          what=f"Helmholtz mode {mode + 1} of phase {phase} "
+                          f"(lambda^2 dx^2 = {lam2dx2:.4g})")
+    # last: the long trace of these steps makes the next traces lose events
+    log(f"phase {phase}: device busy share: "
+        f"{busy_share(torch, sim, ms_step)}")
+    return launches
+
+
 def busy_share(torch, sim, ms_per_step):
     """Device-kernel time per step of two more steps under torch.profiler
     over the unprofiled ms per step (the profiler slows the host), or 'not
@@ -656,17 +899,28 @@ def main():
     for ndim in (2, 3):
         phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim)
     phase_dielectric_cpu_vs_cuda(torch, ks, Simulation, out_dir)
-    launches = {}
     for ndim in (2, 3):
-        launches.update(phase_full_slice(torch, ks, Simulation, mgb,
-                                         out_dir, ndim, smi))
-    # K3-swap's count is that of the dielectric run, its main path
-    launches["fill_2d_swap"] = phase_dielectric_full(
-        torch, ks, Simulation, mgb, out_dir, smi)["fill_2d_swap"]
+        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim)
+    by_phase = {}
+    for ndim in (2, 3):
+        by_phase[str(2 + ndim)] = phase_full_slice(
+            torch, ks, Simulation, mgb, out_dir, ndim, smi)
+    by_phase["6"] = phase_dielectric_full(torch, ks, Simulation, mgb,
+                                          out_dir, smi)
+    for ndim in (2, 3):
+        by_phase[str(5 + ndim)] = phase_amr_full(
+            torch, ks, Simulation, mgb, out_dir, ndim, smi)
+    # each kernel's count is that of its main path: the cylindrical run
+    # with photoionization for K1-K3, the 3D one for K4 and K5, the
+    # dielectric run for K3-swap
+    launches = {**by_phase["7"], **by_phase["8"],
+                "fill_2d_swap": by_phase["6"]["fill_2d_swap"]}
 
     kernels = [{"name": name, "route": "cuda",
                 "source": SOURCE[ndim_of(name)],
                 "replaces": REPLACES[name], "launches": launches[name],
+                "launches_by_phase": {ph: c[name] for ph, c in
+                                      by_phase.items() if name in c},
                 "max_abs_err": results[name]["max_abs_err"],
                 "ms": 1e-3 * results[name]["cold_us"],
                 "plain_ms": 1e-3 * results[name]["plain_cold_us"],

@@ -10,8 +10,13 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
   K3-swap, K5) besides at n in {1, 3, 33, 4096} and nc in {2, 4, 8, 16},
   with neighbor rows that are the box's own, K1 with a mask that is no
   checkerboard, and their refusal of a misaligned input;
+* K1-K5 on every level of a Helmholtz multigrid (the photoionization
+  boundary set, the smallest and the largest Bourdon-3 lambda) with that
+  level's own stencil, ghost weights, ghost constants and blocks;
 * the 2D and 3D slices, and the dielectric slice with live refinement, on
-  the card against the same slices on the CPU (plain kernels).
+  the card against the same slices on the CPU (plain kernels); the
+  cylindrical and the 3D slice with live refinement and photoionization
+  the same way, with the FMG cycle counts.
 """
 
 import re
@@ -212,6 +217,72 @@ def test_cuda_wrapper_rejects_bad_arguments(cuda):
         ks.fill_3d(x3["phi3"], x3["A"], x3["g"], x3["W"].float())
 
 
+def helmholtz_level_inputs(ndim, lam, device):
+    """Per level of a Helmholtz multigrid (16 mm domain, 1 mm level-1
+    cells, refined twice over one corner; Dirichlet zero in the last
+    dimension, Neumann zero elsewhere; cylindrical in 2D) the inputs a
+    V-cycle hands the kernels: blocks of a random guess after one cycle,
+    a positive source, the level's A, g, W and cs."""
+    import numpy as np
+    from afivo_streamer_tpu_torch.core.levels import MeshPlans
+    from afivo_streamer_tpu_torch.core.tree import Tree, DO_REF, KEEP_REF
+    from afivo_streamer_tpu_torch.physics.photoi import helmh_bc
+    from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
+    from afivo_streamer_tpu_torch.solvers.multigrid import Multigrid
+    nc = 8
+    t = Tree(ndim, nc, [16e-3] * ndim, [16] * ndim,
+             coord="cyl" if ndim == 2 else "xyz")
+
+    def flags(ids):
+        out = np.full([len(ids)] + [nc] * ndim, KEEP_REF, np.int64)
+        for k, b in enumerate(ids):
+            r0 = t.box_r_min(np.asarray([int(b)]))[0]
+            if np.all(r0 < 3.2e-3) and t.lvl[int(b)] == t.highest_lvl:
+                out[k] = DO_REF
+        return out
+    for _ in range(2):
+        t.adjust_refinement(flags, ref_buffer=1)
+    mg = Multigrid(MeshPlans(t, device), 0, 1,
+                   lambda iv, d, c, p: helmh_bc(iv, d, c, p, ndim),
+                   helmholtz_lambda=lam ** 2)
+    gen = torch.Generator().manual_seed(ndim)
+    cc = torch.rand((2, t.highest_id, (nc + 2) ** ndim), generator=gen,
+                    dtype=torch.float64)
+    cc[0] *= 1e10
+    cc[1] *= 1e24
+    cc = mg.fill_ghosts_phi(cc.to(device), {})
+    cc, _res = mg.vcycle(cc, {})
+    P, R = mgb.gather_levels(mg, cc)
+    out = []
+    for lvl in range(1, t.highest_lvl + 1):
+        sm = mg.smoother(lvl)
+        A = mgb.build_A_blocks(mg, lvl, P[lvl - 2] if lvl > 1 else None, {},
+                               P[0].dtype)
+        out.append({"phi3": P[lvl - 1], "R": R[lvl - 1], "A": A, "g": sm.g,
+                    "W": sm.W(P[0].dtype), "cs": mg.cs(lvl, P[0].dtype),
+                    "mask": mg.parity_masks(2)[1]})
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lam", [4147.85 * 0.2, 66755.67 * 0.2],
+                         ids=["lambda-min", "lambda-max"])
+@pytest.mark.parametrize("name", ["fill_sweep_2d", "sweep_2d", "fill_2d",
+                                  "sweep_3d", "fill_3d"])
+def test_cuda_kernel_on_helmholtz_levels(name, lam, cuda):
+    """Each kernel against its plain version on every level of a Helmholtz
+    multigrid (lambda^2 dx^2 from 0.043 to 178), float64, to 1e-12 of the
+    blocks' scale."""
+    for x in helmholtz_level_inputs(ndim_of(name), lam, cuda):
+        want = call(ks.PLAIN[name], x, name)
+        count = ks.KERNELS[name].launches
+        got = call(ks.KERNELS[name], x, name)
+        torch.cuda.synchronize()
+        assert ks.KERNELS[name].launches == count + 1
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * scale)
+
+
 @pytest.mark.gpu
 def test_slice_cuda_matches_cpu(cuda, tmp_path):
     """The committed 2D slice at 32 x 32 cells, 2 steps: the state on the
@@ -246,15 +317,41 @@ def test_dielectric_slice_cuda_matches_cpu(cuda, tmp_path):
         assert (a == b).all()
 
 
-def slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=("-refine_max_dx=5e-4",)):
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg, ndim", [("air_cyl_amr_slice.cfg", 2),
+                                       ("air_3d_amr_slice.cfg", 3)])
+def test_photoi_slice_cuda_matches_cpu(cfg, ndim, cuda, tmp_path):
+    """The slices with live refinement and Helmholtz photoionization every
+    2 steps, 4 steps (the epoch after step 4 removes boxes): the same
+    mesh, the same FMG cycles per mode at every update, and the state on
+    the card as on the CPU, rtol 1e-9 per variable."""
+    cycles = ([], [])
+    sims = slice_cuda_vs_cpu(tmp_path, cfg, ndim, ["-photoi%per_steps=2"],
+                             steps=4, cycles=cycles)
+    assert len(cycles[0]) >= 3 and cycles[0] == cycles[1]
+    for a, b in zip(sims[0].tree.lvl_ids, sims[1].tree.lvl_ids):
+        assert (a == b).all()
+
+
+def slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=("-refine_max_dx=5e-4",),
+                      steps=2, cycles=None):
+    """Run ``cfg`` on the CPU and on the card and compare every variable;
+    ``cycles``, a pair of lists, takes the FMG cycle counts of every
+    photoionization update of the two runs."""
     from afivo_streamer_tpu_torch.driver import Simulation
     sims = []
-    for dev in ("cpu", "cuda"):
+    for k, dev in enumerate(("cpu", "cuda")):
         sim = Simulation(argv=[
             str(DATA / cfg), f"-ndim={ndim}", *extra,
             f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
             f"-output%name={tmp_path}/{dev}", f"-device={dev}"])
-        sim.run(max_steps=2)
+        if cycles is not None:
+            def set_src(*args, _sim=sim, _set=sim.photoi.set_src, _k=k):
+                cc = _set(*args)
+                cycles[_k].append(list(_sim.photoi.fmg_cycles))
+                return cc
+            sim.photoi.set_src = set_src
+        sim.run(max_steps=steps)
         sims.append(sim)
     n = sims[0].tree.highest_id
     for iv in range(sims[0].cc.shape[0]):

@@ -51,7 +51,8 @@ def test_device_cuda_without_card_raises(tmp_path):
 
 @pytest.mark.parametrize("extra, module", [
     (["-refine_electrode_dx=1e-4"], "physics/refine.py"),
-    (["-photoi%enabled=t"], "physics/photoi.py"),
+    (["-photoi%enabled=t", "-photoi%method=montecarlo"],
+     "physics/photoi_mc.py"),
     (["-use_electrode=t"], "solvers/lsf.py"),
     (["-model%type=ee53"], "physics/model.py"),
     (["-output%npz=t"], "io/output.py"),

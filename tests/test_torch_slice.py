@@ -6,7 +6,12 @@ the port (CPU, plain smoother kernels), float64. With live refinement:
 dielectric_2d_slice.cfg (a dielectric slab, 52,480 cells on 6 levels) for
 8 steps, with an epoch that removes boxes, and air_cyl_slice.cfg with the
 alpha*dx criterion and seed refinement on (11,392 cells on 6 levels) for
-6 steps; the same mesh at every refinement epoch.
+6 steps; the same mesh at every refinement epoch. With Helmholtz
+photoionization (updated every 2 steps and after a changing epoch):
+air_cyl_amr_slice.cfg (16,960 cells on 6 levels, an epoch that removes
+64 boxes), the same in Cartesian 2D, and air_3d_amr_slice.cfg in 3D
+(an epoch that removes boxes); the same FMG cycle count of every
+Helmholtz mode at every update.
 
 Tolerance rtol 1e-8 on every cc variable, with an absolute floor of 1e-8
 times the variable's largest magnitude (the FAS rhs of parent boxes is a
@@ -143,8 +148,11 @@ def test_heun_substeps_from_jax_state_3d(jax_3d_after_two_steps, tmp_path):
     heun_substeps_both(jax_3d_after_two_steps, tmp_path)
 
 
-def heun_substeps_both(j, tmp_path):
-    t = port_from(j, tmp_path)
+def heun_substeps_both(j, tmp_path, t=None):
+    """Both substeps in both packages from the state of ``j``; ``t`` is the
+    port's simulation holding that state (built from the slice's
+    configuration when not given)."""
+    t = t or port_from(j, tmp_path)
     n = j.tree.highest_id
     assert t.fc.shape[1] == j.ndim and t.fc.shape[3] == (j.tree.nc + 1) ** j.ndim
     np.testing.assert_array_equal(interop.state_to_numpy(t)["cc"][:, :n],
@@ -204,15 +212,51 @@ def record_epochs(sim, out):
     sim.adjust_refinement = wrapped
 
 
+def record_photoi(jsim, tsim, out):
+    """Record the FMG cycle count of every Helmholtz mode at every
+    photoionization update of both packages."""
+    counts = [0] * len(jsim.photoi.mgs)
+
+    def counted(n, fmg):
+        def wrapped(*args, **kwargs):
+            counts[n] += 1
+            return fmg(*args, **kwargs)
+        return wrapped
+    for n, mg in enumerate(jsim.photoi.mgs):
+        mg.fas_fmg = counted(n, mg.fas_fmg)
+    j_set, t_set = jsim.photoi.set_src, tsim.photoi.set_src
+
+    def j_wrapped(*args, **kwargs):
+        counts[:] = [0] * len(counts)
+        cc = j_set(*args, **kwargs)
+        out["j"].append((jsim.it, list(counts)))
+        return cc
+
+    def t_wrapped(*args, **kwargs):
+        cc = t_set(*args, **kwargs)
+        out["t"].append((tsim.it, list(tsim.photoi.fmg_cycles)))
+        return cc
+    jsim.photoi.set_src, tsim.photoi.set_src = j_wrapped, t_wrapped
+
+
+PHOTOI = ["-photoi%per_steps=2"]
+
+
 @pytest.mark.parametrize("cfg, extra, steps", [
     ("dielectric_2d_slice.cfg", [], 8),
     ("air_cyl_slice.cfg", ["-refine_max_dx=2.5e-4", "-refine_min_dx=3e-5",
                            "-refine_adx=1", "-refine_init_time=1e-8"], 6),
-], ids=["dielectric", "cyl-live-amr"])
+    ("air_cyl_amr_slice.cfg", PHOTOI, 8),
+    ("air_cyl_amr_slice.cfg", PHOTOI + ["-cylindrical=f"], 8),
+    ("air_3d_amr_slice.cfg", PHOTOI + ["-ndim=3"], 6),
+], ids=["dielectric", "cyl-live-amr", "cyl-live-amr-photoi", "cart2d-photoi",
+        "3d-live-amr-photoi"])
 def test_live_refinement_slice_matches_jax(tmp_path, cfg, extra, steps):
     """The same mesh at setup and after every refinement epoch, then the
-    state (densities, phi, E, surface charge), dt and the _rtest.log rows
-    at rtol 1e-8."""
+    state (densities, phi, E, surface charge, and with photoionization the
+    source and every Helmholtz mode), dt and the _rtest.log rows at rtol
+    1e-8; with photoionization also the same FMG cycle counts per mode at
+    every update, and an epoch that changes the mesh."""
     base = [str(DATA / cfg), "-ndim=2",
             f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
             "-output%dt=5e-14"] + extra
@@ -230,8 +274,19 @@ def test_live_refinement_slice_matches_jax(tmp_path, cfg, extra, steps):
     epochs = {"j": [], "t": []}
     record_epochs(j, epochs["j"])
     record_epochs(t, epochs["t"])
+    updates = {"j": [], "t": []}
+    if t.photoi.enabled:
+        assert t.registry.cc_names == j.registry.cc_names
+        assert t.photoi.i_modes == j.photoi.i_modes
+        record_photoi(j, t, updates)
     j.run(max_steps=steps)
     t.run(max_steps=steps)
+    if t.photoi.enabled:
+        assert any(a + r for _m, a, r in epochs["j"]), "no epoch changed"
+        # every 2 steps and once more after each changing epoch
+        assert len(updates["j"]) >= steps // 2 + 1
+        assert updates["t"] == updates["j"]
+        assert t._photoi_prev_time == j._photoi_prev_time
     assert len(epochs["t"]) == len(epochs["j"]) == steps // 2
     for (mj, aj, rj), (mt, at, rt) in zip(epochs["j"], epochs["t"]):
         assert (at, rt) == (aj, rj) and len(mt) == len(mj)
