@@ -1,17 +1,19 @@
 """PyTorch/CUDA port of the streamer-discharge framework.
 
 A drift-diffusion-reaction plasma fluid coupled to Poisson's equation on a
-quadtree of fixed-size boxes, solved with FAS multigrid, written in
-PyTorch for one NVIDIA Hopper card. Host-side NumPy builds the tree
-topology and the index plans; the device holds the per-cell state and
-runs the batched work on it. The multigrid smoother is five kernels
-written by hand in CUDA C++ (ops/smoother.py; csrc/smoother.cu for 2D,
-csrc/smoother_3d.cu for 3D).
+binary tree, quadtree or octree of fixed-size boxes, solved with FAS
+multigrid, written in PyTorch for one NVIDIA Hopper card. Host-side NumPy
+builds the tree topology and the index plans; the device holds the
+per-cell state and runs the batched work on it. The multigrid smoother is
+six kernels written by hand in CUDA C++ (ops/smoother.py; csrc/smoother.cu
+for 2D, csrc/smoother_3d.cu for 3D); in one dimension it is tensor
+operations.
 
-This package ports two slices of ``afivo_streamer_tpu``: the 2D
-(cylindrical or Cartesian) and the 3D (Cartesian) streamer on a mesh that
-is refined uniformly at setup and then held fixed. Every state tensor is
-float64 by default.
+This package ports these paths of ``afivo_streamer_tpu``: the planar 1D,
+the 2D (cylindrical or Cartesian) and the 3D (Cartesian) streamer with
+live refinement and Helmholtz photoionization, 2D dielectrics, and the
+fluid model's variants: the electron energy equation, the source factor
+and the plasma region. Every state tensor is float64 by default.
 """
 
 import torch

@@ -2,7 +2,7 @@
 
 Usage (mirrors the JAX package's CLI):
 
-    python -m afivo_streamer_tpu_torch config.cfg -ndim=2|3 [-key=value ...]
+    python -m afivo_streamer_tpu_torch config.cfg -ndim=1|2|3 [-key=value ...]
 
 Any configuration key can be overridden on the command line; ``-device``
 selects the device of the state (``cuda``, the default, or ``cpu``). The

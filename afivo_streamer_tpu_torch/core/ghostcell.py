@@ -1,6 +1,6 @@
 """Ghost-cell filling as batched gather/compute/scatter over the box batch.
 
-Re-designs the reference's ``afivo/src/m_af_ghostcell.f90`` (2D and 3D):
+Re-designs the reference's ``afivo/src/m_af_ghostcell.f90`` (1D to 3D):
 each (level, direction, case) group of box faces is one batched gather +
 arithmetic + scatter, with the index tables ("plans") built on the host
 once per mesh and copied to the device.
@@ -19,7 +19,9 @@ Cases per face (af_gc_box, ``m_af_ghostcell.f90:66-123``):
 
 Edge (3D) and corner ghost cells are filled in a second phase
 (af_gc_box_corner ``:125-170``), copying from diagonal neighbors or
-extrapolating linearly.
+extrapolating linearly. In 1D a face is one cell: every per-face table has
+one column, the coarse strip is the one coarse cell, and there are no
+corners.
 """
 
 from __future__ import annotations
@@ -70,8 +72,6 @@ class GcLevelPlan:
 
     def __init__(self, tree: Tree, lvl: int, device):
         ndim, nc = tree.ndim, tree.nc
-        if ndim not in (2, 3):
-            raise NotImplementedError(f"core/ghostcell.py: ndim={ndim}")
         self.ndim, self.nc, self.lvl = ndim, nc, lvl
         self.dr = tree.lvl_dr(lvl)
         ids = tree.lvl_ids[lvl - 1]
@@ -79,11 +79,14 @@ class GcLevelPlan:
         hnc = nc // 2
         # fine transverse cells 1..nc of a face, one column per transverse
         # dim, in their natural (C) order
-        jt = np.stack([m.ravel() for m in np.meshgrid(
-            *[np.arange(1, nc + 1)] * (ndim - 1), indexing="ij")], -1)
+        def transverse(rng):
+            if ndim == 1:  # one face cell, no transverse coordinate
+                return np.zeros((1, 0), np.int64)
+            return np.stack([m.ravel() for m in np.meshgrid(
+                *[rng] * (ndim - 1), indexing="ij")], -1)
+        jt = transverse(np.arange(1, nc + 1))
         # coarse strip cells 0..hnc+1 (incl. the coarse box's side ghosts)
-        st = np.stack([m.ravel() for m in np.meshgrid(
-            *[np.arange(0, hnc + 2)] * (ndim - 1), indexing="ij")], -1)
+        st = transverse(np.arange(0, hnc + 2))
 
         for d in range(2 * ndim):
             dim, low = neighb_dim(d), neighb_low(d)
@@ -183,7 +186,7 @@ class GcLevelPlan:
                     eb[:, odims[1]] += di[odims[1]]
                     self.corner_groups.append(self._group(
                         tree, ids, pos, -di, [ea, eb, pos + di]))
-        for pos, di in sp.corner_list(ndim, nc):
+        for pos, di in (sp.corner_list(ndim, nc) if ndim > 1 else []):
             pos = pos[None, :]
             if ndim == 2:
                 a, b = pos.copy(), pos.copy()
@@ -302,9 +305,12 @@ def _scat(cc, iv: int, ids, sidx, vals):
 def mg_rb_interp(tmp, ndim: int, nc: int):
     """Interpolate the coarse strip next to a fine box to positions straight
     next to the fine cells (mg_sides_rb, ``m_af_multigrid.f90:361-388``).
-    tmp: [n, (nc/2+2)^(ndim-1)]; returns [n, nc^(ndim-1)]."""
+    tmp: [n, (nc/2+2)^(ndim-1)] (the one coarse cell in 1D); returns
+    [n, nc^(ndim-1)]."""
     hnc = nc // 2
     n = tmp.shape[0]
+    if ndim == 1:
+        return tmp
     if ndim == 2:
         center = tmp[:, 1:hnc + 1]
         grad = 0.125 * (tmp[:, 2:hnc + 2] - tmp[:, 0:hnc])
@@ -331,7 +337,8 @@ def rb_extrap_ghost(cc, iv: int, t, ndim: int):
     """Extrapolating refinement-boundary ghosts of boxes with variable
     permittivity (mg_sides_rb_extrap, ``m_af_multigrid.f90:468-621``): half
     the parent copy plus a bilinear extrapolation from the fine side, with
-    the transverse pair swap in 2D; 3D takes the one-dimensional form."""
+    the transverse pair swap in 2D; 1D and 3D take the one-dimensional
+    form."""
     pcopy = _gat(cc, iv, t.rb_parent, t.rb_pcopy)
     f1 = _gat(cc, iv, t.rb_ids, t.f1_sidx)
     f2 = _gat(cc, iv, t.rb_ids, t.f2_sidx)
@@ -368,12 +375,13 @@ def fill_ghosts_lvl(cc, plan: GcLevelPlan, ivs, rb_method: str, bc_fn,
             if len(p.rb_ids):
                 fine1 = _gat(cc, iv, t.rb_ids, t.f1_sidx)
                 if rb_method in (RB_INTERP, RB_INTERP_LIM):
-                    c1, c2 = (_gat(cc, iv, t.rb_coarse, c) for c in t.rb_c[:2])
-                    if plan.ndim == 2:
-                        ghost = 0.5 * c1 + c2 / 6.0 + fine1 / 3.0
+                    c1, *cn = (_gat(cc, iv, t.rb_coarse, c) for c in t.rb_c)
+                    if plan.ndim == 1:
+                        ghost = (2.0 * c1 + fine1) / 3.0
+                    elif plan.ndim == 2:
+                        ghost = 0.5 * c1 + cn[0] / 6.0 + fine1 / 3.0
                     else:
-                        c3 = _gat(cc, iv, t.rb_coarse, t.rb_c[2])
-                        ghost = (c1 + fine1) / 3.0 + (c2 + c3) / 6.0
+                        ghost = (c1 + fine1) / 3.0 + (cn[0] + cn[1]) / 6.0
                     if rb_method == RB_INTERP_LIM:
                         ghost = torch.minimum(ghost, 2.0 * c1)
                 elif rb_method == RB_MG:

@@ -1,6 +1,7 @@
-"""Write the synthetic old-style air transport table td_air_synthetic.txt.
+"""Write the synthetic air transport tables td_air_synthetic.txt (old
+style) and td_air_synthetic_new.txt (new style, with a mean-energy block).
 
-The table has the four blocks the old-style input path reads
+The old-style table has the four blocks the old-style input path reads
 (``efield[V/m]_vs_{mu,dif,alpha,eta}``, quantities at 1 bar and 300 K
 versus the field in V/m, fields 0 to 3e7 V/m):
 
@@ -11,9 +12,25 @@ versus the field in V/m, fields 0 to 3e7 V/m):
 * constant mobility mu = 0.04 m2/(V s) and diffusion D = 0.1 m2/s, round
   values of the order of electron swarm data in air near 3 MV/m.
 
-Run from anywhere: ``python make_td_table.py`` rewrites the table next to
-this script. The table contains no reaction list, so the chemistry falls
-back to the standard e / M+ / M- model built from alpha and eta.
+The new-style table has the five blocks the new-style input path reads,
+versus the reduced field in Td at the same 301 fields, scaled with the gas
+number density N at 1 bar and 300 K:
+
+* ``Townsend ioniz. coef. alpha/N (m2)`` and ``Townsend attach. coef. eta/N
+  (m2)``: the same alpha and eta as above, divided by N;
+* ``Mobility *N (1/m/V/s)`` and ``Diffusion coefficient *N (1/m/s)``: the
+  constants above times a mild monotone dependence on the field (the
+  mobility falls from 1.2 to 0.8 of MU, the diffusion rises from 0.7 to 1.3
+  of DIF, both equal to the old-style value at 3 MV/m), so that a lookup by
+  the mean energy is no constant;
+* ``Mean energy (eV)``: eps = 0.04 + 10 x / (x + 150) eV with x in Td, a
+  synthetic form and no measured swarm datum. It is strictly increasing:
+  the energy model tabulates rates against it, and a block that is not
+  monotone would fold those tables.
+
+Run from anywhere: ``python make_td_table.py`` rewrites both tables next to
+this script. Neither contains a reaction list, so the chemistry falls back
+to the standard e / M+ / M- model built from alpha and eta.
 """
 
 from pathlib import Path
@@ -27,6 +44,10 @@ ETA = 100.0  # 1/m
 MU = 0.04  # m2/(V s)
 DIF = 0.1  # m2/s
 FIELDS = np.linspace(0.0, 3e7, 301)  # V/m
+E_REF = 3e6  # V/m, where the new-style mu and D equal MU and DIF
+# 1/m3 at 1 bar, 300 K, with the package's Boltzmann constant
+N_GAS = 1e5 / (1.3806503e-23 * 300.0)
+TOWNSEND = 1e-21  # V m2
 
 SOURCE = ("Townsend form alpha = A p exp(-B p/E), A = 15 /(cm Torr), "
           "B = 365 V/(cm Torr) (Raizer, Gas Discharge Physics, 1991, "
@@ -41,10 +62,53 @@ def alpha(E):
                         0.0)
 
 
-def block(name, comments, y):
+def mobility(E):
+    """Falls from 1.2 MU at zero field through MU at E_REF to 0.8 MU."""
+    return MU * (0.8 + 0.4 / (1.0 + E / E_REF))
+
+
+def diffusion(E):
+    """Rises from 0.7 DIF at zero field through DIF at E_REF to 1.3 DIF."""
+    s = E / E_REF
+    return DIF * (0.7 + 0.6 * s / (1.0 + s))
+
+
+def mean_energy(td):
+    """Synthetic strictly increasing mean energy (eV) versus E/N (Td)."""
+    return 0.04 + 10.0 * td / (td + 150.0)
+
+
+def block(name, comments, y, x=FIELDS, fmt="{:.6E}"):
     lines = [name] + [f"COMMENT: {c}" for c in comments] + ["-" * 25]
-    lines += [f"{e:.6E} {v:.6E}" for e, v in zip(FIELDS, y)]
+    lines += [f"{fmt} {fmt}".format(e, v) for e, v in zip(x, y)]
     lines += ["-" * 25, ""]
+    return lines
+
+
+def new_style():
+    td = FIELDS / (N_GAS * TOWNSEND)
+    scaled = "at 1 bar, 300 K, scaled with N = 1e5 / (k_B 300 K)"
+    mild = "synthetic, mildly field dependent: "
+    lines = ["Synthetic new-style transport data for air "
+             "(afivo_streamer_tpu_torch/data/make_td_table.py)", ""]
+
+    def add(name, comments, y):
+        lines.extend(block(name, comments, y, x=td, fmt="{:.10E}"))
+    add("Mobility *N (1/m/V/s)",
+        [mild + "mu = 0.04 (0.8 + 0.4 / (1 + E / 3 MV/m)) m2/(V s), "
+         + scaled], mobility(FIELDS) * N_GAS)
+    add("Diffusion coefficient *N (1/m/s)",
+        [mild + "D = 0.1 (0.7 + 0.6 s / (1 + s)) m2/s, s = E / 3 MV/m, "
+         + scaled], diffusion(FIELDS) * N_GAS)
+    add("Townsend ioniz. coef. alpha/N (m2)", [SOURCE + ", divided by N"],
+        alpha(FIELDS) / N_GAS)
+    add("Townsend attach. coef. eta/N (m2)",
+        ["synthetic small constant attachment, 100 /m divided by N"],
+        np.full_like(FIELDS, ETA) / N_GAS)
+    add("Mean energy (eV)",
+        ["synthetic monotone form eps = 0.04 + 10 x / (x + 150) eV, x in "
+         "Td; no measured swarm datum; strictly increasing so that rates "
+         "tabulated against it do not fold"], mean_energy(td))
     return lines
 
 
@@ -60,8 +124,9 @@ def main():
     lines += block("efield[V/m]_vs_eta[1/m]",
                    ["synthetic small constant attachment"],
                    np.full_like(FIELDS, ETA))
-    out = Path(__file__).resolve().parent / "td_air_synthetic.txt"
-    out.write_text("\n".join(lines))
+    here = Path(__file__).resolve().parent
+    (here / "td_air_synthetic.txt").write_text("\n".join(lines))
+    (here / "td_air_synthetic_new.txt").write_text("\n".join(new_style()))
 
 
 if __name__ == "__main__":

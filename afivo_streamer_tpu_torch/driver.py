@@ -11,6 +11,10 @@ Helmholtz photoionization (physics/photoi.py) is updated every
 ``photoi%per_steps`` steps before the advance and after every epoch that
 changed the mesh.
 
+Under the electron energy equation (``model%type = ee53``) the energy
+density is one more species with a flux of its own (physics/fluid.py); the
+plasma region masks the update outside a box of coordinates.
+
 Dielectrics (``use_dielectric``) add the permittivity variable, the
 surfaces on its jumps and their charge (solvers/surface.py,
 physics/dielectric.py). A configuration that asks for another module this
@@ -74,15 +78,11 @@ def _refuse(cfg, user):
     checks = [
         ("gas%dynamics", False, "physics/gas_dynamics.py"),
         ("use_electrode", False, "solvers/lsf.py (electrodes)"),
-        ("plasma_region_enabled", False, "physics/fluid.py plasma region"),
         ("compiled%enabled", False, "parallel/compiled.py"),
     ]
     for key, default, module in checks:
         if cfg.add_get(key, default, "Not available in this package"):
             raise NotImplementedError(module)
-    if cfg.add_get("fixes%source_factor", "none",
-                   "Not available in this package") != "none":
-        raise NotImplementedError("physics/fluid.py: fixes%source_factor")
     if cfg.add_get("restart_from_file", "UNDEFINED",
                    "Not available in this package") != "UNDEFINED":
         raise NotImplementedError("io/checkpoint.py")
@@ -103,9 +103,8 @@ class Simulation:
         self.cfg = cfg
         if ndim is None:
             ndim = cfg.add_get("ndim", 2, "Number of spatial dimensions")
-        if ndim not in (2, 3):
-            raise NotImplementedError(f"ndim={ndim}: only 2D and 3D are "
-                                      "ported")
+        if ndim not in (1, 2, 3):
+            raise ValueError(f"ndim={ndim}: 1, 2 or 3")
         self.ndim = ndim
         self.device = resolve_device(cfg.add_get(
             "device", "cuda", "Device of the simulation state (cuda, cpu)"))
@@ -113,8 +112,6 @@ class Simulation:
 
         # ---- module initialization (initialize_modules order)
         self.model = Model(cfg)
-        if self.model.has_energy_equation:
-            raise NotImplementedError("physics/model.py: energy model ee53")
         self.user = UserMethods()
         load_user_module(cfg, self)
         self.dt_cfg = DtConfig(cfg)
@@ -124,16 +121,18 @@ class Simulation:
         _refuse(cfg, self.user)
         table_settings = TableDataSettings(cfg)
         self.gas = Gas(cfg)
-        self.td = TransportData(cfg, self.gas, table_settings, False)
+        self.td = TransportData(cfg, self.gas, table_settings,
+                                self.model.has_energy_equation)
         self.chem = Chemistry(self.gas, self.td, self.td.file,
-                              table_settings, False, cfg)
+                              table_settings,
+                              self.model.has_energy_equation, cfg)
         self.st = StreamerSettings(cfg, ndim)
         if self.st.cylindrical and ndim != 2:
             # the JAX package's Tree refuses the same
             raise ValueError("cylindrical coordinates only in 2D")
         if self.st.use_dielectric and ndim != 2:
             raise NotImplementedError(
-                "physics/dielectric.py: 3D dielectrics (not yet held "
+                f"physics/dielectric.py: {ndim}D dielectrics (not yet held "
                 "against the JAX package)")
         self.refine_cfg = RefineSettings(cfg, ndim)
 
@@ -154,6 +153,13 @@ class Simulation:
         self.i_electric_fld = reg.add_cc("electric_fld")
         self.i_rhs = reg.add_cc("rhs")
         self.i_tmp = reg.add_cc("tmp")
+        # optional output variable of the source factor
+        # (m_streamer.f90:438-440)
+        self.i_srcfac = -1
+        if self.st.source_factor != "none" and cfg.add_get(
+                "fixes%write_source_factor", False,
+                "Whether to write the source factor to the output"):
+            self.i_srcfac = reg.add_cc("srcfac")
         self.i_eps = self.i_surf_photon = self.i_surf_sigma = -1
         if self.st.use_dielectric:
             self.i_eps = reg.add_cc("eps")
@@ -165,10 +171,22 @@ class Simulation:
             self.i_surf_photon = reg.add_cc("surf_photon")
             self.i_surf_sigma = reg.add_cc("surf_sigma", n_copies=n_copies)
 
-        # face-centered variables: electron flux, mobile-ion fluxes, E
+        # electron energy density: the chemistry appends it to the species;
+        # it is flux variable 2 (m_streamer.f90:244-269)
+        self.i_electron_energy = -1
+        if self.model.has_energy_equation:
+            self.i_electron_energy = self.species_cc[
+                self.chem.species_list.index("e_energy")]
+
+        # face-centered variables: electron flux, energy flux, mobile-ion
+        # fluxes, E
         self.fc_flux: List[int] = [reg.add_fc("flux_elec")]
         self.flux_species = [self.i_electron]
         self.flux_charge_sign = [-1]
+        if self.model.has_energy_equation:
+            self.fc_flux.append(reg.add_fc("flux_energy"))
+            self.flux_species.append(self.i_electron_energy)
+            self.flux_charge_sign.append(-1)  # the upwind direction only
         for nm in self.td.mobile_ion_names:
             six = self.chem.species_list.index(nm)
             self.flux_species.append(self.species_cc[six])
@@ -246,13 +264,15 @@ class Simulation:
             flux_charge_sign=np.asarray(self.flux_charge_sign, np.float64),
             all_densities=self.all_densities, species_cc=self.species_cc,
             i_photo=self.photoi.i_photo,
-            photoi_species_cc=self.photoi.species_cc)
+            photoi_species_cc=self.photoi.species_cc,
+            i_electron_energy=self.i_electron_energy,
+            i_srcfac=self.i_srcfac)
         self.fluid = FluidModel(self.mesh, idx, self.chem, self.td, self.gas,
-                                self.bc_species, self.dt_cfg,
+                                self.bc_species, self.dt_cfg, self.st,
                                 prolong_limiter=pr.default_prolong_limiter(
                                     ndim))
         self.fluid.field_compute = self.field.compute
-        if self.st.use_dielectric:
+        if self.st.use_dielectric or self.st.plasma_region_enabled:
             self.fluid.mask_provider = self._level_mask
         self.surfaces = None
         self.dielectric = None
@@ -281,14 +301,32 @@ class Simulation:
 
     def _level_mask(self, lvl: int):
         """Cells of a level's leaves the fluid update may change
-        (set_box_mask, m_fluid.f90:469-515): none inside a dielectric."""
+        (set_box_mask, m_fluid.f90:469-515): none inside a dielectric and
+        none outside the plasma region."""
         def make():
-            leaves = self.mesh.tb(lvl).d.leaves
-            inner = torch.as_tensor(
-                sp.interior_flat(self.ndim, self.tree.nc),
-                dtype=torch.int64, device=self.device)
-            eps = self.cc[self.i_eps, leaves[:, None], inner[None, :]]
-            return (eps - 1.0).abs() <= 1e-10
+            tb = self.mesh.tb(lvl)
+            nc, ndim = self.tree.nc, self.ndim
+            mask = torch.ones((len(tb.leaves), nc ** ndim), dtype=torch.bool,
+                              device=self.device)
+            if self.st.use_dielectric:
+                inner = torch.as_tensor(sp.interior_flat(ndim, nc),
+                                        dtype=torch.int64, device=self.device)
+                eps = self.cc[self.i_eps, tb.d.leaves[:, None],
+                              inner[None, :]]
+                mask &= (eps - 1.0).abs() <= 1e-10
+            if self.st.plasma_region_enabled:
+                # cell centres of all leaves: [n, nc^ndim, ndim]
+                r0 = self.tree.box_r_min(np.asarray(tb.leaves))
+                dr = self.tree.lvl_dr(lvl)
+                axes = np.meshgrid(*[np.arange(nc) + 0.5] * ndim,
+                                   indexing="ij")
+                off = np.stack([a.ravel() for a in axes], -1) * dr
+                coords = r0[:, None, :] + off[None, :, :]
+                inside = np.all((coords >= self.st.plasma_region_rmin)
+                                & (coords <= self.st.plasma_region_rmax),
+                                axis=-1)
+                mask &= torch.as_tensor(inside, device=self.device)
+            return mask
         return self.mesh.cached(("fluid_mask", lvl), make, (lvl,))
 
     def _sync_capacity(self):

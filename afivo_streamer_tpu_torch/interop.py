@@ -7,7 +7,11 @@ surfaces and their per-surface data arrays) into a port ``Simulation``
 built from the same configuration; ``state_to_numpy`` gives the port's
 state back in the same form and ``surface_data`` the surface state in the
 per-surface layout. Both packages can so be started from one state and
-compared step by step.
+compared step by step. The arrays carry whatever variables the
+configuration registers, in the order both packages register them: under
+the electron energy equation ``e_energy`` with its time-state copies and
+the face variable ``flux_energy``, with ``fixes%write_source_factor`` the
+``srcfac`` variable; a 1D mesh has ``ix`` [n, 1] and two neighbor columns.
 """
 
 from __future__ import annotations

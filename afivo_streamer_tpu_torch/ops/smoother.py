@@ -27,6 +27,10 @@ takes the plain PyTorch version beside it only for a tensor that lies on
 the CPU. Every wrapper counts its kernel launches in its ``launches``
 attribute.
 
+In 1D the JAX package smooths with array operations and has no kernel, so
+``sweep_1d`` and ``fill_1d`` are tensor operations on any device and count
+no launch.
+
 ``SmootherTables`` builds the per-level runtime tables the kernels read
 (neighbor rows ``g``, ghost weights ``W``, the stencil blocks ``cs``).
 """
@@ -313,6 +317,41 @@ def fill_3d_plain(phi3, A, g, W):
 
 
 # ---------------------------------------------------------------------------
+# 1D: tensor operations on any device (no kernel exists for one dimension)
+# ---------------------------------------------------------------------------
+def sweep_1d(phi3, R, mask, g, cs):
+    """One red-black half sweep of the 3-point stencil on the own blocks
+    phi3[g[:, 0]] [n, nc + 2], in the operation order of the 2D and 3D
+    sweeps."""
+    B = phi3[g.long()[:, 0]]
+    nc = B.shape[-1] - 2
+    B0 = B[:, 1:nc + 1]
+    lphi = (cs[:, 3] * B0
+            + cs[:, 1] * (B[:, 0:nc] - B0)
+            + cs[:, 2] * (B[:, 2:nc + 2] - B0))
+    new = B0 + (R - lphi) / cs[:, 0]
+    out = B.clone()
+    out[:, 1:nc + 1] = torch.where(mask > 0, new, B0)
+    return out
+
+
+def fill_1d(phi3, A, g, W):
+    """The two end ghosts of the own blocks phi3[g[:, 0]] [n, nc + 2] from
+    the linear form W0*nb_cell + W1*f1 + W2*f2 + A, with A [n, 2]."""
+    nc = phi3.shape[-1] - 2
+    gl = g.long()
+    B = phi3[gl[:, 0]]
+    out = B.clone()
+    for d in range(2):
+        nb_i, f1_i, f2_i, g_i = ((nc, 1, 2, 0) if neighb_low(d)
+                                 else (1, nc, nc - 1, nc + 1))
+        w = W[:, d]
+        out[:, g_i] = (w[:, 0] * phi3[gl[:, 1 + d], nb_i] + w[:, 1] * B[:, f1_i]
+                       + w[:, 2] * B[:, f2_i] + A[:, d])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 def sweep_2d(phi3, R, mask, g, cs):
@@ -420,7 +459,7 @@ class SmootherTables:
     """Neighbor-row and ghost-weight tables of one level's blocks
     (afivo_streamer_tpu PackSmoother2D/PackSmoother3D.__init__, without
     padded rows): g [n, 1 + 2 ndim], W [n, 2 ndim, 8]. The refinement
-    boundary weights are those of mg_sides_rb in 2D and 3D alike.
+    boundary weights are those of mg_sides_rb in every dimension.
 
     ``bc_recipe`` lists (direction, bc type, gamma) for the physical
     boundaries, whose values the A constants fold in at every level visit
@@ -431,7 +470,7 @@ class SmootherTables:
     multigrid's variable-eps mask) selects the extrapolating ghosts of
     mg_sides_rb_extrap (pallas_smoother.py PallasSmoother2D :115-126): in
     2D the weights 1.125, -0.375 and the parity-swap weights -0.375, 0.125,
-    in 3D the one-dimensional form 0.75, -0.25; their A constants take half
+    in 1D and 3D the one-dimensional form 0.75, -0.25; their A constants take half
     the parent copy. ``has_swap`` tells whether any parity-swap weight is
     set (K3-swap)."""
 

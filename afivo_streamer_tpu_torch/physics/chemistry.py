@@ -12,8 +12,9 @@ on the device (the parser and the table building run on the host):
 * the network is lowered to dense index/stoichiometry arrays so that rate
   evaluation is a batched lookup-table gather and the species derivatives
   are one matmul ``derivs = rates @ S`` (get_rates ``:565-653``,
-  get_derivatives ``:657-688``); the energy-dependent rate forms belong to
-  the energy model and are not part of this package;
+  get_derivatives ``:657-688``); under the electron energy equation the
+  field-tabulated ionization and attachment rates become energy-tabulated
+  ones and ``e_energy`` joins the species;
 * the fallback "standard model" (e, M+, M- with ionization/attachment from
   the alpha/eta tables) when no reaction list is found
   (chemistry_initialize ``:202-240``);
@@ -32,7 +33,8 @@ import torch
 from .. import constants as uc
 from ..utils.lookup_table import LookupTable
 from ..utils.table_data import table_from_file, table_set_column
-from .transport_data import TD_ALPHA, TD_ETA, TD_MOBILITY
+from .transport_data import (TD_ALPHA, TD_DIFFUSION, TD_ENERGY_EV, TD_ETA,
+                             TD_MOBILITY)
 
 # Rate types (m_chemistry.f90:57-118)
 RATE_TABULATED_ENERGY = 0
@@ -57,9 +59,6 @@ RATE_ANALYTIC = {  # how_to_get string -> (type id, n_coeff)
     "c1*exp(-(Td/c2)**c3)": (19, 3),
     "c1*exp(-(c2/(kb*(Tg+Td/c3)))**c4)": (20, 4),
 }
-
-#: rate forms of the energy model: electron energy tables and Te
-_ENERGY_RATES = (RATE_TABULATED_ENERGY, 6, 8)
 
 # Reaction categories (m_chemistry.f90:10-26)
 IONIZATION_REACTION = 1
@@ -172,7 +171,8 @@ class Chemistry:
         if not success:
             self._standard_model()
         if model_has_energy_equation:
-            raise NotImplementedError("physics/chemistry.py: energy model")
+            self.species_list.append("e_energy")
+            self.species_charge.append(0)
 
         # convert species names to simple ascii + charges
         simple = []
@@ -413,21 +413,34 @@ class Chemistry:
         (chemistry_initialize, ``:312-363``)."""
         td_x = self.td.tbl.x
         n_fld = 0
+        n_ee = 0
         for r in self.reactions:
             if r.rate_type == RATE_TABULATED_FIELD:
-                n_fld += 1
-            elif r.rate_type in _ENERGY_RATES:
-                raise NotImplementedError(
-                    "physics/chemistry.py: energy-dependent rate "
-                    f"({r.description})")
+                if self.has_energy_equation and r.reaction_type in (
+                        IONIZATION_REACTION, ATTACHMENT_REACTION):
+                    # tabulated against the mean energy at the same field
+                    r.rate_type = RATE_TABULATED_ENERGY
+                    r.x_data = self.td.tbl.host_col(TD_ENERGY_EV, r.x_data)
+                    n_ee += 1
+                else:
+                    n_fld += 1
+            elif r.rate_type == RATE_TABULATED_ENERGY:
+                n_ee += 1
         self.chemtbl_fld = LookupTable(td_x[0], td_x[-1], ts.table_size,
                                        max(n_fld, 1), ts.xspacing)
-        i = 0
+        self.chemtbl_ee = LookupTable(0.0, max(self.td.max_eV, 1e-10),
+                                      ts.table_size, max(n_ee, 1),
+                                      ts.xspacing)
+        i = j = 0
         for r in self.reactions:
             if r.rate_type == RATE_TABULATED_FIELD:
                 r.lookup_table_index = i
                 table_set_column(self.chemtbl_fld, i, r.x_data, r.y_data, ts)
                 i += 1
+            elif r.rate_type == RATE_TABULATED_ENERGY:
+                r.lookup_table_index = j
+                table_set_column(self.chemtbl_ee, j, r.x_data, r.y_data, ts)
+                j += 1
 
     def _build_arrays(self):
         """Lower the network to dense arrays for batched evaluation."""
@@ -461,15 +474,27 @@ class Chemistry:
                                              device=like.device)
         return self._dev[key]
 
-    def get_rates(self, fields: torch.Tensor) -> torch.Tensor:
+    def get_rates(self, fields: torch.Tensor,
+                  energy_eV: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Rate coefficients [n_cells, n_reactions] (get_rates,
-        ``m_chemistry.f90:565-653``) at the fields (in Townsend)."""
+        ``m_chemistry.f90:565-653``) at the fields (in Townsend) and, for
+        the energy-tabulated rates, at the mean electron energies."""
         Tg = self.gas_temperature
-        tab = {n: r.lookup_table_index for n, r in enumerate(self.reactions)
-               if r.rate_type == RATE_TABULATED_FIELD}
-        # all tabulated lookups share one interpolation location
-        tab_vals = (dict(zip(tab, self.chemtbl_fld.get_cols(
-            list(tab.values()), fields))) if tab else {})
+        electron_eV_to_K = 2 * uc.elec_volt / (3 * uc.boltzmann_const)
+        Te = None
+
+        def tabulated(rate_type, tbl, x):
+            # all lookups of one table share one interpolation location
+            tab = {n: r.lookup_table_index
+                   for n, r in enumerate(self.reactions)
+                   if r.rate_type == rate_type}
+            if tab and x is None:
+                raise ValueError("energy-tabulated rates need energy_eV")
+            return (dict(zip(tab, tbl.get_cols(list(tab.values()), x)))
+                    if tab else {})
+        tab_vals = tabulated(RATE_TABULATED_FIELD, self.chemtbl_fld, fields)
+        ee_vals = tabulated(RATE_TABULATED_ENERGY, self.chemtbl_ee,
+                            energy_eV)
         ones = torch.ones_like(fields)
         cols = []
         for n, r in enumerate(self.reactions):
@@ -478,6 +503,8 @@ class Chemistry:
             rt = r.rate_type
             if rt == RATE_TABULATED_FIELD:
                 v = c0 * tab_vals[n]
+            elif rt == RATE_TABULATED_ENERGY:
+                v = c0 * ee_vals[n]
             elif rt == 2:
                 v = ones * (c0 * c[0])
             elif rt == 3:
@@ -486,6 +513,16 @@ class Chemistry:
                 v = c0 * c[0] * torch.exp(-(c[1] / (c[2] + fields)) ** 2)
             elif rt == 5:
                 v = c0 * c[0] * torch.exp(-(fields / c[1]) ** 2)
+            elif rt in (6, 8):
+                # the electron temperature from the mean energy at the field
+                if Te is None:
+                    Te = electron_eV_to_K * self.td.tbl.get_col(
+                        TD_ENERGY_EV, fields)
+                if rt == 6:
+                    v = c0 * c[0] * (300.0 / Te) ** c[1]
+                else:
+                    kB_eV = uc.boltzmann_const / uc.elec_volt
+                    v = c0 * (c[0] * (kB_eV * Te + c[1]) ** 2 - c[2]) * c[3]
             elif rt == 9:
                 v = ones * (c0 * c[0] * (Tg / 300.0) ** c[1]
                             * np.exp(-c[2] / Tg))
@@ -530,12 +567,15 @@ class Chemistry:
         full = rates * prod
         return full, full @ self._device("stoich", dens)
 
-    def get_breakdown_field_td(self, min_growth_rate: float = 1e3) -> float:
-        """Estimate the breakdown field (chemistry_get_breakdown_field,
-        ``m_chemistry.f90:518-560``)."""
+    def _swarm_rates(self):
+        """(fields, ionization rate, attachment rate) on the host at the
+        transport table's fields; under the energy equation at the mean
+        energy the table gives for each field."""
         fields = self.td.tbl.x
-        rates = self.get_rates(torch.as_tensor(
-            fields, dtype=torch.float64, device="cpu")).numpy()
+        f_t = torch.as_tensor(fields, dtype=torch.float64, device="cpu")
+        energies = (self.td.tbl.get_col(TD_ENERGY_EV, f_t)
+                    if self.has_energy_equation else None)
+        rates = self.get_rates(f_t, energy_eV=energies).numpy()
         src = np.zeros_like(fields)
         loss = np.zeros_like(fields)
         for n, r in enumerate(self.reactions):
@@ -543,6 +583,42 @@ class Chemistry:
                 loss += rates[:, n]
             elif r.reaction_type == IONIZATION_REACTION:
                 src += rates[:, n]
+        return fields, src, loss
+
+    def write_summary(self, fname: str) -> None:
+        """Swarm-parameter summary vs E/N (chemistry_write_summary,
+        ``m_chemistry.f90:428-501``): mobility, diffusion, alpha, eta and
+        ionization/attachment rates at the transport-table fields."""
+        if not self.gas.constant_density:
+            return
+        fields, src, loss = self._swarm_rates()
+        diff = self.td.tbl.host_col(TD_DIFFUSION, fields)
+        mu = self.td.tbl.host_col(TD_MOBILITY, fields)
+        v = mu * fields * uc.Townsend_to_SI
+        eta = np.zeros(len(fields))
+        alpha = np.zeros(len(fields))
+        eta[1:] = loss[1:] / v[1:]
+        eta[0] = 2 * eta[1] - eta[2]
+        alpha[1:] = src[1:] / v[1:]
+        alpha[0] = 2 * alpha[1] - alpha[2]
+        N = self.gas.number_density
+        with open(fname, "w") as f:
+            f.write("E/N[Td] E[V/m] Electron_mobility[m^2/(Vs)] "
+                    "Electron_diffusion[m^2/s] "
+                    "Townsend_ioniz._coef._alpha[1/m] "
+                    "Townsend_attach._coef._eta[1/m] Ionization_rate[1/s] "
+                    "Attachment_rate[1/s]\n")
+            for n in range(len(fields)):
+                f.write(" ".join(f"{x:.8E}" for x in [
+                    fields[n], fields[n] * uc.Townsend_to_SI * N,
+                    mu[n] / N, diff[n] / N, alpha[n], eta[n],
+                    src[n], loss[n]]) + "\n")
+            f.write("\n")
+
+    def get_breakdown_field_td(self, min_growth_rate: float = 1e3) -> float:
+        """Estimate the breakdown field (chemistry_get_breakdown_field,
+        ``m_chemistry.f90:518-560``)."""
+        fields, src, loss = self._swarm_rates()
         growth = src - loss
         idx = 0
         for n in range(len(fields) - 1, -1, -1):

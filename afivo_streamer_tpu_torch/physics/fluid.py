@@ -1,4 +1,4 @@
-"""Drift-diffusion-reaction fluid model: the hot path (2D and 3D).
+"""Drift-diffusion-reaction fluid model: the hot path (1D, 2D and 3D).
 
 Re-designs the reference's ``src/m_fluid.f90`` (forward_euler ``:21-99``,
 flux_upwind ``:102-209``, add_source_terms ``:298-466``) plus the flux
@@ -15,6 +15,12 @@ evaluation, CFL/dielectric-relaxation time step terms, chemistry source
 terms and the conservative update are batched tensor ops per level. The
 time-step limits stay on the device as 0-d tensors until the driver reads
 them once per step.
+
+With the electron energy equation (``model%type = ee53``) the energy
+density is the second electron-like flux variable: mobility and diffusion
+come from the mean energy at the faces, the rates from the mean energy of
+the cells after the flux update, and the energy gains the Joule heating
+and loses the tabulated loss.
 """
 
 from __future__ import annotations
@@ -33,7 +39,12 @@ from ..core import rowops as ro
 from ..core import spatial as sp
 from ..core.tree import Tree, NO_BOX, neighb_dim, neighb_low
 from ..ops.limiters import limiter_apply, LIMITER_KOREN
-from .transport_data import TD_MOBILITY, TD_DIFFUSION
+from .chemistry import IONIZATION_REACTION
+from .transport_data import (TD_MOBILITY, TD_DIFFUSION, TD_EE_MOBILITY,
+                             TD_EE_DIFFUSION, TD_EE_LOSS)
+
+#: energy fluxes are 5/3 times the electron flux (m_fluid.f90:122)
+FIVE_THIRD = 5.0 / 3.0
 
 #: the reference's 1e-100 guard and 1e100 "no limit" sentinel
 #: (fluid.py:54-62 of the JAX package; float64 holds both)
@@ -286,8 +297,10 @@ def build_consistent_plan(tree: Tree, device) -> List[ConsistentGroup]:
                     by_key.setdefault((lvl, d), []).append((nb, int(c)))
     plan = []
     # a child's share of a coarse face: transverse cells in natural order
-    tcells = np.stack([m.ravel() for m in np.meshgrid(
-        *[np.arange(hnc)] * (ndim - 1), indexing="ij")], -1)
+    # (in 1D the one face, with no transverse coordinate)
+    tcells = (np.zeros((1, 0), np.int64) if ndim == 1 else np.stack(
+        [m.ravel() for m in np.meshgrid(*[np.arange(hnc)] * (ndim - 1),
+                                        indexing="ij")], -1))
     for (lvl, d), pairs in sorted(by_key.items()):
         dim, low = neighb_dim(d), neighb_low(d)
         tdims = [k for k in range(ndim) if k != dim]
@@ -368,14 +381,16 @@ class FluidIndices:
     species_cc: List[int]        # cc index per chemistry species
     i_photo: int = -1            # photoionization source, -1 when off
     photoi_species_cc: int = -1  # the species it ionizes
+    i_electron_energy: int = -1  # flux variable 2 of the ee53 model
+    i_srcfac: int = -1           # output variable for the source factor
 
 
 class FluidModel:
     """Batched forward-Euler step of the plasma fluid model."""
 
     def __init__(self, mesh, idx: FluidIndices, chemistry, transport, gas,
-                 bc_species: Callable, dt_cfg, prolong_limiter: int,
-                 limiter: int = LIMITER_KOREN):
+                 bc_species: Callable, dt_cfg, settings,
+                 prolong_limiter: int, limiter: int = LIMITER_KOREN):
         if not gas.constant_density:
             raise NotImplementedError(
                 "physics/gas_dynamics.py: varying gas density")
@@ -387,6 +402,7 @@ class FluidModel:
         self.gas = gas
         self.bc_species = bc_species
         self.dt_cfg = dt_cfg
+        self.st = settings
         self.prolong_limiter = prolong_limiter
         self.limiter = limiter
         self.field_compute = None  # wired by the simulation (m_field)
@@ -394,6 +410,8 @@ class FluidModel:
         #: update may change (set_box_mask), or None
         self.mask_provider = None
         self.dielectric = None  # physics/dielectric.Dielectric when used
+        self._ioniz_cols = [n for n, r in enumerate(chemistry.reactions)
+                            if r.reaction_type == IONIZATION_REACTION]
 
     def _gc2_plan(self, lvl: int) -> Gc2LevelPlan:
         return self.mesh.cached(("gc2", lvl), lambda: Gc2LevelPlan(
@@ -415,6 +433,9 @@ class FluidModel:
         idx = self.idx
         sp_ivs = [iv + s_deriv for iv in idx.flux_species]
         n_sp = len(sp_ivs)
+        has_ee = idx.i_electron_energy >= 0
+        n_elec = 2 if has_ee else 1  # flux_num_electron_vars
+        cfl_factor = FIVE_THIRD if has_ee else 1.0
         sign = idx.flux_charge_sign
         dev = dict(dtype=cc.dtype, device=cc.device)
 
@@ -465,12 +486,19 @@ class FluidModel:
                 E_fc = ro.fc_get_faces(fc, idx.fc_E, d, leaves, nc, ndim)
                 u_f = torch.where(sign_t * E_fc[:, None] > 0, u_pos, u_neg)
 
-                # field strength at faces -> mobility/diffusion lookup
-                fld_face = (0.5 * (sl_faces(Bfld, 0, nc + 1, 1)
-                                   + sl_faces(Bfld, 1, nc + 1, 1))
-                            * uc.SI_to_Townsend * N_inv)
-                mu, dc = self.td.tbl.get_cols((TD_MOBILITY, TD_DIFFUSION),
-                                              fld_face)
+                if has_ee:
+                    # mobility and diffusion from the mean energy at the
+                    # faces (flux_upwind, m_fluid.f90:159-168)
+                    mean_en_f = u_f[:, 1] / torch.clamp(u_f[:, 0], min=1.0)
+                    mu, dc = self.td.ee_tbl.get_cols(
+                        (TD_EE_MOBILITY, TD_EE_DIFFUSION), mean_en_f)
+                else:
+                    # field strength at faces -> mobility/diffusion lookup
+                    fld_face = (0.5 * (sl_faces(Bfld, 0, nc + 1, 1)
+                                       + sl_faces(Bfld, 1, nc + 1, 1))
+                                * uc.SI_to_Townsend * N_inv)
+                    mu, dc = self.td.tbl.get_cols(
+                        (TD_MOBILITY, TD_DIFFUSION), fld_face)
                 mu = mu * N_inv
                 dc = dc * N_inv
 
@@ -480,18 +508,26 @@ class FluidModel:
                           - dc * inv_dx * (cR[:, 0] - cL[:, 0]))
                 fluxes = [flux_e]
                 sigma = mu * u_f[:, 0]
-                for m in range(1, n_sp):
-                    mu_i = float(self.td.ion_mobilities[m - 1]) * N_inv
+                if has_ee:
+                    # energy flux = 5/3 of the electron-like flux of the
+                    # energy density (m_fluid.f90:188-192)
+                    fluxes.append(FIVE_THIRD * (
+                        v_e * u_f[:, 1]
+                        - dc * inv_dx * (cR[:, 1] - cL[:, 1])))
+                for m in range(n_elec, n_sp):
+                    mu_i = float(self.td.ion_mobilities[m - n_elec]) * N_inv
                     v_i = float(sign[m]) * mu_i * E_fc
                     fluxes.append(v_i * u_f[:, m])
                     sigma = sigma + mu_i * u_f[:, m]
                 max_sigma = torch.maximum(max_sigma, sigma.max())
 
-                # CFL sum per cell (flux_upwind, m_fluid.f90:195-197)
+                # CFL sum per cell (flux_upwind, m_fluid.f90:195-197); the
+                # 5/3 factor applies to the advective term only
                 v_lo, v_hi = _lo_hi(v_e, d, nc)
                 dc_lo, dc_hi = _lo_hi(dc, d, nc)
                 cfl_sum = cfl_sum + (
-                    torch.maximum(v_lo.abs(), v_hi.abs()) * inv_dx
+                    cfl_factor
+                    * torch.maximum(v_lo.abs(), v_hi.abs()) * inv_dx
                     + 2.0 * torch.maximum(dc_lo, dc_hi) * inv_dx ** 2)
 
                 # no fluxes out of dielectric boxes (flux_upwind,
@@ -522,6 +558,8 @@ class FluidModel:
         nc, ndim = t.nc, t.ndim
         dev = dict(dtype=cc.dtype, device=cc.device)
         dt_chem = torch.full((), HUGE, **dev)
+        dt_other = torch.full((), HUGE, **dev)
+        has_ee = idx.i_electron_energy >= 0
         total_rates = torch.zeros(self.chem.n_reactions, **dev)
         total_JdotE = torch.zeros((), **dev)
 
@@ -547,7 +585,8 @@ class FluidModel:
                                                        nc, ndim)
                 ro.cc_set_interior(cc, iv + s_out, leaves, acc, nc, ndim)
 
-            # flux divergence, applied before the source terms
+            # flux divergence, applied before the source terms, so that
+            # the energy model's sources see the post-flux s_out states
             for m, iv in enumerate(idx.flux_species):
                 f_iv = idx.flux_fc[m]
                 div = 0.0
@@ -573,7 +612,21 @@ class FluidModel:
                                 for s_cc in idx.species_cc], dim=-1)
             dens = torch.clamp(dens, min=0.0)
             nsp = len(idx.species_cc)
-            rates = self.chem.get_rates(fields_td.reshape(-1))
+            mean_energies = None
+            if has_ee:
+                # mean energy from the post-flux s_out states
+                # (add_source_terms, m_fluid.f90:358-364)
+                ne_out = ro.cc_get_interior(cc, idx.i_electron + s_out,
+                                            leaves, nc, ndim)
+                en_out = ro.cc_get_interior(
+                    cc, idx.i_electron_energy + s_out, leaves, nc, ndim)
+                mean_energies = en_out / torch.clamp(ne_out, min=1.0)
+            rates = self.chem.get_rates(
+                fields_td.reshape(-1),
+                energy_eV=(mean_energies.reshape(-1) if has_ee else None))
+            if self.st.source_factor != "none":
+                rates = self._apply_source_factor(cc, fc, rates, dens,
+                                                  leaves, lvl)
             full, derivs = self.chem.get_derivatives(dens.reshape(-1, nsp),
                                                      rates)
             C = nc ** ndim
@@ -605,6 +658,36 @@ class FluidModel:
                 derivs[:, :, idx.species_cc.index(
                     idx.photoi_species_cc)] += photo
 
+            if has_ee:
+                # electron energy source: the Joule gain from the electron
+                # flux minus the tabulated loss (add_source_terms,
+                # m_fluid.f90:442-447), applied before the species' sources
+                gain = 0.0
+                for d in range(ndim):
+                    prod = (ro.fc_get_faces(fc, idx.flux_fc[0], d, leaves,
+                                            nc, ndim)
+                            * ro.fc_get_faces(fc, idx.fc_E, d, leaves, nc,
+                                              ndim))
+                    lo, hi = _lo_hi(prod, d, nc)
+                    gain = gain + 0.5 * (lo + hi).reshape(n, -1)
+                gain = -gain
+                loss_rate = self.td.ee_tbl.get_col(TD_EE_LOSS, mean_energies)
+                upd_en = dt * (gain - loss_rate * ne_out)
+                if mask is not None:
+                    upd_en = torch.where(mask, upd_en, 0.0)
+                ro.cc_add_interior(cc, idx.i_electron_energy + s_out, leaves,
+                                   upd_en, nc, ndim)
+                # energy-loss time step restriction (m_fluid.f90:163-166)
+                # from the level's largest mean energy; a zero mean energy
+                # has zero loss and restricts nothing
+                tmp = mean_energies.max()
+                restr = torch.where(
+                    tmp > 0.0,
+                    tmp / torch.clamp(
+                        self.td.ee_tbl.get_col(TD_EE_LOSS, tmp), min=TINY),
+                    HUGE)
+                dt_other = torch.minimum(dt_other, restr)
+
             # apply source terms (plasma species only)
             for spi, s_cc in enumerate(idx.species_cc):
                 upd = dt * derivs[:, :, spi]
@@ -612,8 +695,44 @@ class FluidModel:
                     upd = torch.where(mask, upd, 0.0)
                 ro.cc_add_interior(cc, s_cc + s_out, leaves, upd, nc, ndim)
 
-        diag = {"rates": total_rates, "JdotE": total_JdotE}
+        diag = {"rates": total_rates, "JdotE": total_JdotE,
+                "dt_other": dt_other}
         return cc, dt_chem, diag
+
+    def _apply_source_factor(self, cc, fc, rates, dens, leaves, lvl: int):
+        """Scale the ionization rates with |flux| / (n_e mu E) to counter
+        unphysical ionization driven by diffusion (compute_source_factor,
+        ``m_fluid.f90:525-583`` and add_source_terms ``:368-398``).
+        Returns the scaled rates; writes the factor to ``i_srcfac``."""
+        idx = self.idx
+        nc, ndim = self.tree.nc, self.tree.ndim
+        n = len(leaves)
+        small_flux = 1.0e-9
+        ne = dens[:, :, idx.species_cc.index(idx.i_electron)]
+
+        # cell-centered norm of the electron flux
+        acc = 0.0
+        for d in range(ndim):
+            lo, hi = _lo_hi(ro.fc_get_faces(fc, idx.flux_fc[0], d, leaves,
+                                            nc, ndim), d, nc)
+            acc = acc + (lo + hi).reshape(n, -1) ** 2
+        flux_norm = 0.5 * torch.sqrt(acc)
+
+        fld = ro.cc_get_interior(cc, idx.i_electric_fld, leaves, nc, ndim)
+        N_inv = self.gas.inverse_number_density
+        mob = self.td.tbl.get_col(TD_MOBILITY,
+                                  fld * uc.SI_to_Townsend * N_inv) * N_inv
+        factor = (flux_norm + small_flux) / (small_flux + ne * mob * fld)
+        factor = torch.clamp(factor, 0.0, 1.0)
+        if self.st.source_min_electrons_per_cell > 0:
+            dr = self.tree.lvl_dr(lvl)
+            factor = torch.where(
+                ne * float(dr.min()) ** 3
+                < self.st.source_min_electrons_per_cell, 0.0, factor)
+        if idx.i_srcfac >= 0:
+            ro.cc_set_interior(cc, idx.i_srcfac, leaves, factor, nc, ndim)
+        rates[:, self._ioniz_cols] *= factor.reshape(-1)[:, None]
+        return rates
 
     def _sum_JdotE(self, fc, leaves, vol):
         """Volume-integrated J.E * elec_charge over one level's leaves."""
@@ -650,12 +769,12 @@ class FluidModel:
         # NOTE: the reference *assigns* dt_lim in each substep
         # (m_fluid.f90:96-98), so af_advance returns the limit of the LAST
         # substep, not the minimum over substeps.
-        dt_other = torch.full_like(dt_chem, HUGE)
+        dt_other = diag.pop("dt_other")
         dt_cfl = dt_cfl * self.dt_cfg.cfl_number
         dt_lim = torch.clamp(torch.minimum(torch.minimum(dt_cfl, dt_drt),
                                            torch.minimum(dt_chem, dt_other)),
                              max=self.dt_cfg.dt_max)
         # the four dt restrictions in the reference's order (m_dt.f90:13-25:
-        # cfl, drt, rates, other)
+        # cfl, drt, rates, other); only the energy model sets "other"
         diag["dt_limits"] = torch.stack([dt_cfl, dt_drt, dt_chem, dt_other])
         return cc, fc, dt_lim, diag

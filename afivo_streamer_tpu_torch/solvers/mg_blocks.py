@@ -1,4 +1,4 @@
-"""FAS multigrid on per-level block arrays (2D and 3D).
+"""FAS multigrid on per-level block arrays (1D, 2D and 3D).
 
 The solve state lives in small per-level block arrays
 
@@ -272,8 +272,8 @@ def smooth_blocks(mg, lvl: int, P_l, R_l, A_l, cs_l, n_cycle: int,
     [fill+sweep] ...; fill, i.e. K2, K1 for every interior pair, then K3;
     on a 2D level with extrapolating (parity-swap) ghosts K2 then K3-swap
     for every half sweep, as K1 has no swap terms; in 3D K4 then K5 for
-    every half sweep. Edge and corner ghosts are stored after the final
-    upward half sweep."""
+    every half sweep; in 1D the tensor operations sweep_1d then fill_1d.
+    Edge and corner ghosts are stored after the final upward half sweep."""
     sm = mg.smoother(lvl)
     masks = mg.parity_masks(2 * n_cycle)
     W = sm.W(P_l.dtype)
@@ -287,9 +287,11 @@ def smooth_blocks(mg, lvl: int, P_l, R_l, A_l, cs_l, n_cycle: int,
             P_l = ks.fill_sweep_2d(P_l, R_l, mask, A_l, sm.g, W, cs_l)
         P_l = ks.fill_2d(P_l, A_l, sm.g, W)
     else:
+        sweep, fill = ((ks.sweep_1d, ks.fill_1d) if sm.ndim == 1
+                       else (ks.sweep_3d, ks.fill_3d))
         for mask in masks:
-            P_l = ks.sweep_3d(P_l, R_l, mask, sm.g, cs_l)
-            P_l = ks.fill_3d(P_l, A_l, sm.g, W)
+            P_l = sweep(P_l, R_l, mask, sm.g, cs_l)
+            P_l = fill(P_l, A_l, sm.g, W)
     if up_cycle:
         P_l = corner_fill_blocks(P_l, mg.blocks(lvl), sm.nc)
     return P_l
@@ -297,11 +299,11 @@ def smooth_blocks(mg, lvl: int, P_l, R_l, A_l, cs_l, n_cycle: int,
 
 def fill_blocks(mg, lvl: int, P_l, A_l):
     """Side ghosts (K3, or K3-swap on a level with extrapolating ghosts, in
-    2D; K5 in 3D), then edges and corners, of one level's blocks (af_gc_tree
-    on one level)."""
+    2D; K5 in 3D; fill_1d in 1D), then edges and corners, of one level's
+    blocks (af_gc_tree on one level)."""
     sm = mg.smoother(lvl)
     fill = (ks.fill_2d_swap if sm.has_swap
-            else ks.fill_2d if sm.ndim == 2 else ks.fill_3d)
+            else {1: ks.fill_1d, 2: ks.fill_2d, 3: ks.fill_3d}[sm.ndim])
     P_l = fill(P_l, A_l, sm.g, sm.W(P_l.dtype))
     return corner_fill_blocks(P_l, mg.blocks(lvl), sm.nc)
 

@@ -53,14 +53,41 @@ failure exits non-zero):
    lambda, with that mode's own stencil, ghost weights and inputs;
 8. the 3D slice with live refinement (a uniform level 4, 128^3 cells,
    refined to level 6) and photoionization, 10 steps, the same way, then
-   (2b) K4 and K5 on the finest and the largest level of that mode.
+   (2b) K4 and K5 on the finest and the largest level of that mode;
+3f-3h. the fluid-model variants on the card and on the CPU at the committed
+   sizes: the planar 1D slice (air_1d_slice.cfg, live refinement) under the
+   local field approximation and under the electron energy equation (ee53,
+   new-style table) for 16 steps, and the cylindrical slice under ee53
+   (air_cyl_ee_slice.cfg, live refinement and photoionization every 2
+   steps) for 8 steps: the same mesh at every epoch, the same FMG cycles,
+   every variable; 3i. the physics of the energy equation on the card: the
+   1D slice without a seed in its uniform field to 0.3 ns, where the mean
+   energy in mid-domain must relax to the table's value at the local
+   reduced field within 5 %, the energy density stay >= 0 and the
+   energy-loss time-step limit be active;
+9. the main path under ee53 at full size: air_cyl_ee_slice.cfg with phase
+   7's refinement flags, 10 steps: K1, K2 and K3 launched, the energy
+   density finite, a finite energy-loss time-step limit, the four limits,
+   how many attempted steps each limit held, and the launches per step.
+   (With a seed the model itself, in both packages, drives the energy
+   density below zero in cells at the seed's edge, where the electron flux
+   runs against the drift and the Joule term is a loss: the run reports
+   the smallest value and the share of such leaf cells, and phase 3i holds
+   the sign where the model keeps it);
+10. the planar 1D slice at a size a user would run (uniform 1 um cells,
+   16,384 of them on 11 levels) under ee53 for 50 steps. One dimension has
+   no kernel in either package: its smoother is tensor operations, so this
+   phase launches none.
+Phases 9 and 10 run after phase 3i and before phase 4: after the long
+profiler traces of phases 6 to 8 the host has been seen to run slower for
+the rest of the process.
 
 The launch counts are set to 0 just before each full-size run and read
 just after it. The line before the last is a JSON object with one entry
 per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
-``launches_by_phase`` holds every full-size run's);
+``launches_by_phase`` holds every full-size run's, phase 9's among them);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -80,6 +107,23 @@ CFG = {2: DATA / "air_cyl_slice.cfg", 3: DATA / "air_3d_slice.cfg"}
 DIELECTRIC_CFG = DATA / "dielectric_2d_slice.cfg"
 USER_MODULE = ROOT / "afivo_streamer_tpu_torch" / "programs" / "dielectric_2d.py"
 TABLE = DATA / "td_air_synthetic.txt"
+#: the new-style table with its mean-energy block, and the flags that put
+#: a configuration under the electron energy equation on it
+TABLE_NEW = DATA / "td_air_synthetic_new.txt"
+EE_FLAGS = ["-model%type=ee53", "-input_data%old_style=f"]
+ONED_CFG = DATA / "air_1d_slice.cfg"
+EE_CFG = DATA / "air_cyl_ee_slice.cfg"
+#: cuda-vs-cpu runs of the fluid-model variants (phases 3f-3h): phase,
+#: config, ndim, table, flags, steps
+VARIANTS_SMALL = [
+    ("3f", ONED_CFG, 1, TABLE, [], 16),
+    ("3g", ONED_CFG, 1, TABLE_NEW, EE_FLAGS, 16),
+    ("3h", EE_CFG, 2, TABLE_NEW, ["-photoi%per_steps=2"], 8)]
+#: the main path under ee53 at the card's size (phase 9): steps
+EE_FULL_STEPS = 10
+#: the 1D slice at a user's size (phase 10): flags and steps
+ONED_FULL = (["-refine_max_dx=1e-6", "-refine_min_dx=1e-6"], 50)
+DT_LIMIT_NAMES = ("cfl", "drt", "chem", "energy loss")
 SOURCE = {2: "afivo_streamer_tpu_torch/csrc/smoother.cu",
           3: "afivo_streamer_tpu_torch/csrc/smoother_3d.cu"}
 REPLACES = {"fill_sweep_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:397",
@@ -571,9 +615,10 @@ def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir, smi):
     return launches
 
 
-def amr_argv(out, ndim, device, extra=()):
-    return [str(AMR_CFG[ndim]), f"-ndim={ndim}", f"-input_data%file={TABLE}",
-            f"-output%name={out}", f"-device={device}", *extra]
+def amr_argv(out, ndim, device, extra=(), cfg=None, table=TABLE):
+    return [str(cfg or AMR_CFG[ndim]), f"-ndim={ndim}",
+            f"-input_data%file={table}", f"-output%name={out}",
+            f"-device={device}", *extra]
 
 
 def record_photoi(sim, ks, updates, torch):
@@ -603,18 +648,23 @@ def record_photoi(sim, ks, updates, torch):
     sim.photoi.set_src = wrapped
 
 
-def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim):
+def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
+                          cfg=None, table=TABLE, extra=None, steps=None):
     """Phase 3d (cylindrical) and 3e (3D): the slice with live refinement
     and photoionization every 2 steps on the card and on the CPU: the same
     mesh at every epoch (one of them changing it), the same FMG cycle
     counts of every mode at every update, and every variable but the
-    scratch one within rtol 1e-9 of its scale."""
-    phase = "3d" if ndim == 2 else "3e"
-    steps = AMR_SMALL_STEPS[ndim]
+    scratch one within rtol 1e-9 of its scale. Phases 3f-3h: the same for
+    a fluid-model variant (``cfg``, ``table``, ``extra`` flags, ``steps``);
+    a configuration without photoionization has no update to compare."""
+    phase = phase or ("3d" if ndim == 2 else "3e")
+    cfg = cfg or AMR_CFG[ndim]
+    steps = steps or AMR_SMALL_STEPS[ndim]
+    extra = ["-photoi%per_steps=2"] if extra is None else extra
     sims, epochs, updates = {}, {}, {}
     for dev in ("cpu", "cuda"):
-        sim = Simulation(argv=amr_argv(out_dir / f"amr{ndim}d_{dev}", ndim,
-                                       dev, ["-photoi%per_steps=2"]))
+        sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_{dev}", ndim,
+                                       dev, extra, cfg, table))
         epochs[dev] = [{"ids": [list(map(int, x)) for x in sim.tree.lvl_ids],
                         "add": 0, "rm": 0, "s": 0.0}]
         updates[dev] = []
@@ -645,38 +695,106 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim):
         if rel > worst:
             worst, worst_name = rel, name
     n_leaf = sum(len(l) for l in a.tree.lvl_leaves) * a.tree.nc ** ndim
-    log(f"phase {phase}: {AMR_CFG[ndim].name} cuda vs cpu, {steps} steps, "
+    photo = (f"; max|photo| = "
+             f"{float(b.cc[b.photoi.i_photo, :n].abs().max()):.4e}"
+             if b.photoi.enabled else "")
+    log(f"phase {phase}: {cfg.name} {' '.join(extra)} ({a.model.type}) cuda "
+        f"vs cpu, {steps} steps, "
         f"{n_leaf} leaf cells at the end: same mesh at {len(epochs['cpu'])} "
         f"epochs ({changed} changed it), {len(updates['cpu'])} "
         f"photoionization updates with the same FMG cycles per mode "
         f"{[c for _it, c in cycles['cpu']]}; worst scaled deviation "
-        f"{worst:.3e} ({worst_name}; limit 1e-9); max|photo| = "
-        f"{float(b.cc[b.photoi.i_photo, :n].abs().max()):.4e}")
+        f"{worst:.3e} ({worst_name}; limit 1e-9; below 1e-12: "
+        f"{worst < 1e-12}); dt limits (cfl, drt, chem, other) "
+        f"{[float(f'{v:.6g}') for v in b.dt_limits]}{photo}")
     if worst > 1e-9:
         raise RuntimeError(f"phase {phase}: cuda vs cpu {worst} {worst_name}")
-    if changed < 1 or len(updates["cpu"]) < 2:
+    if changed < 1 or (b.photoi.enabled and len(updates["cpu"]) < 2):
         raise RuntimeError(f"phase {phase}: needs a changing epoch and two "
                            f"photoionization updates")
     if a.global_dt != b.global_dt and abs(a.global_dt / b.global_dt - 1) > 1e-9:
         raise RuntimeError(f"phase {phase}: dt differs")
 
 
-def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi):
+def record_dt_limits(sim, limits):
+    """Record the four time-step limits (0-d tensors, no sync) of the last
+    substep of every attempted step of ``sim``."""
+    orig = sim.fluid.forward_euler
+
+    def wrapped(cc, fc, dt, dt_lim, time_, s_deriv, s_prev, w_prev, s_out,
+                i_step, n_steps, params):
+        out = orig(cc, fc, dt, dt_lim, time_, s_deriv, s_prev, w_prev, s_out,
+                   i_step, n_steps, params)
+        if i_step == n_steps:
+            limits.append(out[3]["dt_limits"])
+        return out
+    sim.fluid.forward_euler = wrapped
+
+
+def leaf_interiors(torch, sim, iv):
+    """Variable ``iv`` on the interior cells of all leaves, flattened."""
+    from afivo_streamer_tpu_torch.core import spatial as sp
+    inner = torch.as_tensor(sp.interior_flat(sim.ndim, sim.tree.nc),
+                            dtype=torch.int64, device=sim.device)
+    return torch.cat([
+        sim.cc[iv, sim.mesh.tb(l).d.leaves[:, None], inner[None, :]].reshape(-1)
+        for l in range(1, sim.tree.highest_lvl + 1)
+        if len(sim.mesh.tb(l).leaves)])
+
+
+def check_energy_model(torch, sim, limits, phase, nonnegative=False):
+    """The checks of the electron energy equation after a run: the energy
+    density finite on the leaves (and, where the model keeps its sign,
+    ``nonnegative``), a finite energy-loss limit, and which limit was the
+    smallest in each attempted step."""
+    en = leaf_interiors(torch, sim, sim.i_electron_energy)
+    ne = leaf_interiors(torch, sim, sim.i_electron)
+    lims = torch.stack(limits).cpu()
+    held = torch.bincount(lims.argmin(dim=1), minlength=4).tolist()
+    log(f"phase {phase}: {sim.model.type}: species {sim.chem.species_list}; "
+        f"on {en.numel()} leaf cells min(e_energy) = {float(en.min()):.4e}, "
+        f"max(e_energy) = {float(en.max()):.4e} eV/m3, "
+        f"{int((en < 0).sum())} cells below zero, max mean energy "
+        f"{float((en / ne.clamp(min=1.0)).max()):.4f} eV; dt limits of the "
+        f"last step (cfl, drt, chem, energy loss) "
+        f"{[float(f'{v:.6g}') for v in sim.dt_limits]}, dt = "
+        f"{sim.global_dt:.4e} s; the smallest limit over {len(limits)} "
+        f"attempted steps: {dict(zip(DT_LIMIT_NAMES, held))}")
+    if not bool(torch.isfinite(en).all()):
+        raise RuntimeError("the energy density is not finite")
+    if nonnegative and float(en.min()) < 0.0:
+        raise RuntimeError("the energy density is negative")
+    if not sim.dt_limits[3] < 1e99:
+        raise RuntimeError("the energy-loss time-step limit is not active")
+    if "e_energy" not in sim.chem.species_list:
+        raise RuntimeError("e_energy is no species")
+
+
+def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
+                   phase=None, cfg=None, table=TABLE, steps=None):
     """Phase 7 (the main path: cylindrical) and 8 (3D): the slice with live
     refinement and photoionization at the card's size; returns the launch
     counts of the run's kernels. Then phase 2b: the run's kernels on the
-    finest level of the Helmholtz mode with the largest lambda."""
-    phase = "7" if ndim == 2 else "8"
-    extra, steps, min_cells = AMR_FULL[ndim]
+    finest level of the Helmholtz mode with the largest lambda. Phase 9:
+    the same run of ``cfg`` (the cylindrical slice under ee53) with the
+    checks of the energy model, without phase 2b and the busy share."""
+    variant = phase is not None
+    phase = phase or ("7" if ndim == 2 else "8")
+    cfg = cfg or AMR_CFG[ndim]
+    extra, full_steps, min_cells = AMR_FULL[ndim]
+    steps = steps or full_steps
     names = PATH_KERNELS[ndim]
     free_earlier_runs(torch)
     torch.cuda.reset_peak_memory_stats()
     ks.reset_launch_counts()
     t0 = time.perf_counter()
-    sim = Simulation(argv=amr_argv(out_dir / f"amr_full{ndim}d", ndim, "cuda",
-                                   extra))
+    sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_full", ndim, "cuda",
+                                   extra, cfg, table))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    limits = []
+    if sim.model.has_energy_equation:
+        record_dt_limits(sim, limits)
     setup_launches = {k: ks.KERNELS[k].launches for k in names}
     setup_build = sim.mesh.build_seconds
     t = sim.tree
@@ -694,7 +812,7 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi):
     per_lvl = [len(x) for x in t.lvl_ids]
     changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
     ms_step = 1e3 * (t2 - t1) / steps
-    log(f"phase {phase}: {AMR_CFG[ndim].name} {' '.join(extra)}: {cells0} "
+    log(f"phase {phase}: {cfg.name} {' '.join(extra)}: {cells0} "
         f"leaf cells and boxes per level {boxes0} after setup, {n_leaf} and "
         f"{per_lvl} ({sum(per_lvl)} boxes) after {steps} steps; setup "
         f"{t1 - t0:.2f} s (plan building {setup_build:.2f} s); {steps} steps "
@@ -742,6 +860,10 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi):
     if not emax > BACKGROUND_FIELD or not photo_max > 0.0:
         raise RuntimeError("max(E) did not rise above the background field "
                            "or the photoionization source is empty")
+    if sim.model.has_energy_equation:
+        check_energy_model(torch, sim, limits, phase)
+    if variant:
+        return launches
 
     # V-cycle times on the final state: the field solve, and the Helmholtz
     # mode with the largest lambda on the photoionization source (set_src
@@ -775,6 +897,77 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi):
     log(f"phase {phase}: device busy share: "
         f"{busy_share(torch, sim, ms_step)}")
     return launches
+
+
+def phase_energy_physics(torch, Simulation, out_dir):
+    """Phase 3i: the 1D slice without a seed (a uniform background of 1e13
+    electrons per m3 in the uniform field) under ee53 on the card to
+    0.3 ns: the mean energy in mid-domain within 5 % of the table's value
+    at the local reduced field, the energy density >= 0, the energy-loss
+    limit active."""
+    from afivo_streamer_tpu_torch import constants as uc
+    from afivo_streamer_tpu_torch.physics.transport_data import TD_ENERGY_EV
+    sim = Simulation(argv=amr_argv(
+        out_dir / "p3i", 1, "cuda",
+        EE_FLAGS + ["-seed_density=0", "-background_density=1e13"], ONED_CFG,
+        TABLE_NEW))
+    limits = []
+    record_dt_limits(sim, limits)
+    sim.run(end_time=3.0e-10)
+    t = sim.tree
+    ids = t.lvl_leaves[t.highest_lvl - 1]
+    b, mid = int(ids[len(ids) // 2]), t.nc // 2
+    ne, en, fld = (float(sim.cc[iv, b, mid]) for iv in (
+        sim.i_electron, sim.i_electron_energy, sim.i_electric_fld))
+    mean_eV = en / max(ne, 1.0)
+    td = fld * uc.SI_to_Townsend * sim.gas.inverse_number_density
+    want = float(sim.td.tbl.get_col(TD_ENERGY_EV, torch.tensor(
+        [td], dtype=torch.float64))[0])
+    log(f"phase 3i: uniform field, {sim.it - 1} steps to t = "
+        f"{sim.global_time:.4e} s: mean energy in mid-domain {mean_eV:.6f} "
+        f"eV, the table's value at {td:.4f} Td {want:.6f} eV (limit 5 %)")
+    if not ne > 0 or abs(mean_eV - want) > 0.05 * want:
+        raise RuntimeError("phase 3i: the mean energy did not relax to the "
+                           "table's value")
+    check_energy_model(torch, sim, limits, "3i", nonnegative=True)
+
+
+def phase_1d_full(torch, ks, Simulation, out_dir):
+    """Phase 10: the planar 1D slice under ee53 on uniform 1 um cells for 50
+    steps. One dimension has no kernel: the launch counts must stay 0."""
+    extra, steps = ONED_FULL
+    free_earlier_runs(torch)
+    ks.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(argv=amr_argv(out_dir / "p10_1d", 1, "cuda",
+                                   extra + EE_FLAGS, ONED_CFG, TABLE_NEW))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    limits, epochs = [], []
+    record_dt_limits(sim, limits)
+    record_epochs(sim, epochs, torch)
+    sim.run(max_steps=steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    t = sim.tree
+    n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc
+    launches = {k: fn.launches for k, fn in ks.KERNELS.items()}
+    log(f"phase 10: {ONED_CFG.name} {' '.join(extra + EE_FLAGS)}: {n_leaf} "
+        f"leaf cells, {sum(len(x) for x in t.lvl_ids)} boxes on "
+        f"{t.highest_lvl} levels; setup {t1 - t0:.2f} s; {steps} steps "
+        f"{t2 - t1:.2f} s = {1e3 * (t2 - t1) / steps:.2f} ms/step, of which "
+        f"{len(epochs)} refinement epochs {sum(e['s'] for e in epochs):.2f} "
+        f"s; t = {sim.global_time:.4e} s; kernel launches "
+        f"{sum(launches.values())} (none by design: one dimension has no "
+        f"kernel in either package, its smoother is tensor operations)")
+    if n_leaf < 16000:
+        raise RuntimeError(f"phase 10: only {n_leaf} leaf cells")
+    if any(launches.values()):
+        raise RuntimeError(f"phase 10: a kernel was launched: {launches}")
+    n = t.highest_id
+    if not bool(torch.isfinite(sim.cc[:, :n]).all()):
+        raise RuntimeError("phase 10: non-finite state")
+    check_energy_model(torch, sim, limits, "10")
 
 
 def busy_share(torch, sim, ms_per_step):
@@ -901,7 +1094,17 @@ def main():
     phase_dielectric_cpu_vs_cuda(torch, ks, Simulation, out_dir)
     for ndim in (2, 3):
         phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim)
-    by_phase = {}
+    for phase, cfg, ndim, table, extra, steps in VARIANTS_SMALL:
+        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
+                              cfg, table, extra, steps)
+    phase_energy_physics(torch, Simulation, out_dir)
+    # phases 9 and 10 run before the long profiler traces of phases 6 to 8,
+    # after which the host has been seen to run slower for the rest of the
+    # process
+    by_phase = {"9": phase_amr_full(torch, ks, Simulation, mgb, out_dir, 2,
+                                    smi, "9", EE_CFG, TABLE_NEW,
+                                    EE_FULL_STEPS)}
+    phase_1d_full(torch, ks, Simulation, out_dir)
     for ndim in (2, 3):
         by_phase[str(2 + ndim)] = phase_full_slice(
             torch, ks, Simulation, mgb, out_dir, ndim, smi)

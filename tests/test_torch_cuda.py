@@ -16,7 +16,12 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 * the 2D and 3D slices, and the dielectric slice with live refinement, on
   the card against the same slices on the CPU (plain kernels); the
   cylindrical and the 3D slice with live refinement and photoionization
-  the same way, with the FMG cycle counts.
+  the same way, with the FMG cycle counts;
+* the fluid-model variants the same way: the planar 1D slice under the
+  local field approximation and under the electron energy equation (no
+  kernel launch: one dimension smooths with tensor operations, held here
+  on the card against the CPU), the cylindrical slice under ee53 with
+  photoionization, with the source factor and with a plasma region.
 """
 
 import re
@@ -333,6 +338,57 @@ def test_photoi_slice_cuda_matches_cpu(cfg, ndim, cuda, tmp_path):
         assert (a == b).all()
 
 
+EE = ["-model%type=ee53", "-input_data%old_style=f",
+      f"-input_data%file={DATA / 'td_air_synthetic_new.txt'}"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg, ndim, extra, steps", [
+    ("air_1d_slice.cfg", 1, [], 6),
+    ("air_1d_slice.cfg", 1, EE, 6),
+    ("air_cyl_ee_slice.cfg", 2, EE + ["-photoi%per_steps=2"], 4),
+    ("air_cyl_amr_slice.cfg", 2, ["-fixes%source_factor=flux",
+                                  "-fixes%write_source_factor=t"], 4),
+    ("air_cyl_amr_slice.cfg", 2, ["-plasma_region_enabled=t",
+                                  "-plasma_region_rmin=0 0.0135",
+                                  "-plasma_region_rmax=0.002 0.0155"], 4),
+], ids=["1d-lfa", "1d-ee53", "cyl-ee53-photoi", "cyl-source-factor",
+        "cyl-plasma-region"])
+def test_variant_slice_cuda_matches_cpu(cfg, ndim, extra, steps, cuda,
+                                        tmp_path):
+    """The fluid-model variants with live refinement (an early epoch
+    removes boxes): the same mesh and the state on the card as on the
+    CPU, rtol 1e-9 per variable; a 1D run launches no kernel, a 2D one
+    K1-K3; under ee53 the energy-loss limit is active on both."""
+    ks.reset_launch_counts()
+    sims = slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra, steps=steps)
+    launched = {k: fn.launches for k, fn in ks.KERNELS.items()}
+    if ndim == 1:
+        assert not any(launched.values())
+    else:
+        assert all(launched[k] > 0 for k in ("fill_sweep_2d", "sweep_2d",
+                                             "fill_2d"))
+    for a, b in zip(sims[0].tree.lvl_ids, sims[1].tree.lvl_ids):
+        assert (a == b).all()
+    if "-model%type=ee53" in extra:
+        for sim in sims:
+            assert sim.dt_limits[3] < 1e99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_1d_smoother_on_card_matches_cpu(dtype, cuda):
+    """sweep_1d and fill_1d (tensor operations, no kernel) give on the card
+    what they give on the CPU, to rounding."""
+    x = inputs(33, 8, dtype, "cpu", ndim=1)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for fn, names in ((ks.sweep_1d, ("phi3", "R", "mask", "g", "cs")),
+                      (ks.fill_1d, ("phi3", "A", "g", "W"))):
+        want = fn(*[x[k] for k in names])
+        got = fn(*[x[k].to(cuda) for k in names]).cpu()
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
 def slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=("-refine_max_dx=5e-4",),
                       steps=2, cycles=None):
     """Run ``cfg`` on the CPU and on the card and compare every variable;
@@ -342,8 +398,8 @@ def slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=("-refine_max_dx=5e-4",),
     sims = []
     for k, dev in enumerate(("cpu", "cuda")):
         sim = Simulation(argv=[
-            str(DATA / cfg), f"-ndim={ndim}", *extra,
-            f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
+            str(DATA / cfg), f"-ndim={ndim}",
+            f"-input_data%file={DATA / 'td_air_synthetic.txt'}", *extra,
             f"-output%name={tmp_path}/{dev}", f"-device={dev}"])
         if cycles is not None:
             def set_src(*args, _sim=sim, _set=sim.photoi.set_src, _k=k):

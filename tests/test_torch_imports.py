@@ -1,8 +1,12 @@
 """The port stands alone: importing any module of afivo_streamer_tpu_torch
 loads no JAX and nothing of afivo_streamer_tpu; -device=cuda without a
 card raises; configurations that ask for unported modules raise
-NotImplementedError naming the module."""
+NotImplementedError naming the module, and those for the modules that are
+ported (one dimension, the electron energy equation, new-style tables, the
+source factor, the plasma region) build a simulation. The same holds for
+chip_smoke.py and the scripts beside the data files."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +26,15 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+# the scripts beside the data files and the card's smoke test are no
+# modules of the package: load them by path (their main() does not run)
+import importlib.util, pathlib
+scripts = sorted(pathlib.Path(pkg.__path__[0], "data").glob("*.py"))
+scripts.append(pathlib.Path(pkg.__path__[0]).parent / "chip_smoke.py")
+for path in scripts:
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+names += [p.name for p in scripts]
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "afivo_streamer_tpu"))
 print(len(names), bad)
@@ -42,6 +55,41 @@ def test_port_imports_no_jax():
     assert out[1].strip() == "[]"
 
 
+def test_port_sources_name_no_jax_import():
+    """No import statement anywhere in the package's sources, its data
+    scripts or chip_smoke.py (imports inside functions included) names
+    jax or the JAX package."""
+    sources = sorted((ROOT / "afivo_streamer_tpu_torch").rglob("*.py"))
+    sources.append(ROOT / "chip_smoke.py")
+    assert len(sources) > 40
+    assert DATA / "make_td_table.py" in sources
+    bad = []
+    for path in sources:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            bad += [(path.name, m) for m in mods if m.split(".")[0] in (
+                "jax", "jaxlib", "afivo_streamer_tpu")]
+    assert not bad
+
+
+def test_committed_data_files_are_present():
+    """The configurations and tables the tests, README and chip_smoke.py
+    name; every configuration names a committed table."""
+    for name in ("air_1d_slice.cfg", "air_cyl_ee_slice.cfg",
+                 "td_air_synthetic_new.txt", "td_air_synthetic.txt"):
+        assert (DATA / name).is_file(), name
+    for cfg in DATA.glob("*.cfg"):
+        table = [line.split("=")[1].strip() for line in
+                 cfg.read_text().splitlines()
+                 if line.strip().startswith("input_data%file")]
+        assert len(table) == 1 and (ROOT / table[0]).is_file(), cfg.name
+
+
 def test_device_cuda_without_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -54,12 +102,48 @@ def test_device_cuda_without_card_raises(tmp_path):
     (["-photoi%enabled=t", "-photoi%method=montecarlo"],
      "physics/photoi_mc.py"),
     (["-use_electrode=t"], "solvers/lsf.py"),
-    (["-model%type=ee53"], "physics/model.py"),
+    (["-gas%dynamics=t"], "physics/gas_dynamics.py"),
     (["-output%npz=t"], "io/output.py"),
+    (["-restart_from_file=run.npz"], "io/checkpoint.py"),
+    (["-compiled%enabled=t"], "parallel/compiled.py"),
+    (["-time_integrator=imex_euler"], "physics/advance.py"),
+    (["-user%module=USER_HOOKS"], "physics/user_methods.py"),
+    (["-use_dielectric=t", "-ndim=3", "-cylindrical=f"],
+     "physics/dielectric.py"),
 ])
 def test_unported_configuration_raises(tmp_path, extra, module):
+    if "-user%module=USER_HOOKS" in extra:
+        hooks = tmp_path / "hooks.py"
+        hooks.write_text("def user_initialize(cfg, sim):\n"
+                         "    sim.user.generic = lambda sim, time: None\n")
+        extra = [f"-user%module={hooks}"]
     with pytest.raises(NotImplementedError, match=module):
         Simulation(argv=argv(tmp_path, "-device=cpu", *extra))
+
+
+NEW_TABLE = ["-input_data%old_style=f",
+             f"-input_data%file={DATA / 'td_air_synthetic_new.txt'}"]
+
+
+@pytest.mark.parametrize("cfg, extra", [
+    ("air_1d_slice.cfg", ["-ndim=1"]),
+    ("air_1d_slice.cfg", ["-ndim=1", "-model%type=ee53"] + NEW_TABLE),
+    ("air_cyl_slice.cfg", ["-model%type=ee"] + NEW_TABLE),
+    ("air_cyl_slice.cfg", NEW_TABLE),
+    ("air_cyl_slice.cfg", ["-fixes%source_factor=flux"]),
+    ("air_cyl_slice.cfg", ["-plasma_region_enabled=t",
+                           "-plasma_region_rmax=0.008 0.016"]),
+], ids=["1d", "1d-ee53", "cyl-ee-alias", "new-style-table", "source-factor",
+        "plasma-region"])
+def test_ported_configuration_builds(tmp_path, cfg, extra):
+    sim = Simulation(argv=[str(DATA / cfg), "-ndim=2",
+                           f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
+                           f"-output%name={tmp_path}/run", "-device=cpu",
+                           "-refine_max_dx=5e-4", *extra])
+    assert sim.model.has_energy_equation == any("model%type" in a
+                                                for a in extra)
+    assert (sim.fluid.mask_provider is not None) == \
+        sim.st.plasma_region_enabled
 
 
 def test_ndim_3_raises(tmp_path):

@@ -11,7 +11,13 @@ photoionization (updated every 2 steps and after a changing epoch):
 air_cyl_amr_slice.cfg (16,960 cells on 6 levels, an epoch that removes
 64 boxes), the same in Cartesian 2D, and air_3d_amr_slice.cfg in 3D
 (an epoch that removes boxes); the same FMG cycle count of every
-Helmholtz mode at every update.
+Helmholtz mode at every update. The fluid-model variants the same way:
+the planar 1D slice air_1d_slice.cfg (144 cells on 5 levels, an epoch that
+removes boxes, 16 steps) under the local field approximation and under the
+electron energy equation (ee53, the new-style table); air_cyl_ee_slice.cfg
+(ee53 with live refinement and photoionization); the frozen 3D slice under
+ee53; and air_cyl_amr_slice.cfg with the source factor and with a plasma
+region. Every live case also holds dt at every attempted step.
 
 Tolerance rtol 1e-8 on every cc variable, with an absolute floor of 1e-8
 times the variable's largest magnitude (the FAS rhs of parent boxes is a
@@ -239,7 +245,23 @@ def record_photoi(jsim, tsim, out):
     jsim.photoi.set_src, tsim.photoi.set_src = j_wrapped, t_wrapped
 
 
+def record_dts(sim, out):
+    """Record dt of every attempted step of ``sim`` (rejected ones too)."""
+    orig = sim._substep
+
+    def wrapped(cc, fc, dt, dt_lim, time, s_deriv, s_prev, w_prev, s_out,
+                i_step, n_steps, params):
+        if i_step == 1:
+            out.append(dt)
+        return orig(cc, fc, dt, dt_lim, time, s_deriv, s_prev, w_prev, s_out,
+                    i_step, n_steps, params)
+    sim._substep = wrapped
+
+
 PHOTOI = ["-photoi%per_steps=2"]
+#: the electron energy equation on the new-style table
+EE = ["-model%type=ee53", "-input_data%old_style=f",
+      f"-input_data%file={DATA / 'td_air_synthetic_new.txt'}"]
 
 
 @pytest.mark.parametrize("cfg, extra, steps", [
@@ -249,8 +271,20 @@ PHOTOI = ["-photoi%per_steps=2"]
     ("air_cyl_amr_slice.cfg", PHOTOI, 8),
     ("air_cyl_amr_slice.cfg", PHOTOI + ["-cylindrical=f"], 8),
     ("air_3d_amr_slice.cfg", PHOTOI + ["-ndim=3"], 6),
+    ("air_1d_slice.cfg", ["-ndim=1"], 16),
+    ("air_1d_slice.cfg", ["-ndim=1"] + EE, 16),
+    ("air_cyl_ee_slice.cfg", PHOTOI + EE, 8),
+    ("air_cyl_ee_slice.cfg", PHOTOI + EE + ["-cylindrical=f"], 6),
+    ("air_3d_slice.cfg", ["-ndim=3", "-refine_max_dx=5e-4"] + EE, 5),
+    ("air_cyl_amr_slice.cfg", PHOTOI + [
+        "-fixes%source_factor=flux", "-fixes%write_source_factor=t"], 8),
+    ("air_cyl_amr_slice.cfg", PHOTOI + [
+        "-plasma_region_enabled=t", "-plasma_region_rmin=0 0.0135",
+        "-plasma_region_rmax=0.002 0.0155"], 8),
 ], ids=["dielectric", "cyl-live-amr", "cyl-live-amr-photoi", "cart2d-photoi",
-        "3d-live-amr-photoi"])
+        "3d-live-amr-photoi", "1d-lfa", "1d-ee53", "cyl-ee53-photoi",
+        "cart2d-ee53-photoi", "3d-ee53", "cyl-source-factor",
+        "cyl-plasma-region"])
 def test_live_refinement_slice_matches_jax(tmp_path, cfg, extra, steps):
     """The same mesh at setup and after every refinement epoch, then the
     state (densities, phi, E, surface charge, and with photoionization the
@@ -274,6 +308,9 @@ def test_live_refinement_slice_matches_jax(tmp_path, cfg, extra, steps):
     epochs = {"j": [], "t": []}
     record_epochs(j, epochs["j"])
     record_epochs(t, epochs["t"])
+    dts = {"j": [], "t": []}
+    record_dts(j, dts["j"])
+    record_dts(t, dts["t"])
     updates = {"j": [], "t": []}
     if t.photoi.enabled:
         assert t.registry.cc_names == j.registry.cc_names
@@ -287,7 +324,16 @@ def test_live_refinement_slice_matches_jax(tmp_path, cfg, extra, steps):
         assert len(updates["j"]) >= steps // 2 + 1
         assert updates["t"] == updates["j"]
         assert t._photoi_prev_time == j._photoi_prev_time
+    if cfg.startswith("air_1d"):
+        assert any(a + r for _m, a, r in epochs["j"]), "no epoch changed"
     assert len(epochs["t"]) == len(epochs["j"]) == steps // 2
+    assert len(dts["t"]) == len(dts["j"]) >= steps
+    np.testing.assert_allclose(dts["t"], dts["j"], rtol=RTOL, atol=0.0)
+    if "-model%type=ee53" in extra:
+        assert t.registry.cc_names == j.registry.cc_names
+        assert "e_energy" in t.chem.species_list
+        assert t.dt_limits[3] < 1e99
+        np.testing.assert_allclose(t.dt_limits, j.dt_limits, rtol=RTOL)
     for (mj, aj, rj), (mt, at, rt) in zip(epochs["j"], epochs["t"]):
         assert (at, rt) == (aj, rj) and len(mt) == len(mj)
         for a, b in zip(mj, mt):
