@@ -11,7 +11,8 @@ from __future__ import annotations
 import torch
 
 
-def _interior(nc: int, ndim: int):
+def interior(nc: int, ndim: int):
+    """Index of the interior cells of blocks [n] + [nc+2]^ndim."""
     return (slice(None),) + (slice(1, nc + 1),) * ndim
 
 
@@ -22,14 +23,14 @@ def cc_rows(cc, iv: int, ids, nc: int, ndim: int):
 
 def cc_get_interior(cc, iv: int, ids, nc: int, ndim: int):
     """Interior cells of cc rows: [n, nc^ndim]."""
-    return cc_rows(cc, iv, ids, nc, ndim)[_interior(nc, ndim)].reshape(
+    return cc_rows(cc, iv, ids, nc, ndim)[interior(nc, ndim)].reshape(
         len(ids), -1)
 
 
 def cc_set_interior(cc, iv: int, ids, vals, nc: int, ndim: int):
     """Write interior cells [n, nc^ndim] into cc rows (in place)."""
     B = cc_rows(cc, iv, ids, nc, ndim)
-    B[_interior(nc, ndim)] = vals.reshape((len(ids),) + (nc,) * ndim)
+    B[interior(nc, ndim)] = vals.reshape((len(ids),) + (nc,) * ndim)
     cc[iv, ids] = B.reshape(len(ids), -1)
     return cc
 
@@ -37,7 +38,7 @@ def cc_set_interior(cc, iv: int, ids, vals, nc: int, ndim: int):
 def cc_add_interior(cc, iv: int, ids, vals, nc: int, ndim: int):
     """Add to interior cells [n, nc^ndim] of cc rows (in place)."""
     B = cc_rows(cc, iv, ids, nc, ndim)
-    B[_interior(nc, ndim)] += vals.reshape((len(ids),) + (nc,) * ndim)
+    B[interior(nc, ndim)] += vals.reshape((len(ids),) + (nc,) * ndim)
     cc[iv, ids] = B.reshape(len(ids), -1)
     return cc
 

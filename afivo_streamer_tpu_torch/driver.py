@@ -17,8 +17,14 @@ plasma region masks the update outside a box of coordinates.
 
 Dielectrics (``use_dielectric``) add the permittivity variable, the
 surfaces on its jumps and their charge (solvers/surface.py,
-physics/dielectric.py). A configuration that asks for another module this
-package does not hold raises NotImplementedError naming that module.
+physics/dielectric.py). An electrode (``use_electrode``) adds the ``lsf``
+variable (the level set on every box, ghost layer included), the level-set
+field solve (solvers/lsf.py, physics/field.py), no update and no density
+inside the electrode, the species boundary condition on its surface before
+every step (electrode_species_bc, streamer.f90:520-569) and the refinement
+of its boundary boxes, coarser between voltage pulses. A configuration
+that asks for another module this package does not hold raises
+NotImplementedError naming that module.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from . import DEFAULT_DTYPE
 from . import constants as uc
 from .core import ghostcell as gc
 from .core import prolong_restrict as pr
+from .core import rowops as ro
 from .core.batch import BoxBatch, capacity
 from .core import spatial as sp
 from .core.levels import MeshPlans
@@ -77,7 +84,6 @@ def _refuse(cfg, user):
     package does not hold."""
     checks = [
         ("gas%dynamics", False, "physics/gas_dynamics.py"),
-        ("use_electrode", False, "solvers/lsf.py (electrodes)"),
         ("compiled%enabled", False, "parallel/compiled.py"),
     ]
     for key, default, module in checks:
@@ -87,7 +93,8 @@ def _refuse(cfg, user):
                    "Not available in this package") != "UNDEFINED":
         raise NotImplementedError("io/checkpoint.py")
     hooks = [k for k, v in vars(user).items()
-             if v is not None and k != "initial_conditions"]
+             if v is not None
+             and k not in ("initial_conditions", "lsf", "lsf_bc")]
     if hooks:
         raise NotImplementedError(
             f"physics/user_methods.py: user hooks {hooks}")
@@ -160,6 +167,7 @@ class Simulation:
                 "fixes%write_source_factor", False,
                 "Whether to write the source factor to the output"):
             self.i_srcfac = reg.add_cc("srcfac")
+        self.i_lsf = reg.add_cc("lsf") if self.st.use_electrode else -1
         self.i_eps = self.i_surf_photon = self.i_surf_sigma = -1
         if self.st.use_dielectric:
             self.i_eps = reg.add_cc("eps")
@@ -221,6 +229,8 @@ class Simulation:
                                  charged_cc, ch_q)
         if self.st.use_dielectric:
             self.field.mg.eps_data = self._eps_level_data
+        if self.st.use_electrode and self.field.electrode_type == "user":
+            self.field.set_user_lsf(self.user.lsf, self.user.lsf_bc)
         reg.set_cc_methods(self.i_phi, self.field.phi_bc, rb=gc.RB_MG,
                            prolong="linear")
         reg.set_cc_methods(self.i_electric_fld, bc_species_neumann_zero,
@@ -253,7 +263,8 @@ class Simulation:
                     [reg.cc_names.index(nm) for nm in names])
         self.refiner = RefineCriterion(self.refine_cfg, self.tree, self.td,
                                        self.gas, self.init_cond,
-                                       self.i_electric_fld, self.i_electron)
+                                       self.i_electric_fld, self.i_electron,
+                                       lsf_data=self.field.lsf_data)
         self.output = Output(cfg)
 
         # ---- fluid model
@@ -272,7 +283,8 @@ class Simulation:
                                 prolong_limiter=pr.default_prolong_limiter(
                                     ndim))
         self.fluid.field_compute = self.field.compute
-        if self.st.use_dielectric or self.st.plasma_region_enabled:
+        if (self.st.use_electrode or self.st.use_dielectric
+                or self.st.plasma_region_enabled):
             self.fluid.mask_provider = self._level_mask
         self.surfaces = None
         self.dielectric = None
@@ -291,6 +303,9 @@ class Simulation:
         self.refine_prepulse_time = cfg.add_get(
             "refine_prepulse_time", 1.0e-9,
             "Start refining electrode some time before the next pulse")
+        self.electrode_derefine_factor = cfg.add_get(
+            "electrode_derefine_factor", 1.0,
+            "Multiplication factor to derefine electrode during interpulse")
         self.setup_initial_conditions()
 
     # ------------------------------------------------------------ helpers
@@ -301,13 +316,17 @@ class Simulation:
 
     def _level_mask(self, lvl: int):
         """Cells of a level's leaves the fluid update may change
-        (set_box_mask, m_fluid.f90:469-515): none inside a dielectric and
-        none outside the plasma region."""
+        (set_box_mask, m_fluid.f90:469-515): none inside an electrode or a
+        dielectric and none outside the plasma region."""
         def make():
             tb = self.mesh.tb(lvl)
             nc, ndim = self.tree.nc, self.ndim
             mask = torch.ones((len(tb.leaves), nc ** ndim), dtype=torch.bool,
                               device=self.device)
+            if self.field.lsf_data is not None:
+                lsf_cc = self.field.lsf_data.level_data(lvl)["lsf_cc"]
+                mask &= torch.as_tensor(lsf_cc[tb.leaves_pos] > 0.0,
+                                        device=self.device)
             if self.st.use_dielectric:
                 inner = torch.as_tensor(sp.interior_flat(ndim, nc),
                                         dtype=torch.int64, device=self.device)
@@ -345,13 +364,104 @@ class Simulation:
         self.cc, self.fc = cc, fc
 
     def _set_initial_values(self, ids):
-        """Initial conditions and the user hook on boxes ``ids``."""
+        """The level set, the initial conditions and the user hook on boxes
+        ``ids``; no density inside an electrode."""
+        self._fill_lsf(ids)
         self.cc = self.init_cond.apply(self.cc, self.tree, ids)
         if self.user.initial_conditions is not None:
             self.user.initial_conditions(self, np.asarray(ids, np.int64))
         elif self.st.use_dielectric:
             raise ValueError(
                 "use_dielectric requires user initial conditions")
+        self._zero_inside_electrode(ids)
+
+    # ---------------------------------------------------------- electrode
+    def _fill_lsf(self, ids):
+        """Evaluate the level-set function on boxes (funcval variable,
+        set_lsf_box in m_field.f90): all cells incl. one ghost layer."""
+        if self.field.lsf_data is None or len(ids) == 0:
+            return
+        t = self.tree
+        ids = np.asarray(ids, np.int64)
+        axes = np.meshgrid(*[np.arange(-1, t.nc + 1) + 0.5] * self.ndim,
+                           indexing="ij")
+        off = np.stack([a.ravel() for a in axes], -1)  # [(nc+2)^ndim, ndim]
+        coords = (t.box_r_min(ids)[:, None, :]
+                  + off[None, :, :] * t.box_dr(ids)[:, None, :])
+        lsf = self.field.lsf_data.lsf(coords.reshape(-1, self.ndim))
+        self.cc[self.i_lsf, torch.as_tensor(ids, device=self.device)] = \
+            torch.as_tensor(lsf.reshape(len(ids), -1), dtype=self.dtype,
+                            device=self.device)
+
+    def _zero_inside_electrode(self, ids):
+        """Zero all densities where lsf <= 0 (init_cond_set_box,
+        m_init_cond.f90:283-287)."""
+        if self.i_lsf < 0 or len(ids) == 0:
+            return
+        ids = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        inside = self.cc[self.i_lsf, ids] <= 0.0
+        for iv in self.all_densities:
+            self.cc[iv, ids] = torch.where(inside, 0.0, self.cc[iv, ids])
+
+    def _electrode_tables(self, lvl: int):
+        """Device tables of a level's boxes that hold the electrode
+        boundary, from their level-set values: the ids, the cells inside,
+        per direction the neighbor cells outside, their count (at least 1)
+        and the inside cells with a neighbor outside; None where there is
+        no such box."""
+        def make():
+            data = self.field.lsf_data.level_data(lvl)
+            sel = np.nonzero(data["has_bnd"])[0]
+            if len(sel) == 0:
+                return None
+            nc, ndim = self.tree.nc, self.ndim
+            boxes = torch.as_tensor(data["ids"][sel], dtype=torch.int64,
+                                    device=self.device)
+            lsf_b = ro.cc_rows(self.cc, self.i_lsf, boxes, nc, ndim)
+            inside = lsf_b[ro.interior(nc, ndim)] < 0
+            shifts, out_nb = [], []
+            for d in range(ndim):
+                for delta in (-1, 1):
+                    sl = [slice(1, nc + 1)] * ndim
+                    sl[d] = slice(1 + delta, nc + 1 + delta)
+                    shifts.append((slice(None),) + tuple(sl))
+                    out_nb.append(lsf_b[shifts[-1]] > 0)
+            den = sum(m.to(self.dtype) for m in out_nb)
+            return {"boxes": boxes, "inside": inside, "shifts": shifts,
+                    "out_nb": out_nb, "den": torch.clamp(den, min=1.0),
+                    "at_bnd": inside & (den > 0)}
+        return self.mesh.cached(("electrode_bc", lvl), make, (lvl,))
+
+    def _set_electrode_densities(self):
+        """Species boundary conditions at the electrode
+        (electrode_species_bc, streamer.f90:520-569): zero densities inside,
+        and for Neumann species BCs set the electron density in boundary
+        cells to the average of the neighbors outside the electrode, with
+        the first positive ion following it there."""
+        nc, ndim = self.tree.nc, self.ndim
+        inner = ro.interior(nc, ndim)
+        neumann = self.st.species_boundary_condition == "neumann_zero"
+        for lvl in range(1, self.tree.highest_lvl + 1):
+            tab = self._electrode_tables(lvl)
+            if tab is None:
+                continue
+            boxes, n = tab["boxes"], len(tab["boxes"])
+            for iv in self.all_densities:
+                B = ro.cc_rows(self.cc, iv, boxes, nc, ndim)
+                B[inner] = torch.where(tab["inside"], 0.0, B[inner])
+                self.cc[iv, boxes] = B.reshape(n, -1)
+            if not neumann:
+                continue
+            ne = ro.cc_rows(self.cc, self.i_electron, boxes, nc, ndim)
+            num = 0.0
+            for sl, out_nb in zip(tab["shifts"], tab["out_nb"]):
+                num = num + torch.where(out_nb, ne[sl], 0.0)
+            ne_new = torch.where(tab["at_bnd"], num / tab["den"], ne[inner])
+            ne[inner] = ne_new
+            self.cc[self.i_electron, boxes] = ne.reshape(n, -1)
+            ni = ro.cc_rows(self.cc, self.i_1pos_ion, boxes, nc, ndim)
+            ni[inner] = torch.where(tab["at_bnd"], ne_new, ni[inner])
+            self.cc[self.i_1pos_ion, boxes] = ni.reshape(n, -1)
 
     # ------------------------------------------------- initial conditions
     def setup_initial_conditions(self):
@@ -414,6 +524,7 @@ class Simulation:
         params = {"voltage": self.field.current_voltage}
         methods = self.registry.methods
         for lvl in sorted(info.added_per_lvl):
+            self._fill_lsf(info.added_per_lvl[lvl])
             plan = pr.ProlongRestrictPlan(self.tree, info.added_per_lvl[lvl],
                                           self.device)
             for iv in self.registry.auto_vars:
@@ -488,9 +599,14 @@ class Simulation:
             if (abs(self.field.current_voltage) > 0.0
                     or time_until_next_pulse < self.refine_prepulse_time):
                 current_output_dt = self.output.dt
+                self.refiner.current_electrode_dx = \
+                    self.refine_cfg.electrode_dx
             else:
                 current_output_dt = (self.output.dt
                                      * self.output.dt_factor_pulse_off)
+                self.refiner.current_electrode_dx = (
+                    self.electrode_derefine_factor
+                    * self.refine_cfg.electrode_dx)
 
             write_out = (time + dt >= time_last_output + current_output_dt)
             if write_out:
@@ -504,6 +620,9 @@ class Simulation:
             # photoionization update (streamer.f90:236-242)
             if self.photoi.enabled and self.it % self.photoi.per_steps == 0:
                 self._photoi_set_src(time)
+
+            if self.st.use_electrode:
+                self._set_electrode_densities()
 
             # attempt loop with state copy/rejection (streamer.f90:251-288)
             params = {"voltage": self.field.current_voltage}
@@ -611,5 +730,5 @@ class Simulation:
         for iv in self._time_state_vars():
             self.cc[iv] = self.cc[iv + n_states]
         self.cc[self.i_phi] = self.cc[self.i_phi + 1]
-        self.cc, self.fc = self.field.from_potential(self.cc, self.fc,
-                                                     params)
+        self.cc, self.fc = self.field.from_potential(
+            self.cc, self.fc, self.field.solve_params(params))

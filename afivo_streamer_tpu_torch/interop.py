@@ -11,7 +11,9 @@ compared step by step. The arrays carry whatever variables the
 configuration registers, in the order both packages register them: under
 the electron energy equation ``e_energy`` with its time-state copies and
 the face variable ``flux_energy``, with ``fixes%write_source_factor`` the
-``srcfac`` variable; a 1D mesh has ``ix`` [n, 1] and two neighbor columns.
+``srcfac`` variable, with an electrode the ``lsf`` variable (the level set
+on every cell; everything else of an electrode follows from the
+configuration); a 1D mesh has ``ix`` [n, 1] and two neighbor columns.
 """
 
 from __future__ import annotations

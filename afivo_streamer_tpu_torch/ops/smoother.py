@@ -32,7 +32,8 @@ In 1D the JAX package smooths with array operations and has no kernel, so
 no launch.
 
 ``SmootherTables`` builds the per-level runtime tables the kernels read
-(neighbor rows ``g``, ghost weights ``W``, the stencil blocks ``cs``).
+(neighbor rows ``g``, ghost weights ``W``, the stencil blocks ``cs`` and,
+with an electrode, the rhs factor ``corr`` of its boundary potential).
 """
 
 from __future__ import annotations
@@ -560,4 +561,16 @@ class SmootherTables:
                       for c in cols]
             self._cache[key] = torch.as_tensor(
                 np.stack(blocks, axis=1), dtype=dtype, device=self.device)
+        return self._cache[key]
+
+    def corr(self, op, dtype):
+        """The factor f * bc_coeff [n] + [nc]^ndim of a level-set boundary
+        potential in the rhs (LevelOp), built once per dtype; None for an
+        operator without a level-set boundary on this level."""
+        if op.f is None:
+            return None
+        key = ("corr", dtype)
+        if key not in self._cache:
+            self._cache[key] = torch.as_tensor(
+                op.f * op.bc_coeff, dtype=dtype, device=self.device)
         return self._cache[key]

@@ -7,9 +7,8 @@ region refined until refine_init_time, user regions/limits, and dx clamps.
 
 The alpha*dx test runs on the device (the field and electron density stay
 there; only one int8 code per cell comes back to the host); the seed rule,
-the regions and the dx clamps are box-geometry rules evaluated on the host,
-vectorized over the boxes. The electrode rule (refine_electrode_dx) needs
-the level-set function of solvers/lsf.py and is refused.
+the electrode rule, the regions and the dx clamps are box-geometry rules
+evaluated on the host, vectorized over the boxes.
 """
 
 from __future__ import annotations
@@ -94,11 +93,8 @@ class RefineSettings:
 
 class RefineCriterion:
     def __init__(self, settings: RefineSettings, tree, transport, gas,
-                 init_cond, i_electric_fld: int, i_electron: int):
-        if settings.electrode_dx < 1e99:
-            raise NotImplementedError(
-                "physics/refine.py: refine_electrode_dx (the electrode rule "
-                "needs solvers/lsf.py)")
+                 init_cond, i_electric_fld: int, i_electron: int,
+                 lsf_data=None):
         self.rs = settings
         self.tree = tree
         self.td = transport
@@ -106,6 +102,11 @@ class RefineCriterion:
         self.ic = init_cond
         self.i_electric_fld = i_electric_fld
         self.i_electron = i_electron
+        #: solvers/lsf.LsfData of the electrode, and the spacing its
+        #: boundary boxes are refined to (Simulation.run raises it between
+        #: voltage pulses)
+        self.lsf_data = lsf_data
+        self.current_electrode_dx = settings.electrode_dx
         self.time = 0.0
 
     def _alpha_dx_codes(self, cc, ids: np.ndarray,
@@ -174,6 +175,12 @@ class RefineCriterion:
                 flags[sel] = np.where(
                     dist - w < 2 * max_dx[sel].reshape((-1,) + (1,) * ndim),
                     DO_REF, flags[sel])
+
+        # refine around the electrode (m_refine.f90:262-265)
+        if self.lsf_data is not None:
+            hit = (self.lsf_data.box_has_boundary(ids)
+                   & (max_dx > self.current_electrode_dx))
+            flags[hit] = DO_REF
 
         # fixed refinement regions, then limits (m_refine.f90:268-289)
         rmin = t.box_r_min(ids)

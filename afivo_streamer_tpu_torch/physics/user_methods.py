@@ -20,8 +20,10 @@ import path) defining ``user_initialize(cfg, sim)``, which sets hooks on
 * ``lsf(r) -> values`` and ``lsf_bc`` — custom electrode geometry
 
 The simulation takes ``initial_conditions`` (called on the boxes of the
-initial mesh and on the new boxes of every setup refinement pass) and
-refuses the other hooks, which need modules this package does not hold.
+initial mesh and on the new boxes of every setup refinement pass) and, with
+``field_electrode_type = user``, ``lsf`` and ``lsf_bc`` (NumPy callables on
+points [n, ndim]); it refuses the other hooks, which need modules this
+package does not hold.
 """
 
 from __future__ import annotations

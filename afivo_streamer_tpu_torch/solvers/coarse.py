@@ -10,8 +10,12 @@ device.
 
 Supports the constant Laplacian/Helmholtz operator with cylindrical radial
 factors, or any per-cell level-1 operator (``level1_op``, a
-multigrid.LevelOp such as the variable-permittivity one): the dense solve
-must use the fine levels' stencil, or FAS stalls.
+multigrid.LevelOp such as the variable-permittivity one or that of a level
+set): the dense solve must use the fine levels' stencil, or FAS stalls.
+The eliminated couplings of a level set's boundary add the
+voltage-proportional rhs term f bc_coeff phi_b (hypre_set_matrix /
+bc_to_rhs, ``m_coarse_solver.f90:104-194``); the cells inside the
+electrode are part of the system.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ class CoarseSolver:
         # global per-cell coefficients
         C0 = np.zeros(N)
         CNb = [np.zeros(N) for _ in range(2 * ndim)]
+        lsf_rhs = None  # f * bc_coeff per unknown with a level set
         if level1_op is not None:
             shape = (len(ids1), nc ** ndim)
             rows = rows_map.ravel()
@@ -69,6 +74,9 @@ class CoarseSolver:
                 dst[rows] = np.broadcast_to(
                     np.asarray(c).reshape(len(ids1), -1) if np.ndim(c)
                     else np.full(shape, c), shape).ravel()
+            if level1_op.f is not None:
+                lsf_rhs = np.zeros(N)
+                lsf_rhs[rows] = (level1_op.f * level1_op.bc_coeff).ravel()
         for idx in (() if level1_op is not None else
                     itertools.product(*[range(s) for s in self.shape])):
             r = int(np.ravel_multi_index(idx, self.shape))
@@ -149,6 +157,8 @@ class CoarseSolver:
         self.A_inv = np.linalg.inv(A)
         self.d = sp.device_copy(
             {"A_inv": self.A_inv, "rows_map": rows_map}, device)
+        self.d.lsf_rhs = (None if lsf_rhs is None else torch.as_tensor(
+            lsf_rhs, dtype=torch.float64, device=device))
         self.d.bc_rows = [torch.as_tensor(r, dtype=torch.int64, device=device)
                           for r in self.bc_rows]
         self.d.bc_coeff = [torch.as_tensor(c, dtype=torch.float64,
@@ -164,6 +174,10 @@ class CoarseSolver:
         rm = self.d.rows_map
         rhs = torch.zeros(self.A_inv.shape[0], dtype=dtype, device=P1.device)
         rhs[rm.reshape(-1)] = R1[:self.n1].reshape(-1)
+        phi_b = float(params.get("lsf_phi_b", 0.0))
+        if self.d.lsf_rhs is not None and phi_b != 0.0:
+            # the level set's boundary: rhs + f bc_coeff phi_b
+            rhs = rhs + self.d.lsf_rhs.to(dtype) * phi_b
         for d in range(len(self.bc_rows)):
             if len(self.bc_rows[d]) == 0:
                 continue

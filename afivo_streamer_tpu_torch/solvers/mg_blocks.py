@@ -265,6 +265,19 @@ def build_A_blocks(mg, lvl: int, Pc, params, dtype):
         (n, 2 * ndim) + (nc,) * (ndim - 1)).contiguous()
 
 
+def rhs_with_boundary(mg, lvl: int, R_l, params):
+    """The rhs of one level with the level-set boundary term:
+    R + f bc_coeff phi_b on a level that holds an electrode boundary
+    (stencil_gsrb_357 and the residual take the boundary potential
+    ``params["lsf_phi_b"]`` into the rhs; pallas_smoother.py
+    build_consts), else R itself."""
+    corr = mg.corr(lvl, R_l.dtype)
+    phi_b = float((params or {}).get("lsf_phi_b", 0.0))
+    if corr is None or phi_b == 0.0:
+        return R_l
+    return R_l + corr * phi_b
+
+
 def smooth_blocks(mg, lvl: int, P_l, R_l, A_l, cs_l, n_cycle: int,
                   up_cycle: bool):
     """gsrb_boxes on a level's block array (``m_af_multigrid.f90:648-687``):
@@ -315,14 +328,19 @@ def _A(mg, lvl, P, params, dtype):
 
 def _restrict_level(mg, l, P, R, params):
     """Restrict level l's phi and residual into level l-1 and set the FAS
-    rhs of its parents: rhs_c = L(phi_c) + restrict(residual)."""
+    rhs of its parents: rhs_c = L(phi_c) + restrict(residual), with each
+    level's operator carrying its own level-set boundary term."""
     nc = mg.tree.nc
     li = l - 1
     dtype = P[0].dtype
-    res = R[li] - apply_cs(P[li], mg.cs(l, dtype), nc)
+    res = rhs_with_boundary(mg, l, R[li], params) - apply_cs(
+        P[li], mg.cs(l, dtype), nc)
     Pc, res_c = restrict_to_parent(P[li], res, P[li - 1], mg.blocks(l), nc)
     Pc = fill_blocks(mg, l - 1, Pc, _A(mg, l - 1, P, params, dtype))
     Lp = apply_cs(Pc, mg.cs(l - 1, dtype), nc)
+    corr_c = mg.corr(l - 1, dtype)
+    if corr_c is not None:
+        Lp = Lp - corr_c * float(params.get("lsf_phi_b", 0.0))
     pm = mg.blocks(l).parent_mask.reshape((-1,) + (1,) * mg.tree.ndim)
     R[li - 1] = torch.where(pm, Lp + res_c, R[li - 1])
     P[li - 1] = Pc
@@ -337,8 +355,10 @@ def fas_vcycle_blocks(mg, P, R, params, top: Optional[int] = None):
     tmp: List = [None] * L
     for l in range(L, 1, -1):
         li = l - 1
-        P[li] = smooth_blocks(mg, l, P[li], R[li], _A(mg, l, P, params, dtype),
-                              mg.cs(l, dtype), mg.n_cycle_down, False)
+        P[li] = smooth_blocks(mg, l, P[li],
+                              rhs_with_boundary(mg, l, R[li], params),
+                              _A(mg, l, P, params, dtype), mg.cs(l, dtype),
+                              mg.n_cycle_down, False)
         _restrict_level(mg, l, P, R, params)
         tmp[li - 1] = P[li - 1]
     # coarse level
@@ -351,8 +371,9 @@ def fas_vcycle_blocks(mg, P, R, params, top: Optional[int] = None):
                                        mg.blocks(l), mg.tree.nc)
         A_l = _A(mg, l, P, params, dtype)
         P[li] = fill_blocks(mg, l, P[li], A_l)
-        P[li] = smooth_blocks(mg, l, P[li], R[li], A_l, mg.cs(l, dtype),
-                              mg.n_cycle_up, True)
+        P[li] = smooth_blocks(mg, l, P[li],
+                              rhs_with_boundary(mg, l, R[li], params), A_l,
+                              mg.cs(l, dtype), mg.n_cycle_up, True)
     return P, R
 
 
@@ -380,15 +401,17 @@ def fas_fmg_blocks(mg, P, R, params):
     return P, R
 
 
-def max_leaf_residual_blocks(mg, P, R):
+def max_leaf_residual_blocks(mg, P, R, params=None):
     """Max |rhs - L(phi)| over the leaves (af_tree_maxabs_cc of the
-    residual) as a 0-d tensor."""
+    residual) as a 0-d tensor; ``params`` carries the level-set boundary
+    potential of a solve with an electrode."""
     dtype = P[0].dtype
     m = torch.zeros((), dtype=dtype, device=P[0].device)
     for l in range(1, mg.n_levels + 1):
         tb = mg.mesh.tb(l)
         if len(tb.leaves) == 0:
             continue
-        res = R[l - 1] - apply_cs(P[l - 1], mg.cs(l, dtype), mg.tree.nc)
+        res = rhs_with_boundary(mg, l, R[l - 1], params) - apply_cs(
+            P[l - 1], mg.cs(l, dtype), mg.tree.nc)
         m = torch.maximum(m, res[tb.d.leaves_pos].abs().max())
     return m

@@ -28,6 +28,7 @@ from ..core.rowops import fc_get_faces, fc_set_faces
 from ..ops.smoother import SmootherTables
 from . import mg_blocks as mgb
 from .coarse import CoarseSolver
+from .lsf import lsf_stencil_coefficients
 
 
 def parity_mask(ndim: int, nc: int, redblack: int) -> np.ndarray:
@@ -50,9 +51,17 @@ class LevelOp:
     ghost layer included): the variable-permittivity operator
     (mg_box_lpld_stencil, ``m_af_multigrid.f90:1476-1560``) with the
     harmonic-mean couplings 2 eps0 eps_nb / (eps0 + eps_nb), and ``veps``
-    flags the boxes where eps varies anywhere in the block."""
+    flags the boxes where eps varies anywhere in the block.
 
-    def __init__(self, tree, lvl: int, lam: float, eps=None):
+    With a level set (``lsf_data``, solvers/lsf.LsfData): on the boxes that
+    hold the electrode boundary the generalized-distance stencil
+    (mg_box_lsf_stencil) replaces the rows above, after eps as in the JAX
+    package; ``f`` is the factor of the eliminated boundary couplings and
+    ``bc_coeff`` the per-cell multiplier of the boundary potential, so the
+    operator with a boundary at potential phi_b is
+    L(phi) - f bc_coeff phi_b. On those boxes c_sum is not -lambda."""
+
+    def __init__(self, tree, lvl: int, lam: float, eps=None, lsf_data=None):
         nc, ndim = tree.nc, tree.ndim
         dr = tree.lvl_dr(lvl)
         inv_dr2 = 1.0 / dr**2
@@ -92,10 +101,25 @@ class LevelOp:
             c0 = -sum(c_nb) - lam
             eps = np.asarray(eps)
             self.veps = (eps.max(axis=1) - eps.min(axis=1)) > 1e-8
+        self.f = self.bc_coeff = None
+        if lsf_data is not None:
+            data = lsf_data.level_data(lvl)
+            if data["has_bnd"].any():
+                c0l, c_nbl, fl = lsf_stencil_coefficients(tree, lvl, data,
+                                                          0.0)
+                bshape = (len(ids),) + (nc,) * ndim
+                sel = data["has_bnd"].reshape((len(ids),) + (1,) * ndim)
+                c0 = np.where(sel, c0l.reshape(bshape), c0 + np.zeros(bshape))
+                c_nb = [np.where(sel, c_nbl[d].reshape(bshape),
+                                 c_nb[d] + np.zeros(bshape))
+                        for d in range(2 * ndim)]
+                self.f = np.where(sel, fl.reshape(bshape), 0.0)
+                self.bc_coeff = data["bc_coeff"].reshape(bshape)
         # difference-form sum coefficient s = c0 + sum(c_nb), in float64:
         # the operator is applied as L(phi) = sum_d c_d (phi_d - phi_0)
         # + s phi_0, which avoids the |phi|/dx^2-scale cancellation of the
-        # naive sum; for these operators s = -helmholtz_lambda exactly
+        # naive sum; s = -helmholtz_lambda exactly except on the boxes of
+        # a level set's boundary
         self.c_sum = c0 + sum(c_nb)
         self.c_nb = c_nb
         self.c0 = c0
@@ -105,7 +129,10 @@ class Multigrid:
     """FAS multigrid solver bound to a (mesh, variable set, BC spec).
 
     ``eps_data(lvl)``, when set, gives the permittivity blocks of a level
-    (host float64 [n, (nc+2)^ndim]) for the variable-permittivity operator.
+    (host float64 [n, (nc+2)^ndim]) for the variable-permittivity operator;
+    ``lsf_data`` (solvers/lsf.LsfData), when set, the level set of an
+    electrode, whose boundary potential a solve reads from
+    ``params["lsf_phi_b"]``.
     The per-level operator, smoother and transfer tables are cached with
     the mesh's plans and rebuilt for the levels a refinement epoch
     changed."""
@@ -121,6 +148,7 @@ class Multigrid:
         self.n_cycle_down = n_cycle_down
         self.n_cycle_up = n_cycle_up
         self.eps_data = None
+        self.lsf_data = None
 
     def _get(self, key, make, lvls=None):
         return self.mesh.cached(("mg", self.i_phi) + key, make, lvls)
@@ -133,7 +161,8 @@ class Multigrid:
     def op(self, lvl: int) -> LevelOp:
         return self._get(("op", lvl), lambda: LevelOp(
             self.tree, lvl, self.lam,
-            None if self.eps_data is None else self.eps_data(lvl)), (lvl,))
+            None if self.eps_data is None else self.eps_data(lvl),
+            self.lsf_data), (lvl,))
 
     def rb_extrap(self, lvl: int):
         """{direction: bool per refinement-boundary entry} of the entries
@@ -167,6 +196,11 @@ class Multigrid:
     def cs(self, lvl: int, dtype) -> torch.Tensor:
         return self.smoother(lvl).cs(self.op(lvl), dtype)
 
+    def corr(self, lvl: int, dtype):
+        """f * bc_coeff of a level's boxes [n] + [nc]^ndim, or None on a
+        level without a level-set boundary."""
+        return self.smoother(lvl).corr(self.op(lvl), dtype)
+
     def parity_masks(self, n_half: int) -> list:
         """float32 [nc]^ndim masks of half sweeps 1..n_half."""
         def make():
@@ -178,11 +212,13 @@ class Multigrid:
         return self._get(("masks", n_half), make, ())
 
     def coarse_solver(self) -> CoarseSolver:
-        # the level-1 boxes and their permittivity never change after
-        # setup: built once, at the first solve
+        # the level-1 boxes, their permittivity and their level set never
+        # change after setup: built once, at the first solve. With either,
+        # the dense solve must use the per-cell level-1 operator
+        per_cell = self.eps_data is not None or self.lsf_data is not None
         return self._get(("coarse",), lambda: CoarseSolver(
             self.tree, self.sides_bc, self.lam, self.mesh.device,
-            level1_op=None if self.eps_data is None else self.op(1)), ())
+            level1_op=self.op(1) if per_cell else None), ())
 
     # --------------------------------------------------------- cycles
     def fill_ghosts_phi(self, cc, params):
@@ -197,7 +233,7 @@ class Multigrid:
         """One FAS V-cycle on cc; returns (cc, max leaf residual)."""
         P, R = mgb.gather_levels(self, cc)
         P, R = mgb.fas_vcycle_blocks(self, P, R, params)
-        res = mgb.max_leaf_residual_blocks(self, P, R)
+        res = mgb.max_leaf_residual_blocks(self, P, R, params)
         return mgb.scatter_levels(self, cc, P, R), res
 
     # ---------------------------------------------------- field utilities

@@ -30,6 +30,12 @@ def dist_vec_line(r, r0, r1):
     return dist_vec, frac
 
 
+def dist_line(r, r0, r1):
+    """Distance between points and segment r0-r1 (GM_dist_line)."""
+    dv, _ = dist_vec_line(r, r0, r1)
+    return np.sqrt(np.sum(dv**2, axis=-1))
+
+
 def _sigmoid(dist, width):
     tmp = dist / width
     big = np.log(0.5 * np.finfo(np.float64).max)

@@ -30,21 +30,21 @@ failure exits non-zero):
    which removes boxes, the same FMG cycle count of every Helmholtz mode
    at every update, and every variable;
 4. run the full-size 2D slice (uniform 512 x 512 cells, 5460 boxes,
-   float64) through Simulation/run, counting the kernel launches, then
-   time K1 and K3 on its finest level (4096 boxes) with that level's own
+   float64, 10 steps) through Simulation/run, counting the kernel launches,
+   then time K1 and K3 on its finest level (4096 boxes) with that level's own
    tables and inputs, each held against its plain version there;
 5. run the full-size 3D slice (uniform 128^3 cells, 4680 boxes, float64,
    10 steps) the same way, then time K5 on its finest level (4096
    boxes);
 6. run the dielectric slice at the card's size (uniform level 6 and
-   refinement to level 8 around the seed and in the regions, live, 20
+   refinement to level 8 around the seed and in the regions, live, 10
    steps) the same way, with the time of each refinement epoch and of the
    host plan rebuilds, and the device busy share of two more steps, then
    time K3-swap on its largest level that runs it;
 7. the main path at full size: the cylindrical slice with live refinement
    (a uniform level 6, 262,144 cells, refined to level 8 around the seed
    and in a region that expires) and Helmholtz photoionization every 5
-   steps, 20 steps, with the time of each step, refinement epoch and
+   steps, 10 steps, with the time of each step, refinement epoch and
    photoionization update, the FMG cycles of each mode, the launches of
    each kernel in the run and inside the updates, the V-cycle time of the
    field solve and of a Helmholtz mode, and the device busy share; then
@@ -52,7 +52,7 @@ failure exits non-zero):
    finest and on the largest level of the Helmholtz mode with the largest
    lambda, with that mode's own stencil, ghost weights and inputs;
 8. the 3D slice with live refinement (a uniform level 4, 128^3 cells,
-   refined to level 6) and photoionization, 10 steps, the same way, then
+   refined to level 6) and photoionization, 8 steps, the same way, then
    (2b) K4 and K5 on the finest and the largest level of that mode;
 3f-3h. the fluid-model variants on the card and on the CPU at the committed
    sizes: the planar 1D slice (air_1d_slice.cfg, live refinement) under the
@@ -75,10 +75,31 @@ failure exits non-zero):
    the smallest value and the share of such leaf cells, and phase 3i holds
    the sign where the model keeps it);
 10. the planar 1D slice at a size a user would run (uniform 1 um cells,
-   16,384 of them on 11 levels) under ee53 for 50 steps. One dimension has
+   16,384 of them on 11 levels) under ee53 for 20 steps. One dimension has
    no kernel in either package: its smoother is tensor operations, so this
    phase launches none.
-Phases 9 and 10 run after phase 3i and before phase 4: after the long
+2 (level set). K1, K2 and K4 once more against their plain versions, and
+   timed, on the inputs an electrode gives them: the stencil blocks cs and
+   the factor of the boundary potential in R from the real operator of a
+   4096-box level that a rod electrode runs through (neighbor coefficients
+   0 toward the electrode and up to 1e4 times the plain ones beside it), the
+   level's own neighbor table and ghost weights; K3 and K5 are then held
+   against their plain versions on the blocks those sweeps produce;
+3j-3l. the electrode slices on the card and on the CPU at the committed
+   sizes: the Cartesian rod as cathode (electrode_2d_slice.cfg with the
+   field reversed), the cylindrical needle with photoionization
+   (electrode_cyl_slice.cfg) and the 3D rod (electrode_3d_slice.cfg): the
+   same mesh at every epoch, the same dt at every attempted step, the same
+   FMG and V-cycle counts of the field solves, every variable;
+11. the cylindrical needle at full size (phase 7's refinement limits, the
+   electrode resolved to the finest level, 10 steps): ms per step, seconds
+   per epoch and the host seconds spent on the level set's distances,
+   V-cycles per field solve, launches per step of K1-K3, max(E) at the tip
+   against the background field; then (2b) K1 and K2 on the finest level
+   that holds the electrode's boundary;
+12. the 3D rod at full size (a uniform level 4, 128^3 cells, the rod's
+   boundary boxes on level 5), 4 steps, the same for K4 and K5.
+Phases 9 to 12 run after phase 3l and before phase 4: after the long
 profiler traces of phases 6 to 8 the host has been seen to run slower for
 the rest of the process.
 
@@ -87,7 +108,8 @@ just after it. The line before the last is a JSON object with one entry
 per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
-``launches_by_phase`` holds every full-size run's, phase 9's among them);
+``launches_by_phase`` holds every full-size run's, those of phases 9, 11
+and 12 among them);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -119,10 +141,35 @@ VARIANTS_SMALL = [
     ("3f", ONED_CFG, 1, TABLE, [], 16),
     ("3g", ONED_CFG, 1, TABLE_NEW, EE_FLAGS, 16),
     ("3h", EE_CFG, 2, TABLE_NEW, ["-photoi%per_steps=2"], 8)]
+#: the electrode slices; cuda-vs-cpu runs (phases 3j-3l) in the form of
+#: VARIANTS_SMALL, and at the card's size (phases 11, 12): config, ndim,
+#: flags, steps, least leaf cells
+ELECTRODE_CFG = {"2d": DATA / "electrode_2d_slice.cfg",
+                 "cyl": DATA / "electrode_cyl_slice.cfg",
+                 "3d": DATA / "electrode_3d_slice.cfg"}
+ELECTRODES_SMALL = [
+    ("3j", ELECTRODE_CFG["2d"], 2, TABLE, ["-field_given_by=field 1.8e6"], 8),
+    ("3k", ELECTRODE_CFG["cyl"], 2, TABLE, ["-photoi%per_steps=2"], 8),
+    ("3l", ELECTRODE_CFG["3d"], 3, TABLE, [], 4)]
+ELECTRODES_FULL = {
+    "11": (ELECTRODE_CFG["cyl"], 2,
+           ["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
+            "-refine_electrode_dx=8e-6", "-refine_regions_dr=7.8125e-6"],
+           10, 512 ** 2),
+    "12": (ELECTRODE_CFG["3d"], 3,
+           ["-refine_max_dx=1.25e-4", "-refine_min_dx=6e-5",
+            "-refine_electrode_dx=6.3e-5", "-refine_regions_dr=6.25e-5"],
+           4, 128 ** 3)}
+#: the rod of phase 2's level-set inputs, in a 16 mm domain: from the top
+#: plate down to 0.2 of the height, 0.4 mm radius, its lower end 0.37 mm
+#: off the axis (tilted, its surface passes the cell centres at every
+#: distance); and the boundary potential in R
+LSF_ROD = (1.0, 0.2, 4e-4, 0.37e-3)
+LSF_PHI_B = 2.88e4
 #: the main path under ee53 at the card's size (phase 9): steps
 EE_FULL_STEPS = 10
 #: the 1D slice at a user's size (phase 10): flags and steps
-ONED_FULL = (["-refine_max_dx=1e-6", "-refine_min_dx=1e-6"], 50)
+ONED_FULL = (["-refine_max_dx=1e-6", "-refine_min_dx=1e-6"], 20)
 DT_LIMIT_NAMES = ("cfl", "drt", "chem", "energy loss")
 SOURCE = {2: "afivo_streamer_tpu_torch/csrc/smoother.cu",
           3: "afivo_streamer_tpu_torch/csrc/smoother_3d.cu"}
@@ -140,7 +187,7 @@ TOL = {"float64": 1e-12, "float32": 2e-5}
 TOL_SWAP_F32 = 1e-5
 SMALL_STEPS = 3
 #: full-size runs per dimension: refine_max_dx, leaf cells, boxes, steps
-FULL = {2: (3.2e-5, 512 ** 2, 5460, 20), 3: (1.25e-4, 128 ** 3, 4680, 10)}
+FULL = {2: (3.2e-5, 512 ** 2, 5460, 10), 3: (1.25e-4, 128 ** 3, 4680, 10)}
 #: the kernels of each full-size run's path (phases 4, 5 and 6)
 PATH_KERNELS = {2: ("fill_sweep_2d", "sweep_2d", "fill_2d"),
                 3: ("sweep_3d", "fill_3d"),
@@ -156,7 +203,7 @@ SMALL = {2: (2.5e-4, "64x64"), 3: (5e-4, "32^3")}
 DIELECTRIC_SMALL_STEPS = 8
 DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
                     "-refine_regions_dr=7.8125e-6 7.8125e-6",
-                    "-refine_min_dx=4e-6"], 20)
+                    "-refine_min_dx=4e-6"], 10)
 #: the slices with live refinement and photoionization per dimension:
 #: config, steps of the cuda-vs-cpu run (phases 3d, 3e; photoionization
 #: every 2 steps there), and at the card's size (phases 7, 8) the
@@ -164,9 +211,9 @@ DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
 AMR_CFG = {2: DATA / "air_cyl_amr_slice.cfg", 3: DATA / "air_3d_amr_slice.cfg"}
 AMR_SMALL_STEPS = {2: 8, 3: 6}
 AMR_FULL = {2: (["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
-                 "-refine_regions_dr=7.8125e-6"], 20, 512 ** 2),
+                 "-refine_regions_dr=7.8125e-6"], 10, 512 ** 2),
             3: (["-refine_max_dx=1.25e-4", "-refine_min_dx=3.125e-5",
-                 "-refine_regions_dr=3.125e-5"], 10, 128 ** 3)}
+                 "-refine_regions_dr=3.125e-5"], 8, 128 ** 3)}
 BACKGROUND_FIELD = 1.8e6  # V/m, the configs' field_given_by
 #: the H100 SXM's device memory rate and its peak rates outside the tensor
 #: cores (NVIDIA's data sheet, at the full 700 W), for the kernels' bounds
@@ -413,6 +460,87 @@ def phase_kernels(torch, ks, smi):
     return results
 
 
+def lsf_level_inputs(torch, ndim, seed):
+    """Kernel inputs at the slices' shapes on which everything an electrode
+    changes is real: a uniform level of N_BOXES boxes (level 6 of the 2D
+    domain, level 4 of the 3D one) that the rod LSF_ROD runs through, its
+    multigrid operator's stencil blocks cs, the level's neighbor table g
+    and ghost weights W, and R of the scale of L(phi) plus the boundary
+    term f bc_coeff phi_b; phi3 and A stay random. Returns the inputs and
+    a description of the stencil."""
+    import numpy as np
+    from afivo_streamer_tpu_torch.core import ghostcell as tgc
+    from afivo_streamer_tpu_torch.core.levels import MeshPlans
+    from afivo_streamer_tpu_torch.core.tree import Tree
+    from afivo_streamer_tpu_torch.solvers.lsf import LsfData
+    from afivo_streamer_tpu_torch.solvers.multigrid import Multigrid
+    from afivo_streamer_tpu_torch.utils import geometry
+    length = 16e-3
+    lvl = {2: 6, 3: 4}[ndim]
+    tree = Tree(ndim, NC, [length] * ndim, [16] * ndim)
+    tree.refine_up_to_lvl(lvl)
+    if len(tree.lvl_ids[lvl - 1]) != N_BOXES:
+        raise RuntimeError(f"level {lvl} holds {len(tree.lvl_ids[lvl - 1])} "
+                           f"boxes")
+    mesh = MeshPlans(tree, "cuda")
+    top, bottom, radius, tilt = LSF_ROD
+    mid = [0.5 * length] * (ndim - 1)
+    r0, r1 = np.array(mid + [top * length]), np.array(mid + [bottom * length])
+    r1[0] += tilt
+
+    def bc(iv, d, coords, params):
+        return ((tgc.BC_DIRICHLET, 0.0) if d // 2 == ndim - 1
+                else (tgc.BC_NEUMANN, 0.0))
+
+    mg = Multigrid(mesh, 0, 1, bc)
+    mg.lsf_data = LsfData(
+        mesh, lambda r: geometry.dist_line(r, r0, r1) - radius,
+        length_scale=radius)
+    x = kernel_inputs(torch, torch.float64, "cuda", seed, ndim)
+    sm = mg.smoother(lvl)
+    cs, corr = mg.cs(lvl, torch.float64), mg.corr(lvl, torch.float64)
+    plain = 2.0 * ndim / float(tree.lvl_dr(lvl)[0]) ** 2
+    x.update(g=sm.g, W=sm.W(torch.float64), cs=cs.contiguous(),
+             R=(x["R"] * plain + corr * LSF_PHI_B).contiguous())
+    n_bnd = int(mg.lsf_data.level_data(lvl)["has_bnd"].sum())
+    text = (f"level {lvl} of a {ndim}D mesh, {N_BOXES} boxes, {n_bnd} hold "
+            f"the rod's boundary; max|c0| = "
+            f"{float(cs[:, 0].abs().max()) / plain:.4g} times the plain "
+            f"{plain:.4g}, {int((cs[:, 1:1 + 2 * ndim] == 0).sum())} neighbor "
+            f"coefficients 0, max|c_sum| = "
+            f"{float(cs[:, 1 + 2 * ndim].abs().max()):.4g}, phi_b = "
+            f"{LSF_PHI_B:g} V")
+    if n_bnd == 0 or not float(cs[:, 0].abs().max()) > 10 * plain:
+        raise RuntimeError(f"no electrode boundary in the stencil: {text}")
+    return x, text
+
+
+def phase_kernels_level_set(torch, ks, smi):
+    """Phase 2 (level set): the sweeping kernels K1, K2 and K4 against
+    their plain versions, and timed, on lsf_level_inputs; then K3 and K5
+    against theirs on the blocks K1 and K4 produced there. The tolerance
+    is TOL of the largest magnitude of the result (the boundary potential
+    sets it), as in phase 2."""
+    for ndim, sweeps, fill in ((2, ("fill_sweep_2d", "sweep_2d"), "fill_2d"),
+                               (3, ("sweep_3d",), "fill_3d")):
+        t0 = time.perf_counter()
+        x, text = lsf_level_inputs(torch, ndim, 20261017)
+        log(f"phase 2 (level set): {text}; built on the host in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for name in sweeps:
+            _, err_text = check_against_plain(torch, ks, name, x)
+            r = measure(torch, ks, name, x, smi)
+            log(f"phase 2 (level set): {name} float64 {err_text}; "
+                f"{r['text']}")
+        swept = call(ks.KERNELS[sweeps[0]], x, sweeps[0])
+        _, err_text = check_against_plain(torch, ks, fill,
+                                          dict(x, phi3=swept))
+        log(f"phase 2 (level set): {fill} float64 on the blocks "
+            f"{sweeps[0]} produced: {err_text}")
+        del x, swept
+        free_earlier_runs(torch)
+
+
 def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi, mg=None,
                   what="the field solve"):
     """The kernel ``name`` held against its plain version and timed on
@@ -420,17 +548,20 @@ def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi, mg=None,
     default), with what a V-cycle hands it there: the level's blocks phi3,
     ghost constants A and tables g and W, and for a sweep its rhs R,
     stencil cs and the mask of the second half sweep (the first that K1
-    does); after the run's launch counts were read."""
+    does), R with the boundary term of an electrode; after the run's
+    launch counts were read."""
     mg = mg or sim.field.mg
     P, R = mgb.gather_levels(mg, sim.cc)
     sm = mg.smoother(lvl)
     dtype = P[0].dtype
-    A = mgb.build_A_blocks(mg, lvl, P[lvl - 2] if lvl > 1 else None,
-                           {"voltage": sim.field.current_voltage}, dtype)
+    params = sim.field.solve_params()
+    A = mgb.build_A_blocks(mg, lvl, P[lvl - 2] if lvl > 1 else None, params,
+                           dtype)
     x = {"phi3": P[lvl - 1], "A": A, "g": sm.g, "W": sm.W(dtype)}
     if "sweep" in name:
-        x.update(R=R[lvl - 1], cs=mg.cs(lvl, dtype),
-                 mask=mg.parity_masks(2)[1])
+        x.update(R=mgb.rhs_with_boundary(mg, lvl, R[lvl - 1],
+                                         params).contiguous(),
+                 cs=mg.cs(lvl, dtype), mask=mg.parity_masks(2)[1])
     _, err_text = check_against_plain(torch, ks, name, x)
     r = measure(torch, ks, name, x, smi)
     log(f"phase {phase}: {name} on level {lvl} of {what} "
@@ -550,7 +681,7 @@ def phase_dielectric_cpu_vs_cuda(torch, ks, Simulation, out_dir):
 
 
 def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir, smi):
-    """Phase 6: the dielectric slice at the card's size for 20 steps;
+    """Phase 6: the dielectric slice at the card's size for 10 steps;
     returns the launch counts of the run's kernels."""
     extra, steps = DIELECTRIC_FULL
     free_earlier_runs(torch)
@@ -648,6 +779,45 @@ def record_photoi(sim, ks, updates, torch):
     sim.photoi.set_src = wrapped
 
 
+def record_dts(sim, dts):
+    """Record dt of every attempted step of ``sim`` (rejected ones too)."""
+    orig = sim._substep
+
+    def wrapped(cc, fc, dt, dt_lim, time_, s_deriv, s_prev, w_prev, s_out,
+                i_step, n_steps, params):
+        if i_step == 1:
+            dts.append(dt)
+        return orig(cc, fc, dt, dt_lim, time_, s_deriv, s_prev, w_prev, s_out,
+                    i_step, n_steps, params)
+    sim._substep = wrapped
+
+
+def record_field_cycles(mgb, sim, solves):
+    """Record (FMG cycles, V-cycles over all levels) of every field solve
+    of ``sim`` from now on."""
+    orig = sim.field.compute
+
+    def wrapped(*args, **kwargs):
+        n = {"fmg": 0, "vcycle": 0}
+        vcycle, fmg = mgb.fas_vcycle_blocks, mgb.fas_fmg_blocks
+
+        def count_vcycle(mg, P, R, params, top=None):
+            if top is None:
+                n["vcycle"] += 1
+            return vcycle(mg, P, R, params, top)
+
+        def count_fmg(mg, P, R, params):
+            n["fmg"] += 1
+            return fmg(mg, P, R, params)
+        mgb.fas_vcycle_blocks, mgb.fas_fmg_blocks = count_vcycle, count_fmg
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            mgb.fas_vcycle_blocks, mgb.fas_fmg_blocks = vcycle, fmg
+            solves.append((n["fmg"], n["vcycle"]))
+    sim.field.compute = sim.fluid.field_compute = wrapped
+
+
 def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
                           cfg=None, table=TABLE, extra=None, steps=None):
     """Phase 3d (cylindrical) and 3e (3D): the slice with live refinement
@@ -656,24 +826,36 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
     counts of every mode at every update, and every variable but the
     scratch one within rtol 1e-9 of its scale. Phases 3f-3h: the same for
     a fluid-model variant (``cfg``, ``table``, ``extra`` flags, ``steps``);
-    a configuration without photoionization has no update to compare."""
+    a configuration without photoionization has no update to compare.
+    Phases 3j-3l: the same for an electrode slice. Every phase also holds
+    dt of every attempted step (rtol 1e-9) and the FMG and V-cycle counts
+    of every field solve of the run."""
+    from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
     phase = phase or ("3d" if ndim == 2 else "3e")
     cfg = cfg or AMR_CFG[ndim]
     steps = steps or AMR_SMALL_STEPS[ndim]
     extra = ["-photoi%per_steps=2"] if extra is None else extra
-    sims, epochs, updates = {}, {}, {}
+    sims, epochs, updates, dts, solves = {}, {}, {}, {}, {}
     for dev in ("cpu", "cuda"):
         sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_{dev}", ndim,
                                        dev, extra, cfg, table))
         epochs[dev] = [{"ids": [list(map(int, x)) for x in sim.tree.lvl_ids],
                         "add": 0, "rm": 0, "s": 0.0}]
-        updates[dev] = []
+        updates[dev], dts[dev], solves[dev] = [], [], []
         record_epochs(sim, epochs[dev], torch)
         record_photoi(sim, ks, updates[dev], torch)
+        record_dts(sim, dts[dev])
+        record_field_cycles(mgb, sim, solves[dev])
         sim.run(max_steps=steps)
         sims[dev] = sim
     if [e["ids"] for e in epochs["cpu"]] != [e["ids"] for e in epochs["cuda"]]:
         raise RuntimeError(f"phase {phase}: the meshes differ")
+    if solves["cpu"] != solves["cuda"]:
+        raise RuntimeError(f"phase {phase}: the cycle counts of the field "
+                           f"solves differ: {solves}")
+    if len(dts["cpu"]) != len(dts["cuda"]) or any(
+            abs(a / b - 1) > 1e-9 for a, b in zip(dts["cpu"], dts["cuda"])):
+        raise RuntimeError(f"phase {phase}: dt differs: {dts}")
     changed = sum(1 for e in epochs["cpu"] if e["add"] or e["rm"])
     cycles = {dev: [(u["it"], u["cycles"]) for u in updates[dev]]
               for dev in updates}
@@ -703,7 +885,10 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
         f"{n_leaf} leaf cells at the end: same mesh at {len(epochs['cpu'])} "
         f"epochs ({changed} changed it), {len(updates['cpu'])} "
         f"photoionization updates with the same FMG cycles per mode "
-        f"{[c for _it, c in cycles['cpu']]}; worst scaled deviation "
+        f"{[c for _it, c in cycles['cpu']]}; the same dt at "
+        f"{len(dts['cpu'])} attempted steps and the same (FMG, V-cycle) "
+        f"counts at {len(solves['cpu'])} field solves "
+        f"{sorted(set(solves['cpu']))}; worst scaled deviation "
         f"{worst:.3e} ({worst_name}; limit 1e-9; below 1e-12: "
         f"{worst < 1e-12}); dt limits (cfl, drt, chem, other) "
         f"{[float(f'{v:.6g}') for v in b.dt_limits]}{photo}")
@@ -899,6 +1084,125 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
     return launches
 
 
+def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
+    """Phase 11 (the cylindrical needle) and 12 (the 3D rod): an electrode
+    slice at the card's size; returns the launch counts of the run's
+    kernels. Then phase 2b: the run's sweeping kernels (and K5) on the
+    finest level that holds the electrode's boundary, with that level's
+    own stencil and boundary term."""
+    cfg, ndim, extra, steps, min_cells = ELECTRODES_FULL[phase]
+    names = PATH_KERNELS[ndim]
+    free_earlier_runs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ks.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_full", ndim, "cuda",
+                                   extra, cfg))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup_launches = {k: ks.KERNELS[k].launches for k in names}
+    setup_build = sim.mesh.build_seconds
+    lsf = sim.field.lsf_data
+    setup_lsf = lsf.build_seconds
+    t = sim.tree
+    cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    boxes0 = [len(x) for x in t.lvl_ids]
+    epochs, updates, solves, dts = [], [], [], []
+    record_epochs(sim, epochs, torch)
+    if sim.photoi.enabled:
+        record_photoi(sim, ks, updates, torch)
+    record_field_cycles(mgb, sim, solves)
+    record_dts(sim, dts)
+    sim.run(max_steps=steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: ks.KERNELS[k].launches for k in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    per_lvl = [len(x) for x in t.lvl_ids]
+    bnd_lvls = {l: int(lsf.level_data(l)["has_bnd"].sum())
+                for l in range(1, t.highest_lvl + 1)}
+    changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
+    ms_step = 1e3 * (t2 - t1) / steps
+    log(f"phase {phase}: {cfg.name} {' '.join(extra)}: {cells0} leaf cells "
+        f"and boxes per level {boxes0} after setup, {n_leaf} and {per_lvl} "
+        f"({sum(per_lvl)} boxes) after {steps} steps; boxes that hold the "
+        f"electrode's boundary per level {bnd_lvls}; setup {t1 - t0:.2f} s "
+        f"(plan building {setup_build:.2f} s, of which the level set's "
+        f"distances {setup_lsf:.2f} s); {steps} steps {t2 - t1:.2f} s = "
+        f"{ms_step:.2f} ms/step, of which the epochs "
+        f"{sum(e['s'] for e in epochs):.2f} s and the photoionization "
+        f"updates {sum(u['s'] for u in updates):.2f} s; t = "
+        f"{sim.global_time:.4e} s, dt = {sim.global_dt:.4e} s, "
+        f"{len(dts) - steps} rejected steps; peak memory {peak_gb:.3f} GB")
+    log(f"phase {phase}: {len(epochs)} refinement epochs, {len(changed)} "
+        f"changed the mesh (epochs {changed}, boxes added/removed "
+        f"{[(epochs[k]['add'], epochs[k]['rm']) for k in changed]}); seconds "
+        f"per epoch {[round(e['s'], 3) for e in epochs]}; host plan rebuilds "
+        f"in the run {sim.mesh.build_seconds - setup_build:.2f} s, of which "
+        f"the level set's distances {lsf.build_seconds - setup_lsf:.3f} s "
+        f"(made at the first solve after a changing epoch, for the changed "
+        f"levels only)")
+    n_fmg = sum(f for f, _v in solves)
+    n_v = sum(v for _f, v in solves)
+    log(f"phase {phase}: {len(solves)} field solves in the run: {n_v} "
+        f"V-cycles = {n_v / len(solves):.2f} per solve (the electrode's "
+        f"residual factor is 1e-8 of the voltage scale, 1e-10 without), "
+        f"{n_fmg} FMG cycles; {len(updates)} photoionization updates at "
+        f"steps {[u['it'] for u in updates]}, FMG cycles per mode "
+        f"{[u['cycles'] for u in updates]}")
+    in_updates = {k: sum(u["launches"][k] for u in updates) for k in names}
+    log(f"phase {phase}: kernel launches {launches} (setup "
+        f"{setup_launches}); per step of the run "
+        + str({k: round((launches[k] - setup_launches[k]) / steps, 2)
+               for k in names})
+        + ", of which inside photoionization updates "
+        + str({k: round(in_updates[k] / steps, 2) for k in names}))
+    if min(cells0, n_leaf) < min_cells:
+        raise RuntimeError(f"fewer leaf cells than the uniform level: "
+                           f"{cells0}, {n_leaf} < {min_cells}")
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"a kernel was not launched: {launches}")
+    if not bnd_lvls[t.highest_lvl] > 0:
+        raise RuntimeError("the electrode is not resolved to the finest "
+                           "level")
+    n = t.highest_id
+    if not bool(torch.isfinite(sim.cc[:, :n]).all()) or \
+            not bool(torch.isfinite(sim.fc[:, :, :n]).all()):
+        raise RuntimeError("non-finite state after the run")
+    # the field at the tip: the largest norm over the leaf cells outside
+    # the electrode, and where
+    fld = leaf_interiors(torch, sim, sim.i_electric_fld)
+    outside = leaf_interiors(torch, sim, sim.i_lsf) > 0
+    emax = float(fld[outside].max())
+    ne_in = float(leaf_interiors(torch, sim, sim.i_electron)[~outside].max())
+    log(f"phase {phase}: max(E) outside the electrode = {emax:.4e} V/m = "
+        f"{emax / BACKGROUND_FIELD:.2f} times the background "
+        f"{BACKGROUND_FIELD:.2e}; voltage {sim.field.current_voltage:.4e} V; "
+        f"max electron density inside the electrode (its boundary cells "
+        f"carry the species boundary condition) {ne_in:.4e} 1/m3")
+    if not emax > 3 * BACKGROUND_FIELD:
+        raise RuntimeError("the field is not enhanced at the electrode")
+    if sim.photoi.enabled and not float(
+            sim.cc[sim.photoi.i_photo, :n].max()) > 0.0:
+        raise RuntimeError("the photoionization source is empty")
+
+    params = sim.field.solve_params()
+    P, R = mgb.gather_levels(sim.field.mg, sim.cc)
+    vc_ms = time_ms(torch, lambda: mgb.fas_vcycle_blocks(sim.field.mg, P, R,
+                                                         params), reps=10)
+    log(f"phase {phase}: {vc_ms:.3f} ms per V-cycle of the field solve with "
+        f"the level set ({t.highest_lvl} levels, float64)")
+    sweeps = [k for k in names if "sweep" in k] + (["fill_3d"] if ndim == 3
+                                                   else [])
+    for name in sweeps:
+        time_on_level(torch, ks, mgb, sim, name, t.highest_lvl, "2b", smi,
+                      what=f"the field solve of phase {phase} "
+                      f"({bnd_lvls[t.highest_lvl]} boxes hold the "
+                      f"electrode's boundary)")
+    return launches
+
+
 def phase_energy_physics(torch, Simulation, out_dir):
     """Phase 3i: the 1D slice without a seed (a uniform background of 1e13
     electrons per m3 in the uniform field) under ee53 on the card to
@@ -933,7 +1237,7 @@ def phase_energy_physics(torch, Simulation, out_dir):
 
 
 def phase_1d_full(torch, ks, Simulation, out_dir):
-    """Phase 10: the planar 1D slice under ee53 on uniform 1 um cells for 50
+    """Phase 10: the planar 1D slice under ee53 on uniform 1 um cells for 20
     steps. One dimension has no kernel: the launch counts must stay 0."""
     extra, steps = ONED_FULL
     free_earlier_runs(torch)
@@ -1088,6 +1392,7 @@ def main():
                 log(f"phase 1: ptxas {line.strip()}")
 
     results = phase_kernels(torch, ks, smi)
+    phase_kernels_level_set(torch, ks, smi)
     out_dir = ROOT / "out" / "chip_smoke"
     for ndim in (2, 3):
         phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim)
@@ -1098,13 +1403,19 @@ def main():
         phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
                               cfg, table, extra, steps)
     phase_energy_physics(torch, Simulation, out_dir)
-    # phases 9 and 10 run before the long profiler traces of phases 6 to 8,
+    for phase, cfg, ndim, table, extra, steps in ELECTRODES_SMALL:
+        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
+                              cfg, table, extra, steps)
+    # phases 9 to 12 run before the long profiler traces of phases 6 to 8,
     # after which the host has been seen to run slower for the rest of the
     # process
     by_phase = {"9": phase_amr_full(torch, ks, Simulation, mgb, out_dir, 2,
                                     smi, "9", EE_CFG, TABLE_NEW,
                                     EE_FULL_STEPS)}
     phase_1d_full(torch, ks, Simulation, out_dir)
+    for phase in ELECTRODES_FULL:
+        by_phase[phase] = phase_electrode_full(torch, ks, Simulation, mgb,
+                                               out_dir, phase, smi)
     for ndim in (2, 3):
         by_phase[str(2 + ndim)] = phase_full_slice(
             torch, ks, Simulation, mgb, out_dir, ndim, smi)

@@ -12,7 +12,9 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
   checkerboard, and their refusal of a misaligned input;
 * K1-K5 on every level of a Helmholtz multigrid (the photoionization
   boundary set, the smallest and the largest Bourdon-3 lambda) with that
-  level's own stencil, ghost weights, ghost constants and blocks;
+  level's own stencil, ghost weights, ghost constants and blocks, and on
+  every level of a multigrid with a rod electrode (level-set stencil,
+  the boundary potential in the rhs);
 * the 2D and 3D slices, and the dielectric slice with live refinement, on
   the card against the same slices on the CPU (plain kernels); the
   cylindrical and the 3D slice with live refinement and photoionization
@@ -21,7 +23,10 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
   local field approximation and under the electron energy equation (no
   kernel launch: one dimension smooths with tensor operations, held here
   on the card against the CPU), the cylindrical slice under ee53 with
-  photoionization, with the source factor and with a plasma region.
+  photoionization, with the source factor and with a plasma region;
+* the electrode slices the same way: the Cartesian rod as cathode, the
+  cylindrical needle with photoionization, a user electrode and the 3D
+  rod.
 """
 
 import re
@@ -222,18 +227,22 @@ def test_cuda_wrapper_rejects_bad_arguments(cuda):
         ks.fill_3d(x3["phi3"], x3["A"], x3["g"], x3["W"].float())
 
 
-def helmholtz_level_inputs(ndim, lam, device):
+def helmholtz_level_inputs(ndim, lam, device, electrode=False):
     """Per level of a Helmholtz multigrid (16 mm domain, 1 mm level-1
     cells, refined twice over one corner; Dirichlet zero in the last
     dimension, Neumann zero elsewhere; cylindrical in 2D) the inputs a
     V-cycle hands the kernels: blocks of a random guess after one cycle,
-    a positive source, the level's A, g, W and cs."""
+    a positive source, the level's A, g, W and cs. With ``electrode`` a
+    rod of 0.4 mm radius stands 2.4 mm up from that corner at 28.8 kV: the
+    stencil is the level set's and R carries the boundary term."""
     import numpy as np
     from afivo_streamer_tpu_torch.core.levels import MeshPlans
     from afivo_streamer_tpu_torch.core.tree import Tree, DO_REF, KEEP_REF
     from afivo_streamer_tpu_torch.physics.photoi import helmh_bc
     from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
+    from afivo_streamer_tpu_torch.solvers.lsf import LsfData
     from afivo_streamer_tpu_torch.solvers.multigrid import Multigrid
+    from afivo_streamer_tpu_torch.utils import geometry
     nc = 8
     t = Tree(ndim, nc, [16e-3] * ndim, [16] * ndim,
              coord="cyl" if ndim == 2 else "xyz")
@@ -250,20 +259,30 @@ def helmholtz_level_inputs(ndim, lam, device):
     mg = Multigrid(MeshPlans(t, device), 0, 1,
                    lambda iv, d, c, p: helmh_bc(iv, d, c, p, ndim),
                    helmholtz_lambda=lam ** 2)
+    params = {}
+    if electrode:
+        r0 = np.array([0.7e-3] * (ndim - 1) + [0.0])
+        r1 = np.array([0.9e-3] * (ndim - 1) + [2.4e-3])
+        mg.lsf_data = LsfData(
+            mg.mesh, lambda r: geometry.dist_line(r, r0, r1) - 4e-4,
+            length_scale=4e-4)
+        params = {"lsf_phi_b": 2.88e4}
     gen = torch.Generator().manual_seed(ndim)
     cc = torch.rand((2, t.highest_id, (nc + 2) ** ndim), generator=gen,
                     dtype=torch.float64)
     cc[0] *= 1e10
     cc[1] *= 1e24
-    cc = mg.fill_ghosts_phi(cc.to(device), {})
-    cc, _res = mg.vcycle(cc, {})
+    cc = mg.fill_ghosts_phi(cc.to(device), params)
+    cc, _res = mg.vcycle(cc, params)
     P, R = mgb.gather_levels(mg, cc)
     out = []
     for lvl in range(1, t.highest_lvl + 1):
         sm = mg.smoother(lvl)
-        A = mgb.build_A_blocks(mg, lvl, P[lvl - 2] if lvl > 1 else None, {},
-                               P[0].dtype)
-        out.append({"phi3": P[lvl - 1], "R": R[lvl - 1], "A": A, "g": sm.g,
+        A = mgb.build_A_blocks(mg, lvl, P[lvl - 2] if lvl > 1 else None,
+                               params, P[0].dtype)
+        R_l = mgb.rhs_with_boundary(mg, lvl, R[lvl - 1], params).contiguous()
+        assert not electrode or mg.corr(lvl, P[0].dtype) is not None
+        out.append({"phi3": P[lvl - 1], "R": R_l, "A": A, "g": sm.g,
                     "W": sm.W(P[0].dtype), "cs": mg.cs(lvl, P[0].dtype),
                     "mask": mg.parity_masks(2)[1]})
     return out
@@ -284,6 +303,23 @@ def test_cuda_kernel_on_helmholtz_levels(name, lam, cuda):
         got = call(ks.KERNELS[name], x, name)
         torch.cuda.synchronize()
         assert ks.KERNELS[name].launches == count + 1
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["fill_sweep_2d", "sweep_2d", "fill_2d",
+                                  "sweep_3d", "fill_3d"])
+def test_cuda_kernel_on_level_set_levels(name, cuda):
+    """Each kernel against its plain version on every level of a Poisson
+    multigrid with a rod electrode (the neighbor coefficients 0 toward the
+    electrode, the centre coefficient up to 1e4 times the plain one beside
+    it, the boundary potential in R), float64, to 1e-12 of the blocks'
+    scale."""
+    for x in helmholtz_level_inputs(ndim_of(name), 0.0, cuda, electrode=True):
+        want = call(ks.PLAIN[name], x, name)
+        got = call(ks.KERNELS[name], x, name)
+        torch.cuda.synchronize()
         scale = float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12 * scale)
 
@@ -352,22 +388,32 @@ EE = ["-model%type=ee53", "-input_data%old_style=f",
     ("air_cyl_amr_slice.cfg", 2, ["-plasma_region_enabled=t",
                                   "-plasma_region_rmin=0 0.0135",
                                   "-plasma_region_rmax=0.002 0.0155"], 4),
+    ("electrode_2d_slice.cfg", 2, ["-field_given_by=field 1.8e6"], 4),
+    ("electrode_cyl_slice.cfg", 2, ["-photoi%per_steps=2"], 4),
+    ("electrode_2d_slice.cfg", 2, [
+        "-field_electrode_type=user", "-user%module="
+        f"{ROOT / 'afivo_streamer_tpu_torch' / 'programs'}/electrode_user.py"],
+     4),
+    ("electrode_3d_slice.cfg", 3, [], 4),
 ], ids=["1d-lfa", "1d-ee53", "cyl-ee53-photoi", "cyl-source-factor",
-        "cyl-plasma-region"])
+        "cyl-plasma-region", "cathode-rod", "cyl-needle-photoi",
+        "user-electrode", "3d-rod"])
 def test_variant_slice_cuda_matches_cpu(cfg, ndim, extra, steps, cuda,
                                         tmp_path):
     """The fluid-model variants with live refinement (an early epoch
     removes boxes): the same mesh and the state on the card as on the
     CPU, rtol 1e-9 per variable; a 1D run launches no kernel, a 2D one
-    K1-K3; under ee53 the energy-loss limit is active on both."""
+    K1-K3, a 3D one K4 and K5; under ee53 the energy-loss limit is active
+    on both. The electrode slices the same way."""
     ks.reset_launch_counts()
     sims = slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra, steps=steps)
     launched = {k: fn.launches for k, fn in ks.KERNELS.items()}
     if ndim == 1:
         assert not any(launched.values())
     else:
-        assert all(launched[k] > 0 for k in ("fill_sweep_2d", "sweep_2d",
-                                             "fill_2d"))
+        assert all(launched[k] > 0 for k in (
+            ("fill_sweep_2d", "sweep_2d", "fill_2d") if ndim == 2
+            else ("sweep_3d", "fill_3d")))
     for a, b in zip(sims[0].tree.lvl_ids, sims[1].tree.lvl_ids):
         assert (a == b).all()
     if "-model%type=ee53" in extra:

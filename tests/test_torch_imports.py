@@ -98,10 +98,8 @@ def test_device_cuda_without_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra, module", [
-    (["-refine_electrode_dx=1e-4"], "physics/refine.py"),
     (["-photoi%enabled=t", "-photoi%method=montecarlo"],
      "physics/photoi_mc.py"),
-    (["-use_electrode=t"], "solvers/lsf.py"),
     (["-gas%dynamics=t"], "physics/gas_dynamics.py"),
     (["-output%npz=t"], "io/output.py"),
     (["-restart_from_file=run.npz"], "io/checkpoint.py"),
@@ -125,6 +123,20 @@ NEW_TABLE = ["-input_data%old_style=f",
              f"-input_data%file={DATA / 'td_air_synthetic_new.txt'}"]
 
 
+#: an electrode on the axis of the cylindrical slice (two for the types
+#: that take two), the user's own through the committed user module
+ELECTRODE = ["-use_electrode=t", "-seed_density=0",
+             "-field_rod_r0=0.0 1.0", "-field_rod_r1=0.0 0.85",
+             "-field_rod_radius=8e-4", "-field_rod2_r0=0.0 0.0",
+             "-field_rod2_r1=0.0 0.15", "-field_rod2_radius=8e-4",
+             "-field_electrode2_grounded=t", "-cone_tip_radius=4e-4",
+             "-cone_length_frac=0.3", "-cone2_tip_radius=4e-4",
+             "-cone2_length_frac=0.3", "-user%module="
+             f"{DATA.parent / 'programs' / 'electrode_user.py'}"]
+ELECTRODE_TYPES = ("sphere", "rod", "rod_rod", "rod_cone_top",
+                   "two_rod_cone_electrodes", "user")
+
+
 @pytest.mark.parametrize("cfg, extra", [
     ("air_1d_slice.cfg", ["-ndim=1"]),
     ("air_1d_slice.cfg", ["-ndim=1", "-model%type=ee53"] + NEW_TABLE),
@@ -133,8 +145,12 @@ NEW_TABLE = ["-input_data%old_style=f",
     ("air_cyl_slice.cfg", ["-fixes%source_factor=flux"]),
     ("air_cyl_slice.cfg", ["-plasma_region_enabled=t",
                            "-plasma_region_rmax=0.008 0.016"]),
-], ids=["1d", "1d-ee53", "cyl-ee-alias", "new-style-table", "source-factor",
-        "plasma-region"])
+    ("air_cyl_slice.cfg", ["-refine_electrode_dx=1e-4"]),
+] + [("air_cyl_slice.cfg", ELECTRODE + [f"-field_electrode_type={kind}"])
+     for kind in ELECTRODE_TYPES],
+    ids=["1d", "1d-ee53", "cyl-ee-alias", "new-style-table", "source-factor",
+         "plasma-region", "electrode-dx-without-electrode"]
+    + [f"electrode-{kind}" for kind in ELECTRODE_TYPES])
 def test_ported_configuration_builds(tmp_path, cfg, extra):
     sim = Simulation(argv=[str(DATA / cfg), "-ndim=2",
                            f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
@@ -142,8 +158,15 @@ def test_ported_configuration_builds(tmp_path, cfg, extra):
                            "-refine_max_dx=5e-4", *extra])
     assert sim.model.has_energy_equation == any("model%type" in a
                                                 for a in extra)
-    assert (sim.fluid.mask_provider is not None) == \
-        sim.st.plasma_region_enabled
+    assert (sim.fluid.mask_provider is not None) == (
+        sim.st.plasma_region_enabled or sim.st.use_electrode)
+    if sim.st.use_electrode:
+        # the level set is a variable of the state, behind the source
+        # factor's and before the permittivity, as in the JAX package
+        assert sim.registry.cc_names[sim.i_lsf] == "lsf"
+        data = sim.field.lsf_data.level_data(sim.tree.highest_lvl)
+        assert data["has_bnd"].any()
+        assert sim.refiner.lsf_data is sim.field.lsf_data
 
 
 def test_ndim_3_raises(tmp_path):
