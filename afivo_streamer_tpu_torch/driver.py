@@ -123,8 +123,10 @@ class Simulation:
         load_user_module(cfg, self)
         self.dt_cfg = DtConfig(cfg)
         if adv.REQUIRES_IMPLICIT[self.dt_cfg.integrator]:
-            raise NotImplementedError(
-                f"physics/advance.py: {self.dt_cfg.integrator}")
+            # the streamer model has no implicit part; as in the JAX driver,
+            # which passes no solver (advance.py, m_af_advance.f90:146-147)
+            raise ValueError(f"time integrator {self.dt_cfg.integrator} "
+                             "requires an implicit_solver")
         _refuse(cfg, self.user)
         table_settings = TableDataSettings(cfg)
         self.gas = Gas(cfg)
@@ -137,10 +139,6 @@ class Simulation:
         if self.st.cylindrical and ndim != 2:
             # the JAX package's Tree refuses the same
             raise ValueError("cylindrical coordinates only in 2D")
-        if self.st.use_dielectric and ndim != 2:
-            raise NotImplementedError(
-                f"physics/dielectric.py: {ndim}D dielectrics (not yet held "
-                "against the JAX package)")
         self.refine_cfg = RefineSettings(cfg, ndim)
 
         # ---- variable registration (ST_initialize / chemistry_initialize)

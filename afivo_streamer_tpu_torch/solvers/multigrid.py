@@ -27,7 +27,7 @@ from ..core.levels import MeshPlans
 from ..core.rowops import fc_get_faces, fc_set_faces
 from ..ops.smoother import SmootherTables
 from . import mg_blocks as mgb
-from .coarse import CoarseSolver
+from .coarse import make_coarse_solver
 from .lsf import lsf_stencil_coefficients
 
 
@@ -211,12 +211,13 @@ class Multigrid:
                     for k in range(1, n_half + 1)]
         return self._get(("masks", n_half), make, ())
 
-    def coarse_solver(self) -> CoarseSolver:
-        # the level-1 boxes, their permittivity and their level set never
-        # change after setup: built once, at the first solve. With either,
-        # the dense solve must use the per-cell level-1 operator
+    def coarse_solver(self):
+        """The level-1 solver (solvers/coarse.make_coarse_solver). The
+        level-1 boxes, their permittivity and their level set never change
+        after setup: built once, at the first solve. With either, the solve
+        must use the per-cell level-1 operator."""
         per_cell = self.eps_data is not None or self.lsf_data is not None
-        return self._get(("coarse",), lambda: CoarseSolver(
+        return self._get(("coarse",), lambda: make_coarse_solver(
             self.tree, self.sides_bc, self.lam, self.mesh.device,
             level1_op=self.op(1) if per_cell else None), ())
 

@@ -232,7 +232,9 @@ class Surfaces:
         restrict the surfaces of removed boxes into their parent surfaces,
         prolong parent surfaces onto the new children next to the
         dielectric, and move the state rows with them. Run before the
-        new boxes' rows are written."""
+        new boxes' rows are written. In 1D a surface is one cell, whose
+        value is copied both ways (the JAX package moves no 1D surface
+        data, so there its charge is lost at derefinement)."""
         t = self.tree
         nc, ndim = t.nc, t.ndim
         hnc = nc // 2
@@ -244,6 +246,8 @@ class Surfaces:
             return cc[ivs, bid, :F]  # [n_var, F]
 
         def restrict(vals):
+            if ndim == 1:
+                return vals
             if ndim == 2:
                 return 0.5 * (vals[:, 0::2] + vals[:, 1::2])
             v = vals.reshape(-1, nc, nc)
@@ -261,7 +265,9 @@ class Surfaces:
             par = self.surfaces[s.ix_parent]
             dix = s.offset_parent
             avg = restrict(rows(s.id_out))
-            if ndim == 2:
+            if ndim == 1:
+                cc[ivs[:, None], par.id_out, fidx] = avg
+            elif ndim == 2:
                 cc[ivs[:, None], par.id_out, fidx[dix[0]:dix[0] + hnc]] = avg
             else:
                 blk = rows(par.id_out).reshape(-1, nc, nc)
@@ -296,7 +302,9 @@ class Surfaces:
                     raise RuntimeError("surface prolongation: missing child")
                 dix = np.array([hnc * cdix[k] for k in tdims], np.int64)
                 self._add_surface(c, id_in, d, par.eps, p_ix, dix)
-                if ndim == 2:
+                if ndim == 1:
+                    child = pvals
+                elif ndim == 2:
                     v = pvals[:, dix[0]:dix[0] + hnc]
                     child = torch.stack([v, v], dim=-1).reshape(-1, F)
                 else:

@@ -30,14 +30,14 @@ failure exits non-zero):
    which removes boxes, the same FMG cycle count of every Helmholtz mode
    at every update, and every variable;
 4. run the full-size 2D slice (uniform 512 x 512 cells, 5460 boxes,
-   float64, 10 steps) through Simulation/run, counting the kernel launches,
+   float64, 5 steps) through Simulation/run, counting the kernel launches,
    then time K1 and K3 on its finest level (4096 boxes) with that level's own
    tables and inputs, each held against its plain version there;
 5. run the full-size 3D slice (uniform 128^3 cells, 4680 boxes, float64,
-   10 steps) the same way, then time K5 on its finest level (4096
+   5 steps) the same way, then time K5 on its finest level (4096
    boxes);
 6. run the dielectric slice at the card's size (uniform level 6 and
-   refinement to level 8 around the seed and in the regions, live, 10
+   refinement to level 8 around the seed and in the regions, live, 6
    steps) the same way, with the time of each refinement epoch and of the
    host plan rebuilds, and the device busy share of two more steps, then
    time K3-swap on its largest level that runs it;
@@ -52,7 +52,7 @@ failure exits non-zero):
    finest and on the largest level of the Helmholtz mode with the largest
    lambda, with that mode's own stencil, ghost weights and inputs;
 8. the 3D slice with live refinement (a uniform level 4, 128^3 cells,
-   refined to level 6) and photoionization, 8 steps, the same way, then
+   refined to level 6) and photoionization, 6 steps, the same way, then
    (2b) K4 and K5 on the finest and the largest level of that mode;
 3f-3h. the fluid-model variants on the card and on the CPU at the committed
    sizes: the planar 1D slice (air_1d_slice.cfg, live refinement) under the
@@ -66,7 +66,7 @@ failure exits non-zero):
    reduced field within 5 %, the energy density stay >= 0 and the
    energy-loss time-step limit be active;
 9. the main path under ee53 at full size: air_cyl_ee_slice.cfg with phase
-   7's refinement flags, 10 steps: K1, K2 and K3 launched, the energy
+   7's refinement flags, 6 steps: K1, K2 and K3 launched, the energy
    density finite, a finite energy-loss time-step limit, the four limits,
    how many attempted steps each limit held, and the launches per step.
    (With a seed the model itself, in both packages, drives the energy
@@ -75,7 +75,7 @@ failure exits non-zero):
    the smallest value and the share of such leaf cells, and phase 3i holds
    the sign where the model keeps it);
 10. the planar 1D slice at a size a user would run (uniform 1 um cells,
-   16,384 of them on 11 levels) under ee53 for 20 steps. One dimension has
+   16,384 of them on 11 levels) under ee53 for 10 steps. One dimension has
    no kernel in either package: its smoother is tensor operations, so this
    phase launches none.
 2 (level set). K1, K2 and K4 once more against their plain versions, and
@@ -92,14 +92,38 @@ failure exits non-zero):
    same mesh at every epoch, the same dt at every attempted step, the same
    FMG and V-cycle counts of the field solves, every variable;
 11. the cylindrical needle at full size (phase 7's refinement limits, the
-   electrode resolved to the finest level, 10 steps): ms per step, seconds
+   electrode resolved to the finest level, 6 steps): ms per step, seconds
    per epoch and the host seconds spent on the level set's distances,
    V-cycles per field solve, launches per step of K1-K3, max(E) at the tip
    against the background field; then (2b) K1 and K2 on the finest level
    that holds the electrode's boundary;
 12. the 3D rod at full size (a uniform level 4, 128^3 cells, the rod's
    boundary boxes on level 5), 4 steps, the same for K4 and K5.
-Phases 9 to 12 run after phase 3l and before phase 4: after the long
+2 (eps). K4 and K5 once more against their plain versions, and timed, on
+   a real 3D variable-eps level of 4096 boxes (an eps = 2 slab, refinement
+   boundaries at boxes with variable eps: the stencil, ghost weights and
+   the extrapolating ghost's constants), and K2 and K3-swap on a 2D one
+   that also holds a rod's level set;
+3m-3p. the field solver's last branches on the card and on the CPU at the
+   committed sizes: the cylindrical dielectric with photoionization
+   (dielectric_cyl_slice.cfg), the 3D slab (dielectric_3d_slice.cfg), the
+   needle above the plate (electrode_dielectric_cyl_slice.cfg) and a
+   256 x 256-cell level-1 grid (the uniform coarse multigrid): as 3j-3l,
+   and the surface data per surface, the V-cycles of every coarse-grid
+   solve and the kernels of each path launched (K3-swap on the pair);
+3q. the IMEX integrators on the stiff reaction-diffusion problem
+   (programs/reaction_diffusion.py) at 32^2 and 512^2 cells: the bounds of
+   tests/test_imex.py against the solution, the FMG cycles per implicit
+   solve, the K1-K3 launches, and the card against the CPU;
+13. the 3D slab at full size (phase 8's refinement limits), 4 steps: ms
+   per step, seconds per epoch, the surfaces, V-cycles per field solve,
+   K4/K5 launches per step; then (2b) K4 and K5 on the finest
+   variable-eps level;
+14. the needle above the plate at full size (phase 11's refinement
+   limits), 10 steps: the same, K3-swap launches per step, the surface
+   charge and max(E) at the tip; then (2b) K2 and K3-swap on the finest
+   level with the level set and extrapolating ghosts of eps.
+Phases 9 to 14 run after phase 3q and before phase 4: after the long
 profiler traces of phases 6 to 8 the host has been seen to run slower for
 the rest of the process.
 
@@ -108,8 +132,8 @@ just after it. The line before the last is a JSON object with one entry
 per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
-``launches_by_phase`` holds every full-size run's, those of phases 9, 11
-and 12 among them);
+``launches_by_phase`` holds every full-size run's, those of phases 9 and
+11 to 14 among them);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -155,21 +179,54 @@ ELECTRODES_FULL = {
     "11": (ELECTRODE_CFG["cyl"], 2,
            ["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
             "-refine_electrode_dx=8e-6", "-refine_regions_dr=7.8125e-6"],
-           10, 512 ** 2),
+           6, 512 ** 2),
     "12": (ELECTRODE_CFG["3d"], 3,
            ["-refine_max_dx=1.25e-4", "-refine_min_dx=6e-5",
             "-refine_electrode_dx=6.3e-5", "-refine_regions_dr=6.25e-5"],
-           4, 128 ** 3)}
+           4, 128 ** 3),
+    # the field solver's last branches at the card's size: the 3D slab
+    # with phase 8's refinement limits, the needle above the plate with
+    # phase 11's
+    "13": (DATA / "dielectric_3d_slice.cfg", 3,
+           ["-refine_max_dx=1.25e-4", "-refine_min_dx=3.125e-5",
+            "-refine_regions_dr=3.125e-5", f"-user%module={USER_MODULE}"],
+           4, 128 ** 3),
+    "14": (DATA / "electrode_dielectric_cyl_slice.cfg", 2,
+           ["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
+            "-refine_electrode_dx=8e-6", "-refine_regions_dr=7.8125e-6",
+            f"-user%module={USER_MODULE}"], 10, 512 ** 2)}
+#: cuda-vs-cpu runs of the field solver's last branches (phases 3m-3p) in
+#: the form of VARIANTS_SMALL, with the kernels that must be launched
+BRANCHES_SMALL = [
+    ("3m", DATA / "dielectric_cyl_slice.cfg", 2, TABLE,
+     ["-photoi%per_steps=2", f"-user%module={USER_MODULE}"], 8,
+     ("fill_2d_swap",)),
+    ("3n", DATA / "dielectric_3d_slice.cfg", 3, TABLE,
+     [f"-user%module={USER_MODULE}"], 6, ("sweep_3d", "fill_3d")),
+    ("3o", DATA / "electrode_dielectric_cyl_slice.cfg", 2, TABLE,
+     ["-photoi%per_steps=2", f"-user%module={USER_MODULE}"], 8,
+     ("sweep_2d", "fill_2d_swap")),
+    # one level: the uniform coarse multigrid solves it and K3 fills it
+    ("3p", DATA / "air_cyl_slice.cfg", 2, TABLE,
+     ["-cylindrical=f", "-coarse_grid_size=256 256"], 4, ("fill_2d",))]
+#: the IMEX problem (phase 3q): uniform meshes (level-1 cells a side, level)
+#: and the runs of tests/test_imex.py (integrator, dt, steps)
+IMEX_MESHES = ((16, 2), (16, 6))
+IMEX_RUNS = (("imex_euler", 2.0e-3, 10), ("imex_euler", 1.0e-3, 20),
+             ("imex_trapezoidal", 2.0e-3, 10))
 #: the rod of phase 2's level-set inputs, in a 16 mm domain: from the top
 #: plate down to 0.2 of the height, 0.4 mm radius, its lower end 0.37 mm
 #: off the axis (tilted, its surface passes the cell centres at every
 #: distance); and the boundary potential in R
 LSF_ROD = (1.0, 0.2, 4e-4, 0.37e-3)
 LSF_PHI_B = 2.88e4
+#: the rod of phase 2's eps inputs in 2D: down to 0.28 of the height, just
+#: above the slab, 0.6 mm left of the middle, its lower end tilted
+EPS_ROD = (1.0, 0.28, 4e-4, 0.37e-3)
 #: the main path under ee53 at the card's size (phase 9): steps
-EE_FULL_STEPS = 10
+EE_FULL_STEPS = 6
 #: the 1D slice at a user's size (phase 10): flags and steps
-ONED_FULL = (["-refine_max_dx=1e-6", "-refine_min_dx=1e-6"], 20)
+ONED_FULL = (["-refine_max_dx=1e-6", "-refine_min_dx=1e-6"], 10)
 DT_LIMIT_NAMES = ("cfl", "drt", "chem", "energy loss")
 SOURCE = {2: "afivo_streamer_tpu_torch/csrc/smoother.cu",
           3: "afivo_streamer_tpu_torch/csrc/smoother_3d.cu"}
@@ -187,7 +244,7 @@ TOL = {"float64": 1e-12, "float32": 2e-5}
 TOL_SWAP_F32 = 1e-5
 SMALL_STEPS = 3
 #: full-size runs per dimension: refine_max_dx, leaf cells, boxes, steps
-FULL = {2: (3.2e-5, 512 ** 2, 5460, 10), 3: (1.25e-4, 128 ** 3, 4680, 10)}
+FULL = {2: (3.2e-5, 512 ** 2, 5460, 5), 3: (1.25e-4, 128 ** 3, 4680, 5)}
 #: the kernels of each full-size run's path (phases 4, 5 and 6)
 PATH_KERNELS = {2: ("fill_sweep_2d", "sweep_2d", "fill_2d"),
                 3: ("sweep_3d", "fill_3d"),
@@ -203,7 +260,7 @@ SMALL = {2: (2.5e-4, "64x64"), 3: (5e-4, "32^3")}
 DIELECTRIC_SMALL_STEPS = 8
 DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
                     "-refine_regions_dr=7.8125e-6 7.8125e-6",
-                    "-refine_min_dx=4e-6"], 10)
+                    "-refine_min_dx=4e-6"], 6)
 #: the slices with live refinement and photoionization per dimension:
 #: config, steps of the cuda-vs-cpu run (phases 3d, 3e; photoionization
 #: every 2 steps there), and at the card's size (phases 7, 8) the
@@ -213,7 +270,7 @@ AMR_SMALL_STEPS = {2: 8, 3: 6}
 AMR_FULL = {2: (["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
                  "-refine_regions_dr=7.8125e-6"], 10, 512 ** 2),
             3: (["-refine_max_dx=1.25e-4", "-refine_min_dx=3.125e-5",
-                 "-refine_regions_dr=3.125e-5"], 8, 128 ** 3)}
+                 "-refine_regions_dr=3.125e-5"], 6, 128 ** 3)}
 BACKGROUND_FIELD = 1.8e6  # V/m, the configs' field_given_by
 #: the H100 SXM's device memory rate and its peak rates outside the tensor
 #: cores (NVIDIA's data sheet, at the full 700 W), for the kernels' bounds
@@ -233,8 +290,12 @@ NO_LIBRARY_CALL = {
             "weights"}
 
 
+T_START = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """A line of the log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 def kernel_inputs(torch, dtype, device, seed, ndim):
@@ -396,6 +457,16 @@ def measure(torch, ks, name, x, smi):
          "plain_cold_us": device_us(torch, [
              functools.partial(call, plain, s, name) for s in sets]),
          "enqueue_us": enqueue_us(torch, lambda: call(fn, x, name))}
+    # a cold time below the bound is a trace that lost or merged events
+    # (seen once after the long traces of the full-size phases): measure
+    # again, and fail if it persists
+    for _ in range(2):
+        if r["cold_us"] >= r["bound_us"]:
+            break
+        log(f"device time: {name} cold {r['cold_us']:.3f} us is below the "
+            f"bound {r['bound_us']:.3f} us; measuring again")
+        r["cold_us"] = device_us(torch, [functools.partial(call, fn, s, name)
+                                         for s in sets])
     del sets
     r["share"] = r["bound_us"] / r["cold_us"]
     r["text"] = (
@@ -541,6 +612,113 @@ def phase_kernels_level_set(torch, ks, smi):
         free_earlier_runs(torch)
 
 
+def eps_level_inputs(torch, ndim, seed):
+    """Kernel inputs at the slices' shapes from a real variable-eps level:
+    a 16 mm domain with an eps = 2 slab below y = 4 mm (the rule of
+    programs/dielectric_2d.py, ``bottom``), refined uniformly to the level
+    of 4096 boxes and then, for x below 8 mm and y below 8 mm (2D) or for
+    x below 8 mm and y from 2 to 6 mm (3D), once more; the finer level has
+    N_BOXES boxes, refinement boundaries at x = 8 mm and boxes with
+    variable eps at them, which take the extrapolating ghost. In 2D the rod
+    EPS_ROD of an electrode also runs through it. Returns the inputs of
+    that level (its multigrid stencil cs, neighbor table g, ghost weights W
+    and ghost constants A from a random potential, with the coarse level's
+    parent copies; R of the scale of L(phi) plus the boundary term of the
+    electrode) and a description."""
+    import numpy as np
+    from afivo_streamer_tpu_torch.core import ghostcell as tgc
+    from afivo_streamer_tpu_torch.core.levels import MeshPlans
+    from afivo_streamer_tpu_torch.core.tree import DO_REF, KEEP_REF, Tree
+    from afivo_streamer_tpu_torch.programs.dielectric_2d import cell_coords
+    from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
+    from afivo_streamer_tpu_torch.solvers.lsf import LsfData
+    from afivo_streamer_tpu_torch.solvers.multigrid import Multigrid
+    from afivo_streamer_tpu_torch.utils import geometry
+    length = 16e-3
+    base = {2: 6, 3: 4}[ndim]
+    lvl = base + 1
+    ylim = {2: (0.0, 8e-3), 3: (2e-3, 6e-3)}[ndim]
+    tree = Tree(ndim, NC, [length] * ndim, [16] * ndim)
+    tree.refine_up_to_lvl(base)
+
+    def flags(ids):
+        r0 = tree.box_r_min(np.asarray(ids))
+        inside = ((r0[:, 0] < 8e-3) & (r0[:, 1] >= ylim[0] - 1e-9)
+                  & (r0[:, 1] < ylim[1] - 1e-9)
+                  & (tree.lvl[np.asarray(ids)] == base))
+        out = np.full((len(ids),) + (NC,) * ndim, KEEP_REF, np.int64)
+        out[inside] = DO_REF
+        return out
+    tree.adjust_refinement(flags, ref_buffer=0)
+    if len(tree.lvl_ids[lvl - 1]) != N_BOXES:
+        raise RuntimeError(f"level {lvl} holds {len(tree.lvl_ids[lvl - 1])} "
+                           f"boxes")
+    mesh = MeshPlans(tree, "cuda")
+
+    def bc(iv, d, coords, params):
+        return ((tgc.BC_DIRICHLET, 0.0) if d // 2 == ndim - 1
+                else (tgc.BC_NEUMANN, 0.0))
+
+    mg = Multigrid(mesh, 0, 1, bc)
+    mg.eps_data = lambda l: np.where(
+        cell_coords(tree, tree.lvl_ids[l - 1])[..., 1] < 0.25 * length, 2.0,
+        1.0).reshape(len(tree.lvl_ids[l - 1]), -1)
+    if ndim == 2:
+        top, bottom, radius, tilt = EPS_ROD
+        r0 = np.array([0.5 * length - 0.6e-3, top * length])
+        r1 = np.array([0.5 * length - 0.6e-3 + tilt, bottom * length])
+        mg.lsf_data = LsfData(
+            mesh, lambda r: geometry.dist_line(r, r0, r1) - radius,
+            length_scale=radius)
+    rng = np.random.default_rng(seed)
+    cc = torch.as_tensor(rng.standard_normal(
+        (2, tree.highest_id, (NC + 2) ** ndim)), device="cuda")
+    P, R = mgb.gather_levels(mg, cc)
+    sm = mg.smoother(lvl)
+    dtype = torch.float64
+    x = kernel_inputs(torch, dtype, "cuda", seed, ndim)
+    cs = mg.cs(lvl, dtype)
+    plain = 2.0 * ndim / float(tree.lvl_dr(lvl)[0]) ** 2
+    Rl = R[lvl - 1] * plain
+    corr = mg.corr(lvl, dtype)
+    if corr is not None:
+        Rl = Rl + corr * LSF_PHI_B
+    x.update(phi3=P[lvl - 1].contiguous(), g=sm.g, W=sm.W(dtype),
+             cs=cs.contiguous(), R=Rl.contiguous(),
+             A=mgb.build_A_blocks(mg, lvl, P[lvl - 2], {}, dtype))
+    n_extrap = sum(int(m.sum()) for m in sm.rb_extrap if m is not None)
+    veps = int(mg.op(lvl).veps.sum())
+    n_bnd = (0 if mg.lsf_data is None
+             else int(mg.lsf_data.level_data(lvl)["has_bnd"].sum()))
+    text = (f"level {lvl} of a {ndim}D mesh, {N_BOXES} boxes, {veps} with "
+            f"variable eps, {n_extrap} extrapolating ghost faces (K3-swap: "
+            f"{sm.has_swap}), {n_bnd} boxes hold a rod's boundary; c0 from "
+            f"{float(cs[:, 0].min()):.4g} to {float(cs[:, 0].max()):.4g} "
+            f"(plain -{plain:.4g})")
+    if not n_extrap or (ndim == 2 and not (sm.has_swap and n_bnd)):
+        raise RuntimeError(f"not a variable-eps level: {text}")
+    return x, text
+
+
+def phase_kernels_eps(torch, ks, smi):
+    """Phase 2 (eps): K4 and K5 against their plain versions, and timed, on
+    a real 3D variable-eps level (eps_level_inputs), and K2 and K3-swap on
+    a real 2D level with a level set and eps; the tolerance is TOL of the
+    largest magnitude of the result, as in phase 2."""
+    for ndim, names in ((3, ("sweep_3d", "fill_3d")),
+                        (2, ("sweep_2d", "fill_2d_swap"))):
+        t0 = time.perf_counter()
+        x, text = eps_level_inputs(torch, ndim, 20261018)
+        log(f"phase 2 (eps): {text}; built on the host in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for name in names:
+            _, err_text = check_against_plain(torch, ks, name, x)
+            r = measure(torch, ks, name, x, smi)
+            log(f"phase 2 (eps): {name} float64 {err_text}; {r['text']}")
+        del x
+        free_earlier_runs(torch)
+
+
 def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi, mg=None,
                   what="the field solve"):
     """The kernel ``name`` held against its plain version and timed on
@@ -681,7 +859,7 @@ def phase_dielectric_cpu_vs_cuda(torch, ks, Simulation, out_dir):
 
 
 def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir, smi):
-    """Phase 6: the dielectric slice at the card's size for 10 steps;
+    """Phase 6: the dielectric slice at the card's size for 6 steps;
     returns the launch counts of the run's kernels."""
     extra, steps = DIELECTRIC_FULL
     free_earlier_runs(torch)
@@ -818,8 +996,25 @@ def record_field_cycles(mgb, sim, solves):
     sim.field.compute = sim.fluid.field_compute = wrapped
 
 
+def record_coarse_cycles(sim, counts):
+    """Record the V-cycles of every level-1 solve of ``sim``'s field solve
+    when that is the uniform coarse-grid multigrid."""
+    from afivo_streamer_tpu_torch.solvers.coarse import UniformCoarseMG
+    solver = sim.field.mg.coarse_solver()
+    if not isinstance(solver, UniformCoarseMG):
+        return
+    orig = solver.solve_blocks
+
+    def wrapped(*args):
+        out = orig(*args)
+        counts.append(solver.last_vcycles)
+        return out
+    solver.solve_blocks = wrapped
+
+
 def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
-                          cfg=None, table=TABLE, extra=None, steps=None):
+                          cfg=None, table=TABLE, extra=None, steps=None,
+                          must_launch=()):
     """Phase 3d (cylindrical) and 3e (3D): the slice with live refinement
     and photoionization every 2 steps on the card and on the CPU: the same
     mesh at every epoch (one of them changing it), the same FMG cycle
@@ -827,32 +1022,47 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
     scratch one within rtol 1e-9 of its scale. Phases 3f-3h: the same for
     a fluid-model variant (``cfg``, ``table``, ``extra`` flags, ``steps``);
     a configuration without photoionization has no update to compare.
-    Phases 3j-3l: the same for an electrode slice. Every phase also holds
-    dt of every attempted step (rtol 1e-9) and the FMG and V-cycle counts
-    of every field solve of the run."""
+    Phases 3j-3l: the same for an electrode slice; 3m-3p for the field
+    solver's last branches (dielectrics, the electrode-plus-dielectric
+    pair, the uniform coarse grid), which also hold the surface data per
+    surface, the V-cycles of every uniform coarse-grid solve and that the
+    kernels ``must_launch`` were launched on the card. Every phase also
+    holds dt of every attempted step (rtol 1e-9) and the FMG and V-cycle
+    counts of every field solve of the run."""
+    from afivo_streamer_tpu_torch import interop
     from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
     phase = phase or ("3d" if ndim == 2 else "3e")
     cfg = cfg or AMR_CFG[ndim]
     steps = steps or AMR_SMALL_STEPS[ndim]
     extra = ["-photoi%per_steps=2"] if extra is None else extra
-    sims, epochs, updates, dts, solves = {}, {}, {}, {}, {}
+    sims, epochs, updates, dts, solves, coarse = {}, {}, {}, {}, {}, {}
     for dev in ("cpu", "cuda"):
         sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_{dev}", ndim,
                                        dev, extra, cfg, table))
         epochs[dev] = [{"ids": [list(map(int, x)) for x in sim.tree.lvl_ids],
                         "add": 0, "rm": 0, "s": 0.0}]
-        updates[dev], dts[dev], solves[dev] = [], [], []
+        updates[dev], dts[dev], solves[dev], coarse[dev] = [], [], [], []
         record_epochs(sim, epochs[dev], torch)
         record_photoi(sim, ks, updates[dev], torch)
         record_dts(sim, dts[dev])
         record_field_cycles(mgb, sim, solves[dev])
+        record_coarse_cycles(sim, coarse[dev])
+        before = {k: fn.launches for k, fn in ks.KERNELS.items()}
         sim.run(max_steps=steps)
+        launched = {k: fn.launches - before[k]
+                    for k, fn in ks.KERNELS.items()}
         sims[dev] = sim
     if [e["ids"] for e in epochs["cpu"]] != [e["ids"] for e in epochs["cuda"]]:
         raise RuntimeError(f"phase {phase}: the meshes differ")
     if solves["cpu"] != solves["cuda"]:
         raise RuntimeError(f"phase {phase}: the cycle counts of the field "
                            f"solves differ: {solves}")
+    if coarse["cpu"] != coarse["cuda"]:
+        raise RuntimeError(f"phase {phase}: the V-cycles of the coarse-grid "
+                           f"solves differ: {coarse}")
+    if any(launched[k] <= 0 for k in must_launch):
+        raise RuntimeError(f"phase {phase}: not launched on the card: "
+                           f"{launched}")
     if len(dts["cpu"]) != len(dts["cuda"]) or any(
             abs(a / b - 1) > 1e-9 for a, b in zip(dts["cpu"], dts["cuda"])):
         raise RuntimeError(f"phase {phase}: dt differs: {dts}")
@@ -880,6 +1090,23 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
     photo = (f"; max|photo| = "
              f"{float(b.cc[b.photoi.i_photo, :n].abs().max()):.4e}"
              if b.photoi.enabled else "")
+    if a.surfaces is not None:
+        sa, sb = interop.surface_data(a), interop.surface_data(b)
+        if sa.keys() != sb.keys():
+            raise RuntimeError(f"phase {phase}: the surfaces differ")
+        scale = max(abs(v).max() for v in sa.values())
+        surf_err = max(abs(sb[k] - sa[k]).max() for k in sa) / scale
+        photo += (f"; {len(sa)} surfaces, surface data worst scaled "
+                  f"deviation {surf_err:.3e} (scale {scale:.4e}), surface "
+                  f"charge integral {b.surfaces.get_integral(b.cc):.6e}")
+        if surf_err > 1e-9:
+            raise RuntimeError(f"phase {phase}: surface data cuda vs cpu "
+                               f"{surf_err}")
+    if coarse["cpu"]:
+        photo += (f"; {len(coarse['cpu'])} uniform coarse-grid solves with "
+                  f"the same V-cycles {coarse['cpu']}")
+    if must_launch:
+        photo += f"; launches on the card {launched}"
     log(f"phase {phase}: {cfg.name} {' '.join(extra)} ({a.model.type}) cuda "
         f"vs cpu, {steps} steps, "
         f"{n_leaf} leaf cells at the end: same mesh at {len(epochs['cpu'])} "
@@ -894,7 +1121,8 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
         f"{[float(f'{v:.6g}') for v in b.dt_limits]}{photo}")
     if worst > 1e-9:
         raise RuntimeError(f"phase {phase}: cuda vs cpu {worst} {worst_name}")
-    if changed < 1 or (b.photoi.enabled and len(updates["cpu"]) < 2):
+    if (changed < 1 and not coarse["cpu"]) or (
+            b.photoi.enabled and len(updates["cpu"]) < 2):
         raise RuntimeError(f"phase {phase}: needs a changing epoch and two "
                            f"photoionization updates")
     if a.global_dt != b.global_dt and abs(a.global_dt / b.global_dt - 1) > 1e-9:
@@ -1089,9 +1317,18 @@ def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
     slice at the card's size; returns the launch counts of the run's
     kernels. Then phase 2b: the run's sweeping kernels (and K5) on the
     finest level that holds the electrode's boundary, with that level's
-    own stencil and boundary term."""
+    own stencil and boundary term. Phase 13 (the 3D dielectric slab) and
+    14 (the cylindrical needle above the dielectric plate): the same with
+    the surfaces, their charge and, with the plate, K3-swap; phase 2b then
+    runs on the mesh after setup (the regions across the surface expire in
+    the run, and with them the refinement boundaries at boxes with variable
+    eps), with the launch counts restored after it, on the finest level
+    with extrapolating ghosts of eps (in 2D one that also holds the
+    electrode's boundary where there is one: K2 and K3-swap)."""
     cfg, ndim, extra, steps, min_cells = ELECTRODES_FULL[phase]
     names = PATH_KERNELS[ndim]
+    if ndim == 2 and "dielectric" in cfg.name:
+        names = PATH_KERNELS["dielectric"]
     free_earlier_runs(torch)
     torch.cuda.reset_peak_memory_stats()
     ks.reset_launch_counts()
@@ -1099,14 +1336,21 @@ def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
     sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_full", ndim, "cuda",
                                    extra, cfg))
     torch.cuda.synchronize()
-    t1 = time.perf_counter()
+    setup_s = time.perf_counter() - t0
     setup_launches = {k: ks.KERNELS[k].launches for k in names}
     setup_build = sim.mesh.build_seconds
     lsf = sim.field.lsf_data
-    setup_lsf = lsf.build_seconds
+    setup_lsf = lsf.build_seconds if lsf is not None else 0.0
+    if sim.surfaces is not None:
+        counts = {k: fn.launches for k, fn in ks.KERNELS.items()}
+        time_on_eps_level(torch, ks, mgb, sim, phase, smi)
+        for k, fn in ks.KERNELS.items():
+            fn.launches = counts[k]
+    t1 = time.perf_counter()
     t = sim.tree
     cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     boxes0 = [len(x) for x in t.lvl_ids]
+    surfaces0 = sim.surfaces.active() if sim.surfaces is not None else []
     epochs, updates, solves, dts = [], [], [], []
     record_epochs(sim, epochs, torch)
     if sim.photoi.enabled:
@@ -1120,14 +1364,22 @@ def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     per_lvl = [len(x) for x in t.lvl_ids]
-    bnd_lvls = {l: int(lsf.level_data(l)["has_bnd"].sum())
-                for l in range(1, t.highest_lvl + 1)}
+    bnd_lvls = {l: (int(lsf.level_data(l)["has_bnd"].sum()) if lsf
+                    else 0) for l in range(1, t.highest_lvl + 1)}
     changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
     ms_step = 1e3 * (t2 - t1) / steps
+    surf = ""
+    if sim.surfaces is not None:
+        charge = sim.surfaces.get_integral(sim.cc)
+        unit = ("elementary charges" if ndim == 3 or sim.st.cylindrical
+                else "elementary charges per m")
+        surf = (f"; {len(sim.surfaces.active())} surfaces (of "
+                f"{len(surfaces0)} after setup), surface charge integral "
+                f"{charge:.6e} {unit}")
     log(f"phase {phase}: {cfg.name} {' '.join(extra)}: {cells0} leaf cells "
         f"and boxes per level {boxes0} after setup, {n_leaf} and {per_lvl} "
-        f"({sum(per_lvl)} boxes) after {steps} steps; boxes that hold the "
-        f"electrode's boundary per level {bnd_lvls}; setup {t1 - t0:.2f} s "
+        f"({sum(per_lvl)} boxes) after {steps} steps{surf}; boxes that hold "
+        f"the electrode's boundary per level {bnd_lvls}; setup {setup_s:.2f} s "
         f"(plan building {setup_build:.2f} s, of which the level set's "
         f"distances {setup_lsf:.2f} s); {steps} steps {t2 - t1:.2f} s = "
         f"{ms_step:.2f} ms/step, of which the epochs "
@@ -1140,7 +1392,8 @@ def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
         f"{[(epochs[k]['add'], epochs[k]['rm']) for k in changed]}); seconds "
         f"per epoch {[round(e['s'], 3) for e in epochs]}; host plan rebuilds "
         f"in the run {sim.mesh.build_seconds - setup_build:.2f} s, of which "
-        f"the level set's distances {lsf.build_seconds - setup_lsf:.3f} s "
+        f"the level set's distances "
+        f"{(lsf.build_seconds if lsf else 0.0) - setup_lsf:.3f} s "
         f"(made at the first solve after a changing epoch, for the changed "
         f"levels only)")
     n_fmg = sum(f for f, _v in solves)
@@ -1163,26 +1416,39 @@ def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
                            f"{cells0}, {n_leaf} < {min_cells}")
     if not all(v > 0 for v in launches.values()):
         raise RuntimeError(f"a kernel was not launched: {launches}")
-    if not bnd_lvls[t.highest_lvl] > 0:
+    if lsf is not None and not bnd_lvls[t.highest_lvl] > 0:
         raise RuntimeError("the electrode is not resolved to the finest "
                            "level")
+    if sim.surfaces is not None and not (
+            len(sim.surfaces.active()) and any(e["rm"] for e in epochs)):
+        raise RuntimeError("no surface, or no epoch removed boxes")
     n = t.highest_id
     if not bool(torch.isfinite(sim.cc[:, :n]).all()) or \
             not bool(torch.isfinite(sim.fc[:, :, :n]).all()):
         raise RuntimeError("non-finite state after the run")
-    # the field at the tip: the largest norm over the leaf cells outside
-    # the electrode, and where
     fld = leaf_interiors(torch, sim, sim.i_electric_fld)
-    outside = leaf_interiors(torch, sim, sim.i_lsf) > 0
-    emax = float(fld[outside].max())
-    ne_in = float(leaf_interiors(torch, sim, sim.i_electron)[~outside].max())
-    log(f"phase {phase}: max(E) outside the electrode = {emax:.4e} V/m = "
-        f"{emax / BACKGROUND_FIELD:.2f} times the background "
-        f"{BACKGROUND_FIELD:.2e}; voltage {sim.field.current_voltage:.4e} V; "
-        f"max electron density inside the electrode (its boundary cells "
-        f"carry the species boundary condition) {ne_in:.4e} 1/m3")
-    if not emax > 3 * BACKGROUND_FIELD:
-        raise RuntimeError("the field is not enhanced at the electrode")
+    if lsf is not None:
+        # the field at the tip: the largest norm over the leaf cells
+        # outside the electrode
+        outside = leaf_interiors(torch, sim, sim.i_lsf) > 0
+        emax = float(fld[outside].max())
+        ne_in = float(leaf_interiors(torch, sim,
+                                     sim.i_electron)[~outside].max())
+        log(f"phase {phase}: max(E) outside the electrode = {emax:.4e} V/m "
+            f"= {emax / BACKGROUND_FIELD:.2f} times the background "
+            f"{BACKGROUND_FIELD:.2e}; voltage "
+            f"{sim.field.current_voltage:.4e} V; max electron density inside "
+            f"the electrode (its boundary cells carry the species boundary "
+            f"condition) {ne_in:.4e} 1/m3")
+        if not emax > 3 * BACKGROUND_FIELD:
+            raise RuntimeError("the field is not enhanced at the electrode")
+    else:
+        emax = float(fld.max())
+        log(f"phase {phase}: max(E) = {emax:.4e} V/m = "
+            f"{emax / BACKGROUND_FIELD:.2f} times the background "
+            f"{BACKGROUND_FIELD:.2e}")
+        if not emax > BACKGROUND_FIELD:
+            raise RuntimeError("max(E) did not rise above the background")
     if sim.photoi.enabled and not float(
             sim.cc[sim.photoi.i_photo, :n].max()) > 0.0:
         raise RuntimeError("the photoionization source is empty")
@@ -1191,16 +1457,106 @@ def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
     P, R = mgb.gather_levels(sim.field.mg, sim.cc)
     vc_ms = time_ms(torch, lambda: mgb.fas_vcycle_blocks(sim.field.mg, P, R,
                                                          params), reps=10)
-    log(f"phase {phase}: {vc_ms:.3f} ms per V-cycle of the field solve with "
-        f"the level set ({t.highest_lvl} levels, float64)")
-    sweeps = [k for k in names if "sweep" in k] + (["fill_3d"] if ndim == 3
-                                                   else [])
-    for name in sweeps:
-        time_on_level(torch, ks, mgb, sim, name, t.highest_lvl, "2b", smi,
-                      what=f"the field solve of phase {phase} "
-                      f"({bnd_lvls[t.highest_lvl]} boxes hold the "
-                      f"electrode's boundary)")
+    log(f"phase {phase}: {vc_ms:.3f} ms per V-cycle of the field solve "
+        f"({t.highest_lvl} levels, float64)")
+    if sim.surfaces is None:
+        lvl = t.highest_lvl
+        for name in [k for k in names if "sweep" in k] + (
+                ["fill_3d"] if ndim == 3 else []):
+            time_on_level(torch, ks, mgb, sim, name, lvl, "2b", smi,
+                          what=f"the field solve of phase {phase} "
+                          f"({bnd_lvls[lvl]} boxes hold the electrode's "
+                          f"boundary)")
     return launches
+
+
+def time_on_eps_level(torch, ks, mgb, sim, phase, smi):
+    """Phase 2b of a dielectric run: its sweep and its fill (K4 and K5 in
+    3D, K2 and K3-swap in 2D) on the finest level with extrapolating
+    ghosts of eps, one that also holds an electrode's boundary where the
+    mesh has one."""
+    mg, t, ndim = sim.field.mg, sim.tree, sim.ndim
+    lsf = sim.field.lsf_data
+    bnd = {l: (int(lsf.level_data(l)["has_bnd"].sum()) if lsf else 0)
+           for l in range(1, t.highest_lvl + 1)}
+    lvls = [l for l in range(1, t.highest_lvl + 1)
+            if mg.rb_extrap(l) and (ndim == 3 or mg.smoother(l).has_swap)]
+    if not lvls:
+        raise RuntimeError("no level with extrapolating ghosts of eps")
+    lvl = max([l for l in lvls if bnd[l] > 0] or lvls)
+    what = (f"the field solve of phase {phase} after setup "
+            f"({int(mg.op(lvl).veps.sum())} boxes with variable eps, "
+            f"{bnd[lvl]} hold the electrode's boundary)")
+    for name in (("sweep_3d", "fill_3d") if ndim == 3
+                 else ("sweep_2d", "fill_2d_swap")):
+        time_on_level(torch, ks, mgb, sim, name, lvl, "2b", smi, what=what)
+
+
+def phase_imex(torch, ks):
+    """Phase 3q: the IMEX integrators on the stiff reaction-diffusion
+    problem of tests/test_imex.py (programs/reaction_diffusion.py: the
+    implicit step is a Helmholtz solve through the multigrid, K1-K3 on the
+    card) at 32^2 and 512^2 cells: the runs of that test held to its bounds
+    against the solution (imex_euler below 0.05 and first order,
+    imex_trapezoidal below 5e-4 and 0.15 of imex_euler's error), the FMG
+    cycles per implicit solve and the kernel launches; then the card
+    against the CPU: the whole trapezoidal run at 32^2, one step of each
+    scheme at 512^2, every time state within rtol 1e-9 of its scale and
+    the same FMG cycles."""
+    from afivo_streamer_tpu_torch.programs import reaction_diffusion as rd
+    for coarse, level in IMEX_MESHES:
+        cells = f"{coarse * 2 ** (level - 1)}^2"
+        errs, fmg = {}, {}
+        ks.reset_launch_counts()
+        t0 = time.perf_counter()
+        for integrator, dt, steps in IMEX_RUNS:
+            prob = rd.ReactionDiffusion(coarse, level, "cuda")
+            errs[integrator, dt] = prob.run(integrator, dt, steps)
+            fmg[integrator, dt] = prob.fmg_cycles
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: ks.KERNELS[k].launches for k in PATH_KERNELS[2]}
+        e1, e2 = errs["imex_euler", 2e-3], errs["imex_euler", 1e-3]
+        et = errs["imex_trapezoidal", 2e-3]
+        n_solves = sum(len(v) for v in fmg.values())
+        log(f"phase 3q: IMEX at {cells} cells ({level} levels): relative "
+            f"error imex_euler dt 2e-3 {e1:.6e}, dt 1e-3 {e2:.6e} (ratio "
+            f"{e2 / e1:.4f}, limit 0.65), imex_trapezoidal dt 2e-3 {et:.6e} "
+            f"({et / e1:.4f} of imex_euler's, limits 0.15 and 5e-4); FMG "
+            f"cycles per implicit solve "
+            f"{ {f'{k[0]} {k[1]:g}': sorted(set(v)) for k, v in fmg.items()} } "
+            f"({n_solves} solves); kernel launches {launches} = "
+            f"{ {k: round(v / n_solves, 1) for k, v in launches.items()} } "
+            f"per implicit solve (the explicit substeps launch none); "
+            f"{wall:.2f} s")
+        if not (e1 < 0.05 and e2 < 0.65 * e1 and et < 0.15 * e1
+                and et < 5e-4):
+            raise RuntimeError(f"phase 3q: IMEX outside the bounds: {errs}")
+        if not all(v > 0 for v in launches.values()):
+            raise RuntimeError(f"phase 3q: a kernel was not launched: "
+                               f"{launches}")
+        runs = ([IMEX_RUNS[2]] if level == 2 else
+                [(integrator, dt, 1) for integrator, dt, _ in IMEX_RUNS[::2]])
+        for integrator, dt, steps in runs:
+            probs = {dev: rd.ReactionDiffusion(coarse, level, dev)
+                     for dev in ("cpu", "cuda")}
+            for prob in probs.values():
+                prob.run(integrator, dt, steps)
+            a, b = probs["cpu"], probs["cuda"]
+            worst = 0.0
+            for s in range(3):
+                ref = a.cc[rd.I_U + s, a.ids]
+                got = b.cc[rd.I_U + s, b.ids].cpu()
+                worst = max(worst, float((got - ref).abs().max())
+                            / max(float(ref.abs().max()), 1e-300))
+            log(f"phase 3q: {integrator} at {cells} cells, {steps} steps: "
+                f"cuda vs cpu worst scaled deviation {worst:.3e} (limit "
+                f"1e-9), FMG cycles {b.fmg_cycles} on both: "
+                f"{a.fmg_cycles == b.fmg_cycles}")
+            if worst > 1e-9 or a.fmg_cycles != b.fmg_cycles:
+                raise RuntimeError(f"phase 3q: cuda vs cpu {worst}, "
+                                   f"{a.fmg_cycles} {b.fmg_cycles}")
+        free_earlier_runs(torch)
 
 
 def phase_energy_physics(torch, Simulation, out_dir):
@@ -1237,7 +1593,7 @@ def phase_energy_physics(torch, Simulation, out_dir):
 
 
 def phase_1d_full(torch, ks, Simulation, out_dir):
-    """Phase 10: the planar 1D slice under ee53 on uniform 1 um cells for 20
+    """Phase 10: the planar 1D slice under ee53 on uniform 1 um cells for 10
     steps. One dimension has no kernel: the launch counts must stay 0."""
     extra, steps = ONED_FULL
     free_earlier_runs(torch)
@@ -1393,6 +1749,7 @@ def main():
 
     results = phase_kernels(torch, ks, smi)
     phase_kernels_level_set(torch, ks, smi)
+    phase_kernels_eps(torch, ks, smi)
     out_dir = ROOT / "out" / "chip_smoke"
     for ndim in (2, 3):
         phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim)
@@ -1406,7 +1763,11 @@ def main():
     for phase, cfg, ndim, table, extra, steps in ELECTRODES_SMALL:
         phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
                               cfg, table, extra, steps)
-    # phases 9 to 12 run before the long profiler traces of phases 6 to 8,
+    for phase, cfg, ndim, table, extra, steps, must in BRANCHES_SMALL:
+        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
+                              cfg, table, extra, steps, must)
+    phase_imex(torch, ks)
+    # phases 9 to 14 run before the long profiler traces of phases 6 to 8,
     # after which the host has been seen to run slower for the rest of the
     # process
     by_phase = {"9": phase_amr_full(torch, ks, Simulation, mgb, out_dir, 2,

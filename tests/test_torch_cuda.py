@@ -26,7 +26,12 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
   photoionization, with the source factor and with a plasma region;
 * the electrode slices the same way: the Cartesian rod as cathode, the
   cylindrical needle with photoionization, a user electrode and the 3D
-  rod.
+  rod;
+* the field solver's last branches the same way: the cylindrical
+  dielectric, the 3D slab, the needle above the plate (K3-swap launched)
+  and the 256 x 256-cell level-1 grid (the uniform coarse multigrid, the
+  same V-cycles), and the IMEX problem of programs/reaction_diffusion.py
+  (the same FMG cycles).
 """
 
 import re
@@ -462,3 +467,65 @@ def slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=("-refine_max_dx=5e-4",),
         torch.testing.assert_close(sims[1].cc[iv, :n].cpu(), ref, rtol=1e-9,
                                    atol=1e-9 * scale)
     return sims
+
+
+DIEL_USER = ("-user%module="
+             f"{ROOT / 'afivo_streamer_tpu_torch' / 'programs'}/dielectric_2d.py")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg, ndim, extra, launched_names", [
+    ("dielectric_cyl_slice.cfg", 2, ["-photoi%per_steps=2", DIEL_USER],
+     ("fill_2d_swap",)),
+    ("dielectric_3d_slice.cfg", 3, [DIEL_USER], ("sweep_3d", "fill_3d")),
+    ("electrode_dielectric_cyl_slice.cfg", 2,
+     ["-photoi%per_steps=2", DIEL_USER], ("sweep_2d", "fill_2d_swap")),
+    ("air_cyl_slice.cfg", 2, ["-cylindrical=f", "-coarse_grid_size=256 256"],
+     ("fill_2d",)),
+], ids=["cyl-dielectric", "3d-slab", "needle-above-plate", "coarse-256"])
+def test_field_branch_slice_cuda_matches_cpu(cfg, ndim, extra,
+                                             launched_names, cuda, tmp_path):
+    """Dielectrics beyond Cartesian 2D, the pair and the uniform coarse
+    multigrid: the same mesh, state and surface data on the card as on
+    the CPU, rtol 1e-9 of each variable's scale, the kernels of the path
+    launched and, on the coarse grid, the same V-cycles of every level-1
+    solve."""
+    from afivo_streamer_tpu_torch import interop
+    ks.reset_launch_counts()
+    sims = slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra, steps=4)
+    assert all(ks.KERNELS[k].launches > 0 for k in launched_names)
+    for a, b in zip(sims[0].tree.lvl_ids, sims[1].tree.lvl_ids):
+        assert (a == b).all()
+    if sims[0].surfaces is not None:
+        want, got = (interop.surface_data(s) for s in sims)
+        assert want.keys() == got.keys() and want
+        for k in want:
+            torch.testing.assert_close(torch.as_tensor(got[k]),
+                                       torch.as_tensor(want[k]), rtol=1e-9,
+                                       atol=1e-9 * abs(want[k]).max())
+    else:
+        solvers = [s.field.mg.coarse_solver() for s in sims]
+        assert solvers[0].last_vcycles == solvers[1].last_vcycles >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integrator", ["imex_euler", "imex_trapezoidal"])
+def test_reaction_diffusion_cuda_matches_cpu(integrator, cuda):
+    """Two IMEX steps of the stiff reaction-diffusion problem at 64^2 cells:
+    the implicit Helmholtz solve launches K1-K3; every time state equal to
+    the CPU's within rtol 1e-9 of its scale, the same FMG cycles."""
+    from afivo_streamer_tpu_torch.programs import reaction_diffusion as rd
+    probs = []
+    for dev in ("cpu", "cuda"):
+        ks.reset_launch_counts()
+        prob = rd.ReactionDiffusion(16, 3, device=dev)
+        prob.run(integrator, 2e-3, 2)
+        probs.append(prob)
+    assert all(ks.KERNELS[k].launches > 0
+               for k in ("fill_sweep_2d", "sweep_2d", "fill_2d"))
+    assert probs[0].fmg_cycles == probs[1].fmg_cycles
+    for s in range(3):
+        ref = probs[0].cc[rd.I_U + s, probs[0].ids]
+        torch.testing.assert_close(
+            probs[1].cc[rd.I_U + s, probs[1].ids].cpu(), ref, rtol=1e-9,
+            atol=1e-9 * max(float(ref.abs().max()), 1e-300))

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from afivo_streamer_tpu_torch.driver import Simulation
+from afivo_streamer_tpu_torch.solvers.coarse import UniformCoarseMG
 
 ROOT = Path(__file__).resolve().parent.parent
 DATA = ROOT / "afivo_streamer_tpu_torch" / "data"
@@ -104,12 +105,16 @@ def test_device_cuda_without_card_raises(tmp_path):
     (["-output%npz=t"], "io/output.py"),
     (["-restart_from_file=run.npz"], "io/checkpoint.py"),
     (["-compiled%enabled=t"], "parallel/compiled.py"),
-    (["-time_integrator=imex_euler"], "physics/advance.py"),
     (["-user%module=USER_HOOKS"], "physics/user_methods.py"),
-    (["-use_dielectric=t", "-ndim=3", "-cylindrical=f"],
-     "physics/dielectric.py"),
+    (["-use_dielectric=t", "-coarse_grid_size=256 256",
+      "-dielectric_type=bottom", "-cylindrical=f", "-user%module="
+      f"{DATA.parent / 'programs' / 'dielectric_2d.py'}"], "per-cell"),
 ])
 def test_unported_configuration_raises(tmp_path, extra, module):
+    """Modules the port does not hold raise NotImplementedError naming the
+    JAX module; as in the JAX package, a level-1 grid above 32,768
+    unknowns with a per-cell operator (eps, a level set) raises at the
+    first field solve."""
     if "-user%module=USER_HOOKS" in extra:
         hooks = tmp_path / "hooks.py"
         hooks.write_text("def user_initialize(cfg, sim):\n"
@@ -117,6 +122,16 @@ def test_unported_configuration_raises(tmp_path, extra, module):
         extra = [f"-user%module={hooks}"]
     with pytest.raises(NotImplementedError, match=module):
         Simulation(argv=argv(tmp_path, "-device=cpu", *extra))
+
+
+@pytest.mark.parametrize("integrator", ["imex_euler", "imex_trapezoidal"])
+def test_implicit_integrator_needs_a_solver(tmp_path, integrator):
+    """The streamer model has no implicit part: the driver raises the JAX
+    package's ValueError (physics/advance.py) for an IMEX integrator, which
+    needs an implicit solver (programs/reaction_diffusion.py passes one)."""
+    with pytest.raises(ValueError, match="requires an implicit_solver"):
+        Simulation(argv=argv(tmp_path, "-device=cpu",
+                             f"-time_integrator={integrator}"))
 
 
 NEW_TABLE = ["-input_data%old_style=f",
@@ -133,6 +148,9 @@ ELECTRODE = ["-use_electrode=t", "-seed_density=0",
              "-cone_length_frac=0.3", "-cone2_tip_radius=4e-4",
              "-cone2_length_frac=0.3", "-user%module="
              f"{DATA.parent / 'programs' / 'electrode_user.py'}"]
+#: the dielectric slab of programs/dielectric_2d.py
+DIELECTRIC = ["-use_dielectric=t", "-dielectric_type=bottom", "-user%module="
+              f"{DATA.parent / 'programs' / 'dielectric_2d.py'}"]
 ELECTRODE_TYPES = ("sphere", "rod", "rod_rod", "rod_cone_top",
                    "two_rod_cone_electrodes", "user")
 
@@ -146,10 +164,14 @@ ELECTRODE_TYPES = ("sphere", "rod", "rod_rod", "rod_cone_top",
     ("air_cyl_slice.cfg", ["-plasma_region_enabled=t",
                            "-plasma_region_rmax=0.008 0.016"]),
     ("air_cyl_slice.cfg", ["-refine_electrode_dx=1e-4"]),
+    ("air_1d_slice.cfg", ["-ndim=1"] + DIELECTRIC + ["-dielectric_type=left"]),
+    ("air_3d_slice.cfg", ["-ndim=3"] + DIELECTRIC),
+    ("air_cyl_slice.cfg", ["-cylindrical=f", "-coarse_grid_size=256 256"]),
 ] + [("air_cyl_slice.cfg", ELECTRODE + [f"-field_electrode_type={kind}"])
      for kind in ELECTRODE_TYPES],
     ids=["1d", "1d-ee53", "cyl-ee-alias", "new-style-table", "source-factor",
-         "plasma-region", "electrode-dx-without-electrode"]
+         "plasma-region", "electrode-dx-without-electrode", "dielectric-1d",
+         "dielectric-3d", "coarse-grid-65536"]
     + [f"electrode-{kind}" for kind in ELECTRODE_TYPES])
 def test_ported_configuration_builds(tmp_path, cfg, extra):
     sim = Simulation(argv=[str(DATA / cfg), "-ndim=2",
@@ -159,7 +181,18 @@ def test_ported_configuration_builds(tmp_path, cfg, extra):
     assert sim.model.has_energy_equation == any("model%type" in a
                                                 for a in extra)
     assert (sim.fluid.mask_provider is not None) == (
-        sim.st.plasma_region_enabled or sim.st.use_electrode)
+        sim.st.plasma_region_enabled or sim.st.use_electrode
+        or sim.st.use_dielectric)
+    if sim.st.use_dielectric:
+        # the permittivity and the surface state in the JAX order, surfaces
+        # on the slab's face in every dimension
+        names = sim.registry.cc_names
+        assert names[sim.i_eps:sim.i_eps + 3] == ["eps", "surf_photon",
+                                                  "surf_sigma"]
+        assert sim.surfaces.face_cells == sim.tree.nc ** (sim.ndim - 1)
+        assert len(sim.surfaces.active()) > 0
+    if sim.tree.coarse_grid_size[0] == 256:
+        assert isinstance(sim.field.mg.coarse_solver(), UniformCoarseMG)
     if sim.st.use_electrode:
         # the level set is a variable of the state, behind the source
         # factor's and before the permittivity, as in the JAX package
