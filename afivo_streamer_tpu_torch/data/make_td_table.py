@@ -1,5 +1,7 @@
 """Write the synthetic air transport tables td_air_synthetic.txt (old
-style) and td_air_synthetic_new.txt (new style, with a mean-energy block).
+style), td_air_synthetic_new.txt (new style, with a mean-energy block) and
+td_air_synthetic_reactions.txt (the new-style table with a reaction list
+over the gas components N2, O2 and M).
 
 The old-style table has the four blocks the old-style input path reads
 (``efield[V/m]_vs_{mu,dif,alpha,eta}``, quantities at 1 bar and 300 K
@@ -28,9 +30,27 @@ number density N at 1 bar and 300 K:
   the energy model tabulates rates against it, and a block that is not
   monotone would fold those tables.
 
-Run from anywhere: ``python make_td_table.py`` rewrites both tables next to
-this script. Neither contains a reaction list, so the chemistry falls back
-to the standard e / M+ / M- model built from alpha and eta.
+The reaction table appends a ``reaction_list`` to the new-style blocks, so
+that a varying gas density (gas dynamics, a user gas density) can run: the
+standard chemistry and the old-style input refuse one. Its reactions, in
+m3/s (m6/s for the three-body one):
+
+* ``e + N2 -> e + e + N2+`` and ``e + O2 -> e + e + O2+``, each with the
+  field table k(E/N) = alpha(E) mu(E) E / N (the alpha and mobility above),
+  so that the total ionization rate equals the old-style alpha v;
+* ``e + O2 + M -> O2- + M``, a three-body attachment with the constant
+  1e-43 m6/s (about 1e7 /s at 1 bar, of the order of the eta v above);
+* ``e + N2+ -> N2`` and ``e + O2+ -> O2`` at 2e-13, ``O2- + N2+ -> O2 + N2``
+  and ``O2- + O2+ -> O2 + O2`` at 1e-13: round constants of the order of
+  dissociative and ion-ion recombination in air.
+
+They are synthetic and no measured rate; the gas species enter the
+chemistry's densities as fractions of the local gas density.
+
+Run from anywhere: ``python make_td_table.py`` rewrites the three tables
+next to this script. The first two contain no reaction list, so the
+chemistry falls back to the standard e / M+ / M- model built from alpha
+and eta.
 """
 
 from pathlib import Path
@@ -112,6 +132,33 @@ def new_style():
     return lines
 
 
+REACTIONS = [
+    "e + N2 -> e + e + N2+,field_table,efield[Td]_vs_rate_ionization_N2",
+    "e + O2 -> e + e + O2+,field_table,efield[Td]_vs_rate_ionization_O2",
+    "e + O2 + M -> O2- + M,c1,1.0e-43",
+    "e + N2+ -> N2,c1,2.0e-13",
+    "e + O2+ -> O2,c1,2.0e-13",
+    "O2- + N2+ -> O2 + N2,c1,1.0e-13",
+    "O2- + O2+ -> O2 + O2,c1,1.0e-13",
+]
+
+
+def with_reactions():
+    """The new-style table with the reaction list and its field tables."""
+    td = FIELDS / (N_GAS * TOWNSEND)
+    k_ion = alpha(FIELDS) * mobility(FIELDS) * FIELDS / N_GAS
+    lines = new_style()
+    lines[0] = ("Synthetic new-style transport data and reactions for air "
+                "(afivo_streamer_tpu_torch/data/make_td_table.py)")
+    lines += ["reaction_list", "-" * 25] + REACTIONS + ["-" * 25, ""]
+    for gas in ("N2", "O2"):
+        lines += block(f"efield[Td]_vs_rate_ionization_{gas}",
+                       [f"k = alpha mu E / N (m3/s) of e + {gas} -> e + e "
+                        f"+ {gas}+, from the alpha and mobility above"],
+                       k_ion, x=td, fmt="{:.10E}")
+    return lines
+
+
 def main():
     const = "synthetic constant value at 1 bar, 300 K"
     lines = ["Synthetic old-style transport data for air "
@@ -127,6 +174,8 @@ def main():
     here = Path(__file__).resolve().parent
     (here / "td_air_synthetic.txt").write_text("\n".join(lines))
     (here / "td_air_synthetic_new.txt").write_text("\n".join(new_style()))
+    (here / "td_air_synthetic_reactions.txt").write_text(
+        "\n".join(with_reactions()))
 
 
 if __name__ == "__main__":

@@ -22,9 +22,18 @@ variable (the level set on every box, ghost layer included), the level-set
 field solve (solvers/lsf.py, physics/field.py), no update and no density
 inside the electrode, the species boundary condition on its surface before
 every step (electrode_species_bc, streamer.f90:520-569) and the refinement
-of its boundary boxes, coarser between voltage pulses. A configuration
-that asks for another module this package does not hold raises
-NotImplementedError naming that module.
+of its boundary boxes, coarser between voltage pulses.
+
+Gas dynamics (``gas%dynamics``) add the Euler variables of the gas and its
+number density ``M`` (physics/gas_dynamics.py): after every accepted step
+and its field solve, the plasma heats and pushes the gas
+(physics/coupling.py), the gas advances over the same dt with the same
+integrator, and ``M`` follows its mass density; the next dt also respects
+the gas's CFL limit. A user ``gas_density`` hook instead fills ``M`` on
+every cell of a box once, at setup and in every new box. With either, the
+gas components are the first species of the chemistry and are not stored
+in the tree. A configuration that asks for another module this package
+does not hold raises NotImplementedError naming that module.
 """
 
 from __future__ import annotations
@@ -47,11 +56,13 @@ from .core.tree import Tree
 from .io.output import Output
 from .physics import advance as adv
 from .physics.chemistry import Chemistry
+from .physics.coupling import Coupling
 from .physics.dielectric import Dielectric
 from .physics.dt_control import DtConfig
 from .physics.field import FieldSolver
 from .physics.fluid import FluidModel, FluidIndices
 from .physics.gas import Gas
+from .physics.gas_dynamics import GasDynamics
 from .physics.init_cond import InitCond
 from .physics.model import Model
 from .physics.photoi import Photoionization
@@ -83,7 +94,6 @@ def _refuse(cfg, user):
     """NotImplementedError for the modules of the JAX package that this
     package does not hold."""
     checks = [
-        ("gas%dynamics", False, "physics/gas_dynamics.py"),
         ("compiled%enabled", False, "parallel/compiled.py"),
     ]
     for key, default, module in checks:
@@ -94,7 +104,8 @@ def _refuse(cfg, user):
         raise NotImplementedError("io/checkpoint.py")
     hooks = [k for k, v in vars(user).items()
              if v is not None
-             and k not in ("initial_conditions", "lsf", "lsf_bc")]
+             and k not in ("initial_conditions", "lsf", "lsf_bc",
+                           "gas_density")]
     if hooks:
         raise NotImplementedError(
             f"physics/user_methods.py: user hooks {hooks}")
@@ -130,6 +141,9 @@ class Simulation:
         _refuse(cfg, self.user)
         table_settings = TableDataSettings(cfg)
         self.gas = Gas(cfg)
+        if self.user.gas_density is not None and not self.gas.dynamics:
+            # the gas density given by a user function (m_gas.f90:146-148)
+            self.gas.constant_density = False
         self.td = TransportData(cfg, self.gas, table_settings,
                                 self.model.has_energy_equation)
         self.chem = Chemistry(self.gas, self.td, self.td.file,
@@ -145,15 +159,21 @@ class Simulation:
         reg = Registry()
         self.registry = reg
         n_copies = self.dt_cfg.num_steps + 1
-        self.species_cc: List[int] = [reg.add_cc(name, n_copies=n_copies)
-                                      for name in self.chem.species_list]
+        # the gas species (first in the list under a varying gas density)
+        # are not stored in the tree
+        ngas = self.chem.n_gas_species
+        self.species_cc: List[int] = [
+            reg.add_cc(name, n_copies=n_copies)
+            for name in self.chem.species_list[ngas:]]
         self.all_densities = list(self.species_cc)
-        self.i_electron = self.species_cc[self.chem.species_list.index("e")]
+        self.i_electron = self.species_cc[
+            self.chem.species_list.index("e") - ngas]
         # first positive ion: charge exactly +1 (m_streamer.f90:226-235)
-        pos = [i for i, q in enumerate(self.chem.species_charge) if q == 1]
+        pos = [i for i, q in enumerate(self.chem.species_charge)
+               if q == 1 and i >= ngas]
         if not pos:
             raise ValueError("No positive ion species present")
-        self.i_1pos_ion = self.species_cc[pos[0]]
+        self.i_1pos_ion = self.species_cc[pos[0] - ngas]
         self.i_phi = reg.add_cc("phi", n_copies=2)
         self.i_electric_fld = reg.add_cc("electric_fld")
         self.i_rhs = reg.add_cc("rhs")
@@ -182,7 +202,7 @@ class Simulation:
         self.i_electron_energy = -1
         if self.model.has_energy_equation:
             self.i_electron_energy = self.species_cc[
-                self.chem.species_list.index("e_energy")]
+                self.chem.species_list.index("e_energy") - ngas]
 
         # face-centered variables: electron flux, energy flux, mobile-ion
         # fluxes, E
@@ -195,7 +215,7 @@ class Simulation:
             self.flux_charge_sign.append(-1)  # the upwind direction only
         for nm in self.td.mobile_ion_names:
             six = self.chem.species_list.index(nm)
-            self.flux_species.append(self.species_cc[six])
+            self.flux_species.append(self.species_cc[six - ngas])
             self.flux_charge_sign.append(
                 1 if self.chem.species_charge[six] > 0 else -1)
             self.fc_flux.append(reg.add_fc(f"flux_{nm}"))
@@ -221,7 +241,7 @@ class Simulation:
 
         # ---- field solver
         ch_ix, ch_q = self.chem.charged_species
-        charged_cc = [self.species_cc[i] for i in ch_ix]
+        charged_cc = [self.species_cc[i - ngas] for i in ch_ix]
         self.field = FieldSolver(cfg, self.mesh, self.st, self.i_phi,
                                  self.i_rhs, self.i_electric_fld, self.fc_E,
                                  charged_cc, ch_q)
@@ -234,22 +254,29 @@ class Simulation:
         reg.set_cc_methods(self.i_electric_fld, bc_species_neumann_zero,
                            rb=gc.RB_INTERP, prolong="linear")
 
+        # ---- gas dynamics (the Euler variables and M) or the user's M
+        self.gasdyn = None
+        self.coupling = None
+        self.i_gas_dens = -1
+        if self.gas.dynamics:
+            self.gasdyn = GasDynamics(self.mesh, self.gas, reg, self.dt_cfg)
+            self.i_gas_dens = self.gasdyn.i_gas_dens
+        elif self.user.gas_density is not None:
+            # M from the user function, on every cell; no methods
+            self.i_gas_dens = reg.add_cc("M")
+        self.dt_gas_lim = self.dt_cfg.dt_max
+
         # ---- photoionization (registers photo and the Helmholtz modes)
         self.photoi = Photoionization(cfg, self.mesh, reg, self.gas, self.td,
                                       self.chem, self.i_rhs, self.i_electron,
                                       self.i_electric_fld)
         if self.photoi.enabled:
             self.photoi.species_cc = self.species_cc[
-                self.photoi.species_index]
+                self.photoi.species_index - ngas]
             if self.photoi.source_type == "from_species":
                 self.photoi.i_excited_cc = self.species_cc[
-                    self.chem.species_index(self.photoi.excited_species)]
-
-        # ---- storage (grown with the mesh, _sync_capacity)
-        batch = BoxBatch(self.tree, reg.n_cc, reg.n_fc,
-                         capacity(self.tree.highest_id), self.dtype,
-                         self.device)
-        self.cc, self.fc = batch.cc, batch.fc
+                    self.chem.species_index(self.photoi.excited_species)
+                    - ngas]
 
         self.init_cond = InitCond(cfg, self.st, reg, self.i_electron,
                                   self.i_1pos_ion)
@@ -275,7 +302,8 @@ class Simulation:
             i_photo=self.photoi.i_photo,
             photoi_species_cc=self.photoi.species_cc,
             i_electron_energy=self.i_electron_energy,
-            i_srcfac=self.i_srcfac)
+            i_srcfac=self.i_srcfac,
+            i_gas_dens=self.i_gas_dens)
         self.fluid = FluidModel(self.mesh, idx, self.chem, self.td, self.gas,
                                 self.bc_species, self.dt_cfg, self.st,
                                 prolong_limiter=pr.default_prolong_limiter(
@@ -284,8 +312,18 @@ class Simulation:
         if (self.st.use_electrode or self.st.use_dielectric
                 or self.st.plasma_region_enabled):
             self.fluid.mask_provider = self._level_mask
+        if self.gasdyn is not None:
+            # registers vibrational_energy, the last variable
+            self.coupling = Coupling(self.mesh, self.gas, self.gasdyn, idx,
+                                     reg, charged_cc, ch_q)
         self.surfaces = None
         self.dielectric = None
+
+        # ---- storage (grown with the mesh, _sync_capacity)
+        batch = BoxBatch(self.tree, reg.n_cc, reg.n_fc,
+                         capacity(self.tree.highest_id), self.dtype,
+                         self.device)
+        self.cc, self.fc = batch.cc, batch.fc
 
         # runtime state
         self.it = 0
@@ -362,10 +400,13 @@ class Simulation:
         self.cc, self.fc = cc, fc
 
     def _set_initial_values(self, ids):
-        """The level set, the initial conditions and the user hook on boxes
-        ``ids``; no density inside an electrode."""
+        """The level set, the user's gas density, the initial conditions,
+        the initial gas state and the user hook on boxes ``ids``; no
+        density inside an electrode."""
         self._fill_lsf(ids)
+        self._fill_user_gas_density(ids)
         self.cc = self.init_cond.apply(self.cc, self.tree, ids)
+        self._init_gas_state(ids)
         if self.user.initial_conditions is not None:
             self.user.initial_conditions(self, np.asarray(ids, np.int64))
         elif self.st.use_dielectric:
@@ -373,20 +414,89 @@ class Simulation:
                 "use_dielectric requires user initial conditions")
         self._zero_inside_electrode(ids)
 
+    # ---------------------------------------------------------------- gas
+    def _fill_user_gas_density(self, ids):
+        """Fill M from the user's gas density on every cell of boxes
+        ``ids``, the ghost layer included
+        (set_gas_density_from_user_function, streamer.f90:672-681)."""
+        if self.gasdyn is not None or self.user.gas_density is None \
+                or len(ids) == 0:
+            return
+        ids = np.asarray(ids, np.int64)
+        dens = np.asarray(self.user.gas_density(self, self._cell_coords(ids)))
+        self.cc[self.i_gas_dens, torch.as_tensor(
+            ids, device=self.device)] = torch.as_tensor(
+                dens.reshape(len(ids), -1), dtype=self.dtype,
+                device=self.device)
+
+    def _init_gas_state(self, ids):
+        """The initial Euler state: the configured density and pressure at
+        rest (init_cond_set_box, m_init_cond.f90:245-258)."""
+        if self.gasdyn is None or len(ids) == 0:
+            return
+        gd, gas = self.gasdyn, self.gas
+        ids = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        N = gas.number_density
+        self.cc[gd.i_gas_dens, ids] = N
+        self.cc[gd.gas_vars[gd.i_rho], ids] = N * gas.molecular_weight
+        for m in gd.i_mom:
+            self.cc[gd.gas_vars[m], ids] = 0.0
+        self.cc[gd.gas_vars[gd.i_e], ids] = (
+            gas.pressure * 1e5 / (gas.euler_gamma - 1.0))
+
+    def _gc_simple(self, cc, ivs):
+        """Ghost cells of variables ``ivs`` on every level, with their
+        registered methods."""
+        for lvl in range(1, self.tree.highest_lvl + 1):
+            plan = self.mesh.gc(lvl)
+            for iv in ivs:
+                m = self.registry.methods[iv]
+                cc = gc.fill_ghosts_lvl(cc, plan, [iv], m["rb"], m["bc"], {})
+        return cc
+
+    def _advance_gas(self, dt: float, time: float, params) -> float:
+        """af_advance on the Euler variables with the run's integrator
+        (streamer.f90:330-333); returns the gas dt limit of the last
+        substep."""
+        def substep(cc, fc, dt_s, dt_lim, time_s, s_deriv, s_prev, w_prev,
+                    s_out, i_step, n_steps, params_s):
+            cc, fc, dt_lim = self.gasdyn.forward_euler(
+                cc, fc, dt_s, dt_lim, time_s, s_deriv, s_prev, w_prev,
+                s_out, i_step, n_steps, params_s)
+            return cc, fc, dt_lim, {}
+
+        self.cc, self.fc, dt_lim, _, _ = adv.advance(
+            self.cc, self.fc, dt, time, self.dt_cfg.integrator, substep,
+            params)
+        return float(dt_lim)
+
+    def _gas_step(self, dt: float, params):
+        """After an accepted step and its field solve (streamer.f90:
+        325-336): the plasma's heating and force on the gas, the gas
+        advance from the step's start time, and M from the new density."""
+        self.cc = self.coupling.add_fluid_source(self.cc, self.fc, dt)
+        self.dt_gas_lim = self._advance_gas(dt, self.global_time, params)
+        self.cc = self.coupling.update_gas_density(self.cc, self._gc_simple)
+
+    def _cell_coords(self, ids) -> np.ndarray:
+        """Cell centres of boxes ``ids``, ghost layer included:
+        [n, (nc+2)^ndim, ndim]."""
+        t = self.tree
+        axes = np.meshgrid(*[np.arange(-1, t.nc + 1) + 0.5] * self.ndim,
+                           indexing="ij")
+        off = np.stack([a.ravel() for a in axes], -1)
+        return (t.box_r_min(ids)[:, None, :]
+                + off[None, :, :] * t.box_dr(ids)[:, None, :])
+
     # ---------------------------------------------------------- electrode
     def _fill_lsf(self, ids):
         """Evaluate the level-set function on boxes (funcval variable,
         set_lsf_box in m_field.f90): all cells incl. one ghost layer."""
         if self.field.lsf_data is None or len(ids) == 0:
             return
-        t = self.tree
         ids = np.asarray(ids, np.int64)
-        axes = np.meshgrid(*[np.arange(-1, t.nc + 1) + 0.5] * self.ndim,
-                           indexing="ij")
-        off = np.stack([a.ravel() for a in axes], -1)  # [(nc+2)^ndim, ndim]
-        coords = (t.box_r_min(ids)[:, None, :]
-                  + off[None, :, :] * t.box_dr(ids)[:, None, :])
-        lsf = self.field.lsf_data.lsf(coords.reshape(-1, self.ndim))
+        lsf = self.field.lsf_data.lsf(
+            self._cell_coords(ids).reshape(-1, self.ndim))
         self.cc[self.i_lsf, torch.as_tensor(ids, device=self.device)] = \
             torch.as_tensor(lsf.reshape(len(ids), -1), dtype=self.dtype,
                             device=self.device)
@@ -494,7 +604,8 @@ class Simulation:
         self.surfaces = Surfaces(self.tree, eps, self.i_surf_photon,
                                  self.i_surf_sigma, n_states + 1)
         # full charges of the flux species and the positive-ion fluxes
-        charges = [self.chem.species_charge[self.species_cc.index(iv)]
+        ngas = self.chem.n_gas_species
+        charges = [self.chem.species_charge[ngas + self.species_cc.index(iv)]
                    for iv in self.flux_species]
         pos_ion_fc = [f for f, q in zip(self.fc_flux, charges) if q > 0]
         self.dielectric = Dielectric(self.cfg, self.surfaces, self.fluid.idx,
@@ -523,6 +634,7 @@ class Simulation:
         methods = self.registry.methods
         for lvl in sorted(info.added_per_lvl):
             self._fill_lsf(info.added_per_lvl[lvl])
+            self._fill_user_gas_density(info.added_per_lvl[lvl])
             plan = pr.ProlongRestrictPlan(self.tree, info.added_per_lvl[lvl],
                                           self.device)
             for iv in self.registry.auto_vars:
@@ -674,13 +786,16 @@ class Simulation:
             self.cc, self.fc = self.field.compute(self.cc, self.fc, 0, time,
                                                   True)
 
+            # gas dynamics advance (streamer.f90:325-336)
+            if self.gasdyn is not None:
+                self._gas_step(dt, params)
+
             # new time step (streamer.f90:338-343)
             tmp = self.dt_cfg.max_growth_factor
             if fraction_steps_rejected > 0.1:
                 tmp = 1.0
             dt = min(tmp * self.global_dt,
-                     self.dt_cfg.safety_factor * min(dt_lim,
-                                                     self.dt_cfg.dt_max))
+                     self.dt_cfg.safety_factor * min(dt_lim, self.dt_gas_lim))
             if start_of_new_pulse:
                 # start a new pulse with a small time step
                 dt = self.dt_cfg.dt_min
@@ -701,6 +816,10 @@ class Simulation:
             # refinement every refine_per_steps (streamer.f90:380-411)
             if self.it % self.refine_cfg.per_steps == 0:
                 self.restrict_and_gc_densities()
+                if self.gasdyn is not None:
+                    self.cc = pr.restrict_tree(self.cc, self.mesh.pr_all(),
+                                               self.gasdyn.gas_vars)
+                    self.cc = self._gc_simple(self.cc, self.gasdyn.gas_vars)
                 info = self.adjust_refinement()
                 if info.n_add > 0 or info.n_rm > 0:
                     self.cc, self.fc = self.field.compute(

@@ -58,8 +58,14 @@ class Output:
         species = sim.chem.species_list
         vol = sim.tree.total_volume()
         sums, sums2, maxs = [], [], []
+        ngas = sim.chem.n_gas_species
         for n, _name in enumerate(species):
-            iv = sim.species_cc[n]
+            if n < ngas:  # the gas species are not stored in the tree
+                sums.append(0.0)
+                sums2.append(0.0)
+                maxs.append(0.0)
+                continue
+            iv = sim.species_cc[n - ngas]
             sums.append(red.tree_sum_cc(sim.cc, sim.mesh, iv) / vol)
             sums2.append(red.tree_sum_cc(sim.cc, sim.mesh, iv, power=2) / vol)
             maxs.append(red.tree_max_cc(sim.cc, sim.mesh, iv)[0])

@@ -21,6 +21,12 @@ density is the second electron-like flux variable: mobility and diffusion
 come from the mean energy at the faces, the rates from the mean energy of
 the cells after the flux update, and the energy gains the Joule heating
 and loses the tabulated loss.
+
+With a varying gas density (gas dynamics, or a user gas density) the
+variable ``M`` holds the gas number density on every cell: the transport
+coefficients take its face average, the reduced field and the source
+factor its cell value, and the gas components enter the chemistry as the
+first species, at their fractions of ``M``.
 """
 
 from __future__ import annotations
@@ -340,6 +346,18 @@ def build_consistent_plan(tree: Tree, device) -> List[ConsistentGroup]:
     return plan
 
 
+def gc2_plan(mesh, lvl: int) -> Gc2LevelPlan:
+    """The 2-ghost plan of a level, cached with the mesh."""
+    return mesh.cached(("gc2", lvl), lambda: Gc2LevelPlan(
+        mesh.tree, lvl, mesh.device), (lvl,))
+
+
+def consistent_plan(mesh) -> List[ConsistentGroup]:
+    """The flux-matching groups of the mesh, cached with it."""
+    return mesh.cached("consistent", lambda: build_consistent_plan(
+        mesh.tree, mesh.device))
+
+
 def consistent_fluxes(fc, groups: List[ConsistentGroup], flux_fc: List[int]):
     """Replace coarse fluxes at refinement boundaries by the average of
     the fine fluxes (in place)."""
@@ -383,6 +401,7 @@ class FluidIndices:
     photoi_species_cc: int = -1  # the species it ionizes
     i_electron_energy: int = -1  # flux variable 2 of the ee53 model
     i_srcfac: int = -1           # output variable for the source factor
+    i_gas_dens: int = -1         # the gas number density M when it varies
 
 
 class FluidModel:
@@ -391,9 +410,8 @@ class FluidModel:
     def __init__(self, mesh, idx: FluidIndices, chemistry, transport, gas,
                  bc_species: Callable, dt_cfg, settings,
                  prolong_limiter: int, limiter: int = LIMITER_KOREN):
-        if not gas.constant_density:
-            raise NotImplementedError(
-                "physics/gas_dynamics.py: varying gas density")
+        if not gas.constant_density and idx.i_gas_dens < 0:
+            raise ValueError("a varying gas density needs the variable M")
         self.mesh = mesh
         self.tree = mesh.tree
         self.idx = idx
@@ -412,14 +430,6 @@ class FluidModel:
         self.dielectric = None  # physics/dielectric.Dielectric when used
         self._ioniz_cols = [n for n, r in enumerate(chemistry.reactions)
                             if r.reaction_type == IONIZATION_REACTION]
-
-    def _gc2_plan(self, lvl: int) -> Gc2LevelPlan:
-        return self.mesh.cached(("gc2", lvl), lambda: Gc2LevelPlan(
-            self.tree, lvl, self.mesh.device), (lvl,))
-
-    def _consistent_plan(self):
-        return self.mesh.cached("consistent", lambda: build_consistent_plan(
-            self.tree, self.mesh.device))
 
     # -------------------------------------------------------- flux kernel
     def compute_fluxes(self, cc, fc, s_deriv: int, params):
@@ -452,7 +462,7 @@ class FluidModel:
                 (1, n_sp) + (1,) * ndim), ())
 
         for lvl in range(1, t.highest_lvl + 1):
-            plan = self._gc2_plan(lvl)
+            plan = gc2_plan(self.mesh, lvl)
             n = len(plan.leaves)
             if n == 0:
                 continue
@@ -462,6 +472,8 @@ class FluidModel:
             Eb = E.reshape((n, n_sp) + (nc + 4,) * ndim)
             # cell-centered field norm with 1 ghost
             Bfld = ro.cc_rows(cc, idx.i_electric_fld, leaves, nc, ndim)
+            Bgas = (None if self.gas.constant_density else
+                    ro.cc_rows(cc, idx.i_gas_dens, leaves, nc, ndim))
             cfl_sum = torch.zeros((n,) + (nc,) * ndim, **dev)
 
             for d in range(ndim):
@@ -486,6 +498,15 @@ class FluidModel:
                 E_fc = ro.fc_get_faces(fc, idx.fc_E, d, leaves, nc, ndim)
                 u_f = torch.where(sign_t * E_fc[:, None] > 0, u_pos, u_neg)
 
+                # the inverse gas density at the faces: with a varying
+                # density 2 / (N_lo + N_hi) (flux_upwind, m_fluid.f90:
+                # 147-153), guarded where the sum is not positive
+                if Bgas is not None:
+                    Ng_sum = (sl_faces(Bgas, 0, nc + 1, 1)
+                              + sl_faces(Bgas, 1, nc + 1, 1))
+                    N_inv_f = 2.0 / torch.where(Ng_sum > 0.0, Ng_sum, 1.0)
+                else:
+                    N_inv_f = N_inv
                 if has_ee:
                     # mobility and diffusion from the mean energy at the
                     # faces (flux_upwind, m_fluid.f90:159-168)
@@ -496,11 +517,11 @@ class FluidModel:
                     # field strength at faces -> mobility/diffusion lookup
                     fld_face = (0.5 * (sl_faces(Bfld, 0, nc + 1, 1)
                                        + sl_faces(Bfld, 1, nc + 1, 1))
-                                * uc.SI_to_Townsend * N_inv)
+                                * uc.SI_to_Townsend * N_inv_f)
                     mu, dc = self.td.tbl.get_cols(
                         (TD_MOBILITY, TD_DIFFUSION), fld_face)
-                mu = mu * N_inv
-                dc = dc * N_inv
+                mu = mu * N_inv_f
+                dc = dc * N_inv_f
 
                 inv_dx = 1.0 / float(plan.dr[d])
                 v_e = -mu * E_fc
@@ -515,7 +536,8 @@ class FluidModel:
                         v_e * u_f[:, 1]
                         - dc * inv_dx * (cR[:, 1] - cL[:, 1])))
                 for m in range(n_elec, n_sp):
-                    mu_i = float(self.td.ion_mobilities[m - n_elec]) * N_inv
+                    mu_i = (float(self.td.ion_mobilities[m - n_elec])
+                            * N_inv_f)
                     v_i = float(sign[m]) * mu_i * E_fc
                     fluxes.append(v_i * u_f[:, m])
                     sigma = sigma + mu_i * u_f[:, m]
@@ -542,7 +564,7 @@ class FluidModel:
                                     ndim)
             inv_max_cfl = torch.maximum(inv_max_cfl, cfl_sum.max())
 
-        fc = consistent_fluxes(fc, self._consistent_plan(), idx.flux_fc)
+        fc = consistent_fluxes(fc, consistent_plan(self.mesh), idx.flux_fc)
         dt_cfl = 1.0 / torch.clamp(inv_max_cfl, min=TINY)
         dt_drt = uc.eps0 / (uc.elem_charge * max_sigma)
         return cc, fc, dt_cfl, dt_drt
@@ -562,6 +584,7 @@ class FluidModel:
         has_ee = idx.i_electron_energy >= 0
         total_rates = torch.zeros(self.chem.n_reactions, **dev)
         total_JdotE = torch.zeros((), **dev)
+        ngas = self.chem.n_gas_species
 
         for lvl in range(1, t.highest_lvl + 1):
             tb = self.mesh.tb(lvl)
@@ -602,16 +625,26 @@ class FluidModel:
                     upd = torch.where(mask, upd, 0.0)
                 ro.cc_add_interior(cc, iv + s_out, leaves, upd, nc, ndim)
 
-            # chemistry source terms (add_source_terms)
-            fields_td = (ro.cc_get_interior(cc, idx.i_electric_fld, leaves,
-                                            nc, ndim)
-                         * uc.SI_to_Townsend
-                         * self.gas.inverse_number_density)
-            dens = torch.stack([ro.cc_get_interior(cc, s_cc + s_deriv,
-                                                   leaves, nc, ndim)
-                                for s_cc in idx.species_cc], dim=-1)
+            # chemistry source terms (add_source_terms); with a varying
+            # gas density the gas components are the first species
+            # (m_chemistry.f90:265-266), at their fractions of M
+            fld = ro.cc_get_interior(cc, idx.i_electric_fld, leaves, nc, ndim)
+            if self.gas.constant_density:
+                fields_td = (fld * uc.SI_to_Townsend
+                             * self.gas.inverse_number_density)
+                cols = []
+            else:
+                Ncell = ro.cc_get_interior(cc, idx.i_gas_dens, leaves, nc,
+                                           ndim)
+                fields_td = (fld * uc.SI_to_Townsend
+                             / torch.where(Ncell > 0.0, Ncell, 1.0))
+                cols = [float(self.gas.fractions[k]) * Ncell
+                        for k in range(ngas)]
+            dens = torch.stack(cols + [
+                ro.cc_get_interior(cc, s_cc + s_deriv, leaves, nc, ndim)
+                for s_cc in idx.species_cc], dim=-1)
             dens = torch.clamp(dens, min=0.0)
-            nsp = len(idx.species_cc)
+            nsp = ngas + len(idx.species_cc)
             mean_energies = None
             if has_ee:
                 # mean energy from the post-flux s_out states
@@ -654,8 +687,9 @@ class FluidModel:
             # photoionization source
             if idx.i_photo >= 0:
                 photo = ro.cc_get_interior(cc, idx.i_photo, leaves, nc, ndim)
-                derivs[:, :, idx.species_cc.index(idx.i_electron)] += photo
-                derivs[:, :, idx.species_cc.index(
+                derivs[:, :, ngas + idx.species_cc.index(
+                    idx.i_electron)] += photo
+                derivs[:, :, ngas + idx.species_cc.index(
                     idx.photoi_species_cc)] += photo
 
             if has_ee:
@@ -688,9 +722,10 @@ class FluidModel:
                     HUGE)
                 dt_other = torch.minimum(dt_other, restr)
 
-            # apply source terms (plasma species only)
+            # apply source terms (plasma species only; the gas species are
+            # not stored in the tree)
             for spi, s_cc in enumerate(idx.species_cc):
-                upd = dt * derivs[:, :, spi]
+                upd = dt * derivs[:, :, ngas + spi]
                 if mask is not None:
                     upd = torch.where(mask, upd, 0.0)
                 ro.cc_add_interior(cc, s_cc + s_out, leaves, upd, nc, ndim)
@@ -708,7 +743,8 @@ class FluidModel:
         nc, ndim = self.tree.nc, self.tree.ndim
         n = len(leaves)
         small_flux = 1.0e-9
-        ne = dens[:, :, idx.species_cc.index(idx.i_electron)]
+        ne = dens[:, :, self.chem.n_gas_species
+                  + idx.species_cc.index(idx.i_electron)]
 
         # cell-centered norm of the electron flux
         acc = 0.0
@@ -719,7 +755,11 @@ class FluidModel:
         flux_norm = 0.5 * torch.sqrt(acc)
 
         fld = ro.cc_get_interior(cc, idx.i_electric_fld, leaves, nc, ndim)
-        N_inv = self.gas.inverse_number_density
+        if self.gas.constant_density:
+            N_inv = self.gas.inverse_number_density
+        else:
+            Ng = ro.cc_get_interior(cc, idx.i_gas_dens, leaves, nc, ndim)
+            N_inv = 1.0 / torch.where(Ng > 0.0, Ng, 1.0)
         mob = self.td.tbl.get_col(TD_MOBILITY,
                                   fld * uc.SI_to_Townsend * N_inv) * N_inv
         factor = (flux_norm + small_flux) / (small_flux + ne * mob * fld)

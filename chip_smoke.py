@@ -25,7 +25,7 @@ failure exits non-zero):
    mesh at every refinement epoch, the densities, phi and the surface
    charge, and K3-swap launched; 3d, 3e. the cylindrical and the 3D slice
    with live refinement and Helmholtz photoionization (16,960 cells on 6
-   levels for 8 steps; 219,136 cells on 4 levels for 6 steps;
+   levels for 6 steps; 219,136 cells on 4 levels for 6 steps;
    photoionization every 2 steps): the same mesh at every epoch, one of
    which removes boxes, the same FMG cycle count of every Helmholtz mode
    at every update, and every variable;
@@ -44,7 +44,7 @@ failure exits non-zero):
 7. the main path at full size: the cylindrical slice with live refinement
    (a uniform level 6, 262,144 cells, refined to level 8 around the seed
    and in a region that expires) and Helmholtz photoionization every 5
-   steps, 10 steps, with the time of each step, refinement epoch and
+   steps, 6 steps, with the time of each step, refinement epoch and
    photoionization update, the FMG cycles of each mode, the launches of
    each kernel in the run and inside the updates, the V-cycle time of the
    field solve and of a Helmholtz mode, and the device busy share; then
@@ -59,7 +59,7 @@ failure exits non-zero):
    local field approximation and under the electron energy equation (ee53,
    new-style table) for 16 steps, and the cylindrical slice under ee53
    (air_cyl_ee_slice.cfg, live refinement and photoionization every 2
-   steps) for 8 steps: the same mesh at every epoch, the same FMG cycles,
+   steps) for 6 steps: the same mesh at every epoch, the same FMG cycles,
    every variable; 3i. the physics of the energy equation on the card: the
    1D slice without a seed in its uniform field to 0.3 ns, where the mean
    energy in mid-domain must relax to the table's value at the local
@@ -122,8 +122,24 @@ failure exits non-zero):
 14. the needle above the plate at full size (phase 11's refinement
    limits), 10 steps: the same, K3-swap launches per step, the surface
    charge and max(E) at the tip; then (2b) K2 and K3-swap on the finest
-   level with the level set and extrapolating ghosts of eps.
-Phases 9 to 14 run after phase 3q and before phase 4: after the long
+   level with the level set and extrapolating ghosts of eps;
+3r, 3s. gas dynamics and a varying gas density on the card and on the CPU
+   at the committed sizes, 8 steps each, photoionization every 2 steps:
+   gas_heating_cyl_slice.cfg (the Euler equations of the gas, Joule
+   heating and the EHD force) plain, with slow heating
+   (-gas%fraction_slow_heating=0.3) and from a pre-heated channel on the
+   axis (programs/heated_channel.py), and gas_channel_cyl_slice.cfg (the
+   main path in a channel of half the density, programs/gas_density_2d.py):
+   the same mesh at every epoch, dt at every attempted step, cycle counts,
+   every variable, and the gas's increments over its initial state (which
+   are about 1e-10 of the state itself) against their own scale;
+15. the heated main path at full size: gas_heating_cyl_slice.cfg with
+   phase 7's refinement flags, 6 steps: ms per step, the host seconds of
+   the gas advance and the coupling per step, the gas dt limit against the
+   plasma's dt, V-cycles per field solve, K1-K3 launches per step, peak
+   memory, the Joule energy deposited and the largest temperature rise
+   p / (N k_B) - T0; then (2b) K1, K2 and K3 on the finest level.
+Phases 9 to 15 run after phase 3s and before phase 4: after the long
 profiler traces of phases 6 to 8 the host has been seen to run slower for
 the rest of the process.
 
@@ -133,7 +149,7 @@ per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
 ``launches_by_phase`` holds every full-size run's, those of phases 9 and
-11 to 14 among them);
+11 to 15 among them);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -164,7 +180,7 @@ EE_CFG = DATA / "air_cyl_ee_slice.cfg"
 VARIANTS_SMALL = [
     ("3f", ONED_CFG, 1, TABLE, [], 16),
     ("3g", ONED_CFG, 1, TABLE_NEW, EE_FLAGS, 16),
-    ("3h", EE_CFG, 2, TABLE_NEW, ["-photoi%per_steps=2"], 8)]
+    ("3h", EE_CFG, 2, TABLE_NEW, ["-photoi%per_steps=2"], 6)]
 #: the electrode slices; cuda-vs-cpu runs (phases 3j-3l) in the form of
 #: VARIANTS_SMALL, and at the card's size (phases 11, 12): config, ndim,
 #: flags, steps, least leaf cells
@@ -173,7 +189,7 @@ ELECTRODE_CFG = {"2d": DATA / "electrode_2d_slice.cfg",
                  "3d": DATA / "electrode_3d_slice.cfg"}
 ELECTRODES_SMALL = [
     ("3j", ELECTRODE_CFG["2d"], 2, TABLE, ["-field_given_by=field 1.8e6"], 8),
-    ("3k", ELECTRODE_CFG["cyl"], 2, TABLE, ["-photoi%per_steps=2"], 8),
+    ("3k", ELECTRODE_CFG["cyl"], 2, TABLE, ["-photoi%per_steps=2"], 6),
     ("3l", ELECTRODE_CFG["3d"], 3, TABLE, [], 4)]
 ELECTRODES_FULL = {
     "11": (ELECTRODE_CFG["cyl"], 2,
@@ -199,16 +215,34 @@ ELECTRODES_FULL = {
 #: the form of VARIANTS_SMALL, with the kernels that must be launched
 BRANCHES_SMALL = [
     ("3m", DATA / "dielectric_cyl_slice.cfg", 2, TABLE,
-     ["-photoi%per_steps=2", f"-user%module={USER_MODULE}"], 8,
+     ["-photoi%per_steps=2", f"-user%module={USER_MODULE}"], 6,
      ("fill_2d_swap",)),
     ("3n", DATA / "dielectric_3d_slice.cfg", 3, TABLE,
      [f"-user%module={USER_MODULE}"], 6, ("sweep_3d", "fill_3d")),
     ("3o", DATA / "electrode_dielectric_cyl_slice.cfg", 2, TABLE,
-     ["-photoi%per_steps=2", f"-user%module={USER_MODULE}"], 8,
+     ["-photoi%per_steps=2", f"-user%module={USER_MODULE}"], 6,
      ("sweep_2d", "fill_2d_swap")),
     # one level: the uniform coarse multigrid solves it and K3 fills it
     ("3p", DATA / "air_cyl_slice.cfg", 2, TABLE,
      ["-cylindrical=f", "-coarse_grid_size=256 256"], 4, ("fill_2d",))]
+#: gas dynamics and a varying gas density (phases 3r, 3s, 15): the
+#: configurations, their table (a new-style table with a reaction list over
+#: N2, O2 and M, which a varying density needs), and the cuda-vs-cpu runs
+#: in the form of VARIANTS_SMALL
+PROGRAMS = ROOT / "afivo_streamer_tpu_torch" / "programs"
+GAS_CFG = DATA / "gas_heating_cyl_slice.cfg"
+TABLE_REACTIONS = DATA / "td_air_synthetic_reactions.txt"
+GAS_SMALL = [
+    ("3r", GAS_CFG, 2, TABLE_REACTIONS, ["-photoi%per_steps=2"], 8),
+    ("3r", GAS_CFG, 2, TABLE_REACTIONS,
+     ["-photoi%per_steps=2", "-gas%fraction_slow_heating=0.3"], 8),
+    ("3r", GAS_CFG, 2, TABLE_REACTIONS,
+     ["-photoi%per_steps=2", f"-user%module={PROGRAMS / 'heated_channel.py'}"],
+     8),
+    ("3s", DATA / "gas_channel_cyl_slice.cfg", 2, TABLE_REACTIONS,
+     ["-photoi%per_steps=2", f"-user%module={PROGRAMS / 'gas_density_2d.py'}"],
+     8)]
+GAS_FULL_STEPS = 6
 #: the IMEX problem (phase 3q): uniform meshes (level-1 cells a side, level)
 #: and the runs of tests/test_imex.py (integrator, dt, steps)
 IMEX_MESHES = ((16, 2), (16, 6))
@@ -266,9 +300,9 @@ DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
 #: every 2 steps there), and at the card's size (phases 7, 8) the
 #: overrides, the steps and the least leaf cells (the frozen slice's)
 AMR_CFG = {2: DATA / "air_cyl_amr_slice.cfg", 3: DATA / "air_3d_amr_slice.cfg"}
-AMR_SMALL_STEPS = {2: 8, 3: 6}
+AMR_SMALL_STEPS = {2: 6, 3: 6}
 AMR_FULL = {2: (["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
-                 "-refine_regions_dr=7.8125e-6"], 10, 512 ** 2),
+                 "-refine_regions_dr=7.8125e-6"], 6, 512 ** 2),
             3: (["-refine_max_dx=1.25e-4", "-refine_min_dx=3.125e-5",
                  "-refine_regions_dr=3.125e-5"], 6, 128 ** 3)}
 BACKGROUND_FIELD = 1.8e6  # V/m, the configs' field_given_by
@@ -1036,9 +1070,12 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
     steps = steps or AMR_SMALL_STEPS[ndim]
     extra = ["-photoi%per_steps=2"] if extra is None else extra
     sims, epochs, updates, dts, solves, coarse = {}, {}, {}, {}, {}, {}
+    gas0 = {}
     for dev in ("cpu", "cuda"):
         sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_{dev}", ndim,
                                        dev, extra, cfg, table))
+        if sim.gasdyn is not None:
+            gas0[dev] = gas_setup_state(torch, sim)
         epochs[dev] = [{"ids": [list(map(int, x)) for x in sim.tree.lvl_ids],
                         "add": 0, "rm": 0, "s": 0.0}]
         updates[dev], dts[dev], solves[dev], coarse[dev] = [], [], [], []
@@ -1127,6 +1164,74 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
                            f"photoionization updates")
     if a.global_dt != b.global_dt and abs(a.global_dt / b.global_dt - 1) > 1e-9:
         raise RuntimeError(f"phase {phase}: dt differs")
+    if a.gasdyn is not None:
+        gas_increments(torch, a, b, gas0, phase)
+
+
+#: the gas variables whose increments the gas phases compare
+GAS_VARS = ("gas_rho", "gas_mom_x", "gas_mom_y", "gas_e",
+            "vibrational_energy")
+
+
+def gas_setup_state(torch, sim):
+    """What the increments of the gas are taken against: the gas rows of
+    the state after setup (on the CPU) and the boxes' levels and
+    positions then."""
+    n = sim.tree.highest_id
+    rows = [sim.registry.cc_names.index(k) for k in GAS_VARS
+            if k in sim.registry.cc_names]
+    return {"rows": rows, "cc": sim.cc[rows, :n].cpu().clone(),
+            "lvl": sim.tree.lvl[:n].copy(), "ix": sim.tree.ix[:n].copy(),
+            "in_use": sim.tree.in_use[:n].copy()}
+
+
+def gas_increments(torch, a, b, gas0, phase):
+    """The gas's increments over its state after setup on the CPU (``a``)
+    and the card (``b``), on the interior cells of the leaves that were
+    boxes at setup (the increments of the others hold the interpolation
+    of new boxes): each nonzero and the card's within 1e-9 of the CPU's
+    largest; then the gas's face fluxes within 1e-9 of their scale, and
+    the gas dt limit. The density's increment is at the level of its
+    rounding (1e-15 of it in 8 steps), so its comparison holds bit
+    equality; the mass flux carries its physics."""
+    import numpy as np
+    from afivo_streamer_tpu_torch.core import spatial as sp
+    base = gas0["cpu"]
+    t = a.tree
+    n0 = len(base["lvl"])
+    leaves = np.concatenate([np.asarray(l) for l in t.lvl_leaves])
+    keep = leaves[leaves < n0]
+    keep = keep[base["in_use"][keep]
+                & (base["lvl"][keep] == t.lvl[keep])
+                & np.all(base["ix"][keep] == t.ix[keep], axis=1)]
+    ids = torch.as_tensor(keep, dtype=torch.int64)
+    inner = torch.as_tensor(sp.interior_flat(a.ndim, t.nc), dtype=torch.int64)
+    out = {}
+    for k, iv in enumerate(base["rows"]):
+        name = a.registry.cc_names[iv]
+        ref = base["cc"][k][ids][:, inner]
+        inc_a = a.cc[iv, ids][:, inner] - ref
+        inc_b = b.cc[iv, ids].cpu()[:, inner] - \
+            gas0["cuda"]["cc"][k][ids][:, inner]
+        scale = float(inc_a.abs().max())
+        out[name] = (scale, float((inc_b - inc_a).abs().max()) / scale
+                     if scale > 0 else math.inf)
+    for f_iv in a.gasdyn.gas_fluxes:
+        ref = a.fc[f_iv, :, :t.highest_id]
+        scale = float(ref.abs().max())
+        out[a.registry.fc_names[f_iv]] = (scale, float(
+            (b.fc[f_iv, :, :t.highest_id].cpu() - ref).abs().max()) / scale
+            if scale > 0 else math.inf)
+    log(f"phase {phase}: gas increments over the state after setup on the "
+        f"{len(keep)} leaves that were boxes then, and the gas's face "
+        f"fluxes (largest, worst scaled deviation cuda vs cpu): "
+        + ", ".join(f"{k} {v[0]:.4e} {v[1]:.3e}" for k, v in out.items())
+        + f"; gas dt limit {a.dt_gas_lim:.6e} s / {b.dt_gas_lim:.6e} s")
+    if any(not v[1] <= 1e-9 for v in out.values()):
+        raise RuntimeError(f"phase {phase}: the gas increments or fluxes "
+                           f"differ, or are zero: {out}")
+    if abs(a.dt_gas_lim / b.dt_gas_lim - 1) > 1e-9:
+        raise RuntimeError(f"phase {phase}: the gas dt limit differs")
 
 
 def record_dt_limits(sim, limits):
@@ -1470,6 +1575,135 @@ def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
     return launches
 
 
+def leaf_volumes(torch, sim):
+    """The volume of every interior leaf cell, in leaf_interiors' order."""
+    return torch.cat([
+        sim.mesh.tb(l).d.vol.reshape(-1).to(sim.cc.dtype)
+        for l in range(1, sim.tree.highest_lvl + 1)
+        if len(sim.mesh.tb(l).leaves)])
+
+
+def phase_gas_full(torch, ks, Simulation, mgb, out_dir, smi):
+    """Phase 15: the main path with gas dynamics at the card's size
+    (gas_heating_cyl_slice.cfg with phase 7's refinement flags); returns
+    the launch counts of the run's kernels. Then phase 2b: K1, K2 and K3
+    on the finest level of the field solve."""
+    phase, ndim, steps = "15", 2, GAS_FULL_STEPS
+    extra, _steps, min_cells = AMR_FULL[ndim]
+    names = PATH_KERNELS[ndim]
+    free_earlier_runs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ks.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_full", ndim, "cuda",
+                                   extra, GAS_CFG, TABLE_REACTIONS))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup_launches = {k: ks.KERNELS[k].launches for k in names}
+    t = sim.tree
+    cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    boxes0 = [len(x) for x in t.lvl_ids]
+    epochs, updates, solves, dts, gas_lims = [], [], [], [], []
+    record_epochs(sim, epochs, torch)
+    record_photoi(sim, ks, updates, torch)
+    record_field_cycles(mgb, sim, solves)
+    record_dts(sim, dts)
+    advance_gas, gas_step, gas_s = sim._advance_gas, sim._gas_step, []
+
+    def recorded(*args):
+        gas_lims.append(advance_gas(*args))
+        return gas_lims[-1]
+
+    def timed(*args):
+        # synchronised on both sides: the gas's own time, not the queue of
+        # the field solve before it
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gas_step(*args)
+        torch.cuda.synchronize()
+        gas_s.append(time.perf_counter() - t)
+    sim._advance_gas, sim._gas_step = recorded, timed
+    sim.run(max_steps=steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: ks.KERNELS[k].launches for k in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    per_lvl = [len(x) for x in t.lvl_ids]
+    changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
+    ms_step = 1e3 * (t2 - t1) / steps
+    gas_ms = 1e3 * sum(gas_s) / steps
+    log(f"phase {phase}: {GAS_CFG.name} {' '.join(extra)}: {cells0} leaf "
+        f"cells and boxes per level {boxes0} after setup, {n_leaf} and "
+        f"{per_lvl} ({sum(per_lvl)} boxes) after {steps} steps; setup "
+        f"{t1 - t0:.2f} s; {steps} steps {t2 - t1:.2f} s = {ms_step:.2f} "
+        f"ms/step, of which the gas advance and the coupling {gas_ms:.2f} "
+        f"ms/step ({gas_ms / ms_step:.3f} of the step; synchronised before "
+        f"and after), the epochs "
+        f"{sum(e['s'] for e in epochs):.2f} s and the photoionization "
+        f"updates {sum(u['s'] for u in updates):.2f} s; t = "
+        f"{sim.global_time:.4e} s; peak memory {peak_gb:.3f} GB")
+    log(f"phase {phase}: plasma dt per attempted step "
+        f"{[float(f'{v:.4e}') for v in dts]} s; gas dt limit per step "
+        f"{[float(f'{v:.4e}') for v in gas_lims]} s, "
+        f"{min(gas_lims) / max(dts):.1f} times the largest plasma dt or "
+        f"more; {len(changed)} of {len(epochs)} epochs changed the mesh, "
+        f"seconds per epoch {[round(e['s'], 3) for e in epochs]}")
+    n_v = sum(v for _f, v in solves)
+    in_updates = {k: sum(u["launches"][k] for u in updates) for k in names}
+    log(f"phase {phase}: {len(solves)} field solves, {n_v} V-cycles = "
+        f"{n_v / len(solves):.2f} per solve; {len(updates)} "
+        f"photoionization updates, FMG cycles per mode "
+        f"{[u['cycles'] for u in updates]}; kernel launches {launches} "
+        f"(setup {setup_launches}); per step of the run "
+        + str({k: round((launches[k] - setup_launches[k]) / steps, 2)
+               for k in names})
+        + ", of which inside photoionization updates "
+        + str({k: round(in_updates[k] / steps, 2) for k in names}))
+    # the energy the plasma gave the gas, and its temperature
+    gd, gas = sim.gasdyn, sim.gas
+    vol = leaf_volumes(torch, sim)
+    U = [leaf_interiors(torch, sim, iv) for iv in gd.gas_vars]
+    e0 = gas.pressure * 1e5 / (gas.euler_gamma - 1.0)
+    gained = float(((U[gd.i_e] - e0) * vol).sum())
+    ke = 0.5 * sum(U[m] ** 2 for m in gd.i_mom) / U[gd.i_rho]
+    p = (gas.euler_gamma - 1.0) * (U[gd.i_e] - ke)
+    N = leaf_interiors(torch, sim, gd.i_gas_dens)
+    T = p / (N * 1.3806503e-23)
+    dT = float(T.max()) - gas.temperature
+    log(f"phase {phase}: Joule energy of the plasma (sum of J.E dt) "
+        f"{sim.global_JdotE:.6e} J, energy gained by the gas "
+        f"(sum of (gas_e - E0) dV) {gained:.6e} J; largest temperature rise "
+        f"{dT:.6e} K (T = p / (N k_B), T0 = {gas.temperature} K); rho in "
+        f"[{float(U[gd.i_rho].min()):.10g}, {float(U[gd.i_rho].max()):.10g}] "
+        f"kg/m3")
+    if min(cells0, n_leaf) < min_cells:
+        raise RuntimeError(f"fewer leaf cells than the frozen slice: "
+                           f"{cells0}, {n_leaf} < {min_cells}")
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"a kernel was not launched: {launches}")
+    if not changed or len(updates) < 2:
+        raise RuntimeError("needs a changing epoch and two photoionization "
+                           "updates")
+    n = t.highest_id
+    if not bool(torch.isfinite(sim.cc[:, :n]).all()) or \
+            not bool(torch.isfinite(sim.fc[:, :, :n]).all()):
+        raise RuntimeError("non-finite state after the run")
+    if not (sim.global_JdotE > 0 and gained > 0 and dT > 0):
+        raise RuntimeError("the plasma did not heat the gas")
+    if not min(gas_lims) > max(dts):
+        raise RuntimeError("the gas dt limit is below the plasma's dt")
+    emax = float(sim.cc[sim.i_electric_fld, :n].max())
+    log(f"phase {phase}: max(E) = {emax:.4e} V/m (background "
+        f"{BACKGROUND_FIELD:.2e})")
+    if not emax > BACKGROUND_FIELD:
+        raise RuntimeError("max(E) did not rise above the background field")
+    for name in names:
+        time_on_level(torch, ks, mgb, sim, name, t.highest_lvl, "2b", smi,
+                      what=f"the field solve of phase {phase}")
+    return launches
+
+
 def time_on_eps_level(torch, ks, mgb, sim, phase, smi):
     """Phase 2b of a dielectric run: its sweep and its fill (K4 and K5 in
     3D, K2 and K3-swap in 2D) on the finest level with extrapolating
@@ -1767,7 +2001,10 @@ def main():
         phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
                               cfg, table, extra, steps, must)
     phase_imex(torch, ks)
-    # phases 9 to 14 run before the long profiler traces of phases 6 to 8,
+    for phase, cfg, ndim, table, extra, steps in GAS_SMALL:
+        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
+                              cfg, table, extra, steps, PATH_KERNELS[2])
+    # phases 9 to 15 run before the long profiler traces of phases 6 to 8,
     # after which the host has been seen to run slower for the rest of the
     # process
     by_phase = {"9": phase_amr_full(torch, ks, Simulation, mgb, out_dir, 2,
@@ -1777,6 +2014,7 @@ def main():
     for phase in ELECTRODES_FULL:
         by_phase[phase] = phase_electrode_full(torch, ks, Simulation, mgb,
                                                out_dir, phase, smi)
+    by_phase["15"] = phase_gas_full(torch, ks, Simulation, mgb, out_dir, smi)
     for ndim in (2, 3):
         by_phase[str(2 + ndim)] = phase_full_slice(
             torch, ks, Simulation, mgb, out_dir, ndim, smi)

@@ -31,7 +31,11 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
   dielectric, the 3D slab, the needle above the plate (K3-swap launched)
   and the 256 x 256-cell level-1 grid (the uniform coarse multigrid, the
   same V-cycles), and the IMEX problem of programs/reaction_diffusion.py
-  (the same FMG cycles).
+  (the same FMG cycles);
+* one gas step: the slice with gas dynamics, slow heating and a
+  pre-heated channel for 2 steps (each ends with the coupling, a Heun step
+  of the Euler equations and the new gas density), the state and the gas
+  dt limit on the card as on the CPU.
 """
 
 import re
@@ -529,3 +533,50 @@ def test_reaction_diffusion_cuda_matches_cpu(integrator, cuda):
         torch.testing.assert_close(
             probs[1].cc[rd.I_U + s, probs[1].ids].cpu(), ref, rtol=1e-9,
             atol=1e-9 * max(float(ref.abs().max()), 1e-300))
+
+
+@pytest.mark.gpu
+def test_gas_step_cuda_matches_cpu(cuda, tmp_path):
+    """One gas step (the coupling, a Heun step of the Euler equations, the
+    new gas density) on the card and on the CPU from one state: the slice
+    with slow heating and a pre-heated channel after 2 steps on the CPU,
+    carried to the card by interop, then a step of 0.4 of the gas dt
+    limit, where the gas moves by O(1) of its variation. Every variable
+    and the gas's face fluxes within 1e-11 of their scale, the gas's
+    increments within 1e-11 of their own, the same gas dt limit."""
+    from afivo_streamer_tpu_torch import interop
+    from afivo_streamer_tpu_torch.driver import Simulation
+    programs = ROOT / "afivo_streamer_tpu_torch" / "programs"
+    sims = [Simulation(argv=[
+        str(DATA / "gas_heating_cyl_slice.cfg"), "-input_data%old_style=f",
+        f"-input_data%file={DATA / 'td_air_synthetic_reactions.txt'}",
+        "-gas%fraction_slow_heating=0.3",
+        f"-user%module={programs / 'heated_channel.py'}",
+        f"-output%name={tmp_path}/{dev}", f"-device={dev}"])
+        for dev in ("cpu", "cuda")]
+    a, b = sims
+    a.run(max_steps=2)
+    interop.state_from_numpy(b, a.cc.numpy(), a.fc.numpy(),
+                             interop.tree_arrays(a.tree), it=a.it,
+                             global_time=a.global_time, global_dt=a.global_dt)
+    start = a.cc.clone()
+    dt = 0.4 * a.dt_gas_lim
+    for sim in sims:
+        sim._gas_step(dt, {"voltage": sim.field.current_voltage})
+    n = a.tree.highest_id
+    for iv, name in enumerate(a.registry.cc_names):
+        ref = a.cc[iv, :n]
+        torch.testing.assert_close(b.cc[iv, :n].cpu(), ref, rtol=1e-11,
+                                   atol=1e-11 * float(ref.abs().max()))
+        if name.startswith("gas_") or name == "vibrational_energy":
+            inc_a = ref - start[iv, :n]
+            inc_b = b.cc[iv, :n].cpu() - start[iv, :n]
+            scale = float(inc_a.abs().max())
+            assert scale > 0, name
+            torch.testing.assert_close(inc_b, inc_a, rtol=1e-11,
+                                       atol=1e-11 * scale)
+    for f_iv in a.gasdyn.gas_fluxes:
+        ref = a.fc[f_iv, :, :n]
+        torch.testing.assert_close(b.fc[f_iv, :, :n].cpu(), ref, rtol=1e-11,
+                                   atol=1e-11 * float(ref.abs().max()))
+    assert b.dt_gas_lim == pytest.approx(a.dt_gas_lim, rel=1e-12)

@@ -3,7 +3,8 @@ loads no JAX and nothing of afivo_streamer_tpu; -device=cuda without a
 card raises; configurations that ask for unported modules raise
 NotImplementedError naming the module, and those for the modules that are
 ported (one dimension, the electron energy equation, new-style tables, the
-source factor, the plasma region) build a simulation. The same holds for
+source factor, the plasma region, electrodes, dielectrics, gas dynamics
+and a user gas density) build a simulation. The same holds for
 chip_smoke.py and the scripts beside the data files."""
 
 import ast
@@ -82,7 +83,9 @@ def test_committed_data_files_are_present():
     """The configurations and tables the tests, README and chip_smoke.py
     name; every configuration names a committed table."""
     for name in ("air_1d_slice.cfg", "air_cyl_ee_slice.cfg",
-                 "td_air_synthetic_new.txt", "td_air_synthetic.txt"):
+                 "gas_heating_cyl_slice.cfg", "gas_channel_cyl_slice.cfg",
+                 "td_air_synthetic_new.txt", "td_air_synthetic.txt",
+                 "td_air_synthetic_reactions.txt"):
         assert (DATA / name).is_file(), name
     for cfg in DATA.glob("*.cfg"):
         table = [line.split("=")[1].strip() for line in
@@ -101,7 +104,7 @@ def test_device_cuda_without_card_raises(tmp_path):
 @pytest.mark.parametrize("extra, module", [
     (["-photoi%enabled=t", "-photoi%method=montecarlo"],
      "physics/photoi_mc.py"),
-    (["-gas%dynamics=t"], "physics/gas_dynamics.py"),
+    (["-output%vtk=t"], "io/output.py"),
     (["-output%npz=t"], "io/output.py"),
     (["-restart_from_file=run.npz"], "io/checkpoint.py"),
     (["-compiled%enabled=t"], "parallel/compiled.py"),
@@ -136,6 +139,24 @@ def test_implicit_integrator_needs_a_solver(tmp_path, integrator):
 
 NEW_TABLE = ["-input_data%old_style=f",
              f"-input_data%file={DATA / 'td_air_synthetic_new.txt'}"]
+#: the new-style table with a reaction list over N2, O2 and M, which a
+#: varying gas density needs
+REACTIONS = ["-input_data%old_style=f", "-photoi%species=O2_plus",
+             f"-input_data%file={DATA / 'td_air_synthetic_reactions.txt'}"]
+GAS_DENSITY = ["-user%module="
+               f"{DATA.parent / 'programs' / 'gas_density_2d.py'}",
+               "-density_profile_r=gaussian"]
+
+
+def test_gas_dynamics_with_old_style_table_raises(tmp_path):
+    """Both packages refuse a varying gas density with an old-style table
+    (transport_data.py:54 in each)."""
+    from afivo_streamer_tpu.driver import Simulation as JaxSimulation
+    extra = ["-gas%dynamics=t", "-input_data%old_style=t"]
+    with pytest.raises(ValueError, match="varying gas density"):
+        JaxSimulation(argv=argv(tmp_path, *extra))
+    with pytest.raises(ValueError, match="varying gas density"):
+        Simulation(argv=argv(tmp_path, "-device=cpu", *extra))
 
 
 #: an electrode on the axis of the cylindrical slice (two for the types
@@ -167,11 +188,16 @@ ELECTRODE_TYPES = ("sphere", "rod", "rod_rod", "rod_cone_top",
     ("air_1d_slice.cfg", ["-ndim=1"] + DIELECTRIC + ["-dielectric_type=left"]),
     ("air_3d_slice.cfg", ["-ndim=3"] + DIELECTRIC),
     ("air_cyl_slice.cfg", ["-cylindrical=f", "-coarse_grid_size=256 256"]),
+    ("air_cyl_slice.cfg", ["-gas%dynamics=t"] + REACTIONS),
+    ("air_cyl_slice.cfg", ["-gas%dynamics=t", "-gas%fraction_slow_heating=0.3",
+                           "-cylindrical=f"] + REACTIONS),
+    ("air_cyl_slice.cfg", GAS_DENSITY + REACTIONS),
 ] + [("air_cyl_slice.cfg", ELECTRODE + [f"-field_electrode_type={kind}"])
      for kind in ELECTRODE_TYPES],
     ids=["1d", "1d-ee53", "cyl-ee-alias", "new-style-table", "source-factor",
          "plasma-region", "electrode-dx-without-electrode", "dielectric-1d",
-         "dielectric-3d", "coarse-grid-65536"]
+         "dielectric-3d", "coarse-grid-65536", "gas-dynamics",
+         "gas-dynamics-slow-heating", "gas-density-user"]
     + [f"electrode-{kind}" for kind in ELECTRODE_TYPES])
 def test_ported_configuration_builds(tmp_path, cfg, extra):
     sim = Simulation(argv=[str(DATA / cfg), "-ndim=2",
@@ -200,6 +226,22 @@ def test_ported_configuration_builds(tmp_path, cfg, extra):
         data = sim.field.lsf_data.level_data(sim.tree.highest_lvl)
         assert data["has_bnd"].any()
         assert sim.refiner.lsf_data is sim.field.lsf_data
+    if not sim.gas.constant_density:
+        # the gas species lead the chemistry and are not stored; M holds
+        # the gas density on every cell of the initial mesh
+        ngas = sim.chem.n_gas_species
+        assert sim.chem.species_list[:ngas] == ["N2", "O2", "M"]
+        names = sim.registry.cc_names
+        assert "N2" not in names and names.count("M") == 1
+        M = sim.cc[names.index("M"), :sim.tree.highest_id]
+        assert float(M.min()) > 0.0
+        if sim.gas.dynamics:
+            assert names[sim.gasdyn.gas_vars[0]] == "gas_rho"
+            assert (names[-1] == "vibrational_energy") == (
+                sim.gas.fraction_slow_heating > 0)
+        else:
+            # the Gaussian profile halves the density on the axis
+            assert float(M.min()) < 0.55 * sim.gas.number_density
 
 
 def test_ndim_3_raises(tmp_path):
