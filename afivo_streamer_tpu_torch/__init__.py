@@ -11,9 +11,12 @@ operations.
 
 This package ports these paths of ``afivo_streamer_tpu``: the planar 1D,
 the 2D (cylindrical or Cartesian) and the 3D (Cartesian) streamer with
-live refinement and Helmholtz photoionization, 2D dielectrics, and the
-fluid model's variants: the electron energy equation, the source factor
-and the plasma region. Every state tensor is float64 by default.
+live refinement and Helmholtz photoionization, dielectrics, electrodes,
+gas dynamics, the fluid model's variants (the electron energy equation,
+the source factor and the plasma region), every user hook with the
+programs in programs/, the analysis routines, and the writers that are on
+by default: the regression and text logs, the grid files and the
+chemistry files. Every state tensor is float64 by default.
 """
 
 import torch

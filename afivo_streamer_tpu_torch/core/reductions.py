@@ -2,8 +2,9 @@
 
 Re-implements the reference's ``afivo/src/m_af_utils.f90`` reductions
 (af_tree_sum_cc ``:966-1026`` incl. the cylindrical 2*pi*r weighting,
-af_tree_max_cc with location). Each reduction is one batched op per level
-on the device; only the final scalar comes back to the host.
+af_tree_max_cc, af_tree_min_cc, af_tree_max_fc and af_tree_min_fc with
+location). Each reduction is one batched op per level on the device; only
+the final scalar (and where it is) comes back to the host.
 """
 
 from __future__ import annotations
@@ -12,15 +13,18 @@ from typing import Tuple
 
 import numpy as np
 
+import torch
+
 from .levels import MeshPlans
-from .rowops import cc_get_interior
+from .rowops import cc_get_interior, fc_get_faces
 
 
 def tree_sum_cc(cc, mesh: MeshPlans, iv: int, power: int = 1) -> float:
-    """Volume-integrated sum of cc(iv)**power over the leaves."""
+    """Volume-integrated sum of cc(iv)**power over the leaves: one sum per
+    level on the device, added up on the host in level order."""
     tree = mesh.tree
     nc, ndim = tree.nc, tree.ndim
-    total = 0.0
+    lvls, sums = [], []
     for lvl in range(1, tree.highest_lvl + 1):
         tb = mesh.tb(lvl)
         if len(tb.leaves) == 0:
@@ -29,12 +33,44 @@ def tree_sum_cc(cc, mesh: MeshPlans, iv: int, power: int = 1) -> float:
         if power != 1:
             vals = vals ** power
         if tree.coord == "cyl":
-            w = tb.d.two_pi_r.to(vals.dtype)
-            total += float(np.prod(tree.lvl_dr(lvl))) * float(
-                (vals * w).sum())
-        else:
-            total += float(np.prod(tree.lvl_dr(lvl))) * float(vals.sum())
+            vals = vals * tb.d.two_pi_r.to(vals.dtype)
+        lvls.append(lvl)
+        sums.append(vals.sum())
+    total = 0.0
+    if sums:
+        for lvl, s in zip(lvls, torch.stack(sums).cpu().tolist()):
+            total += float(np.prod(tree.lvl_dr(lvl))) * s
     return total
+
+
+def leaf_extremum(mesh: MeshPlans, values, largest: bool = True):
+    """The largest (or smallest) of ``values(lvl, tb)`` -> [n, m] over the
+    levels with leaves, and where it is: (value, level, row, flat index in
+    the row), or None without leaves. Each level reduces on the device and
+    one small tensor comes to the host. Ties go to the first level, then
+    the first row and index, as a scan of the levels with np.argmax (or
+    np.argmin) finds them."""
+    lvls, best, where = [], [], []
+    for lvl in range(1, mesh.tree.highest_lvl + 1):
+        tb = mesh.tb(lvl)
+        if len(tb.leaves) == 0:
+            continue
+        vals = values(lvl, tb)
+        if vals is None or vals.numel() == 0:
+            continue
+        flat = vals.reshape(-1)
+        k = flat.argmax() if largest else flat.argmin()
+        lvls.append((lvl, vals.shape[1]))
+        best.append(flat[k].to(torch.float64))
+        where.append(k.to(torch.float64))
+    if not lvls:
+        return None
+    host = torch.stack(best + where).cpu().numpy()
+    vals = host[:len(lvls)]
+    j = int(np.argmax(vals) if largest else np.argmin(vals))
+    lvl, m = lvls[j]
+    row, k = divmod(int(host[len(lvls) + j]), m)
+    return float(vals[j]), lvl, row, k
 
 
 def tree_max_cc(cc, mesh: MeshPlans, iv: int) -> Tuple[float, np.ndarray]:
@@ -42,35 +78,59 @@ def tree_max_cc(cc, mesh: MeshPlans, iv: int) -> Tuple[float, np.ndarray]:
     (af_tree_max_cc with af_reduction_loc)."""
     tree = mesh.tree
     nc, ndim = tree.nc, tree.ndim
-    best = -np.inf
-    best_r = np.zeros(ndim)
-    for lvl in range(1, tree.highest_lvl + 1):
-        tb = mesh.tb(lvl)
-        if len(tb.leaves) == 0:
-            continue
-        vals = cc_get_interior(cc, iv, tb.d.leaves, nc, ndim)
-        k = int(vals.argmax())
-        m = float(vals.reshape(-1)[k])
-        if m > best:
-            best = m
-            b_i, c_i = divmod(k, nc ** ndim)
-            cell = np.unravel_index(c_i, (nc,) * ndim)
-            r0 = tree.box_r_min(np.asarray([int(tb.leaves[b_i])]))[0]
-            best_r = r0 + (np.asarray(cell) + 0.5) * tree.lvl_dr(lvl)
-    return best, best_r
+    found = leaf_extremum(mesh, lambda lvl, tb: cc_get_interior(
+        cc, iv, tb.d.leaves, nc, ndim))
+    if found is None:
+        return -np.inf, np.zeros(ndim)
+    best, lvl, row, k = found
+    cell = np.unravel_index(k, (nc,) * ndim)
+    r0 = tree.box_r_min(np.asarray([int(mesh.tb(lvl).leaves[row])]))[0]
+    return best, r0 + (np.asarray(cell) + 0.5) * tree.lvl_dr(lvl)
+
+
+def tree_min_cc(cc, mesh: MeshPlans, iv: int) -> float:
+    """Minimum of cc(iv) over leaf interiors (af_tree_min_cc)."""
+    tree = mesh.tree
+    found = leaf_extremum(mesh, lambda lvl, tb: cc_get_interior(
+        cc, iv, tb.d.leaves, tree.nc, tree.ndim), largest=False)
+    return np.inf if found is None else found[0]
+
+
+def tree_max_fc(fc, mesh: MeshPlans, dim: int, iv: int
+                ) -> Tuple[float, np.ndarray]:
+    """Maximum of a face-centered variable along one dimension over the
+    leaves, with the face coordinates (af_tree_max_fc)."""
+    tree = mesh.tree
+    nc, ndim = tree.nc, tree.ndim
+    found = leaf_extremum(mesh, lambda lvl, tb: fc_get_faces(
+        fc, iv, dim, tb.d.leaves, nc, ndim).reshape(len(tb.leaves), -1))
+    if found is None:
+        return -np.inf, np.zeros(ndim)
+    best, lvl, row, k = found
+    fshape = tuple(nc + 1 if j == dim else nc for j in range(ndim))
+    face = np.asarray(np.unravel_index(k, fshape), np.float64)
+    off = np.full(ndim, 0.5)
+    off[dim] = 0.0
+    r0 = tree.box_r_min(np.asarray([int(mesh.tb(lvl).leaves[row])]))[0]
+    return best, r0 + (face + off) * tree.lvl_dr(lvl)
+
+
+def tree_min_fc(fc, mesh: MeshPlans, dim: int, iv: int) -> float:
+    """Minimum of a face-centered variable along one dimension
+    (af_tree_min_fc)."""
+    tree = mesh.tree
+    found = leaf_extremum(mesh, lambda lvl, tb: fc_get_faces(
+        fc, iv, dim, tb.d.leaves, tree.nc, tree.ndim).reshape(
+            len(tb.leaves), -1), largest=False)
+    return np.inf if found is None else found[0]
 
 
 def tree_maxabs_cc(cc, mesh: MeshPlans, iv: int) -> float:
     """max |cc(iv)| over leaf interiors (af_tree_maxabs_cc loops leaves)."""
     tree = mesh.tree
-    best = 0.0
-    for lvl in range(1, tree.highest_lvl + 1):
-        tb = mesh.tb(lvl)
-        if len(tb.leaves) == 0:
-            continue
-        vals = cc_get_interior(cc, iv, tb.d.leaves, tree.nc, tree.ndim)
-        best = max(best, float(vals.abs().max()))
-    return best
+    found = leaf_extremum(mesh, lambda lvl, tb: cc_get_interior(
+        cc, iv, tb.d.leaves, tree.nc, tree.ndim).abs())
+    return 0.0 if found is None else found[0]
 
 
 def n_leaf_cells(tree) -> int:

@@ -270,6 +270,23 @@ class Tree:
         grids = np.meshgrid(*axes, indexing="ij")
         return np.stack(grids, axis=-1)
 
+    def boxes_cell_coords(self, ids) -> np.ndarray:
+        """Cell-center coordinates of boxes ``ids`` incl. one ghost layer:
+        [n] + [nc+2]^ndim + [ndim] (cell_coords for many boxes)."""
+        ids = np.asarray(ids, np.int64)
+        r0 = self.box_r_min(ids)
+        dr = self.box_dr(ids)
+        ndim, nc = self.ndim, self.nc
+        off = np.arange(-1, nc + 1) + 0.5
+        axes = []
+        for k in range(ndim):
+            shape = [len(ids)] + [1] * ndim
+            shape[1 + k] = nc + 2
+            axes.append((r0[:, k, None] + off[None, :] * dr[:, k, None])
+                        .reshape(shape))
+        full = (len(ids),) + (nc + 2,) * ndim
+        return np.stack([np.broadcast_to(a, full) for a in axes], axis=-1)
+
     def total_volume(self) -> float:
         """Volume of the computational domain (af_total_volume,
         ``m_af_types.f90:805-825``); cylindrical uses 2*pi*r weighting."""

@@ -32,8 +32,15 @@ integrator, and ``M`` follows its mass density; the next dt also respects
 the gas's CFL limit. A user ``gas_density`` hook instead fills ``M`` on
 every cell of a box once, at setup and in every new box. With either, the
 gas components are the first species of the chemistry and are not stored
-in the tree. A configuration that asks for another module this package
-does not hold raises NotImplementedError naming that module.
+in the tree.
+
+Every user hook of physics/user_methods.py runs where the JAX host path
+calls it. Each output writes, in the JAX package's order, the regression
+log, the text log (``output%log``, from the second output on), the grid
+file (``silo_write``) and the chemistry files (io/output.py); setup writes
+the chemistry listings first. A configuration that asks for another
+module this package does not hold raises NotImplementedError naming that
+module.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from . import DEFAULT_DTYPE
 from . import constants as uc
 from .core import ghostcell as gc
 from .core import prolong_restrict as pr
+from .core import reductions as red
 from .core import rowops as ro
 from .core.batch import BoxBatch, capacity
 from .core import spatial as sp
@@ -90,7 +98,7 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _refuse(cfg, user):
+def _refuse(cfg):
     """NotImplementedError for the modules of the JAX package that this
     package does not hold."""
     checks = [
@@ -102,13 +110,6 @@ def _refuse(cfg, user):
     if cfg.add_get("restart_from_file", "UNDEFINED",
                    "Not available in this package") != "UNDEFINED":
         raise NotImplementedError("io/checkpoint.py")
-    hooks = [k for k, v in vars(user).items()
-             if v is not None
-             and k not in ("initial_conditions", "lsf", "lsf_bc",
-                           "gas_density")]
-    if hooks:
-        raise NotImplementedError(
-            f"physics/user_methods.py: user hooks {hooks}")
 
 
 class Simulation:
@@ -138,7 +139,7 @@ class Simulation:
             # which passes no solver (advance.py, m_af_advance.f90:146-147)
             raise ValueError(f"time integrator {self.dt_cfg.integrator} "
                              "requires an implicit_solver")
-        _refuse(cfg, self.user)
+        _refuse(cfg)
         table_settings = TableDataSettings(cfg)
         self.gas = Gas(cfg)
         if self.user.gas_density is not None and not self.gas.dynamics:
@@ -177,7 +178,7 @@ class Simulation:
         self.i_phi = reg.add_cc("phi", n_copies=2)
         self.i_electric_fld = reg.add_cc("electric_fld")
         self.i_rhs = reg.add_cc("rhs")
-        self.i_tmp = reg.add_cc("tmp")
+        self.i_tmp = reg.add_cc("tmp", write_out=False)
         # optional output variable of the source factor
         # (m_streamer.f90:438-440)
         self.i_srcfac = -1
@@ -194,8 +195,9 @@ class Simulation:
                                rb=gc.RB_PROLONG_COPY, prolong="zeroth")
             # the surface state, stored at the gas-side box row
             # (solvers/surface.py); moved by the surfaces at refinement
-            self.i_surf_photon = reg.add_cc("surf_photon")
-            self.i_surf_sigma = reg.add_cc("surf_sigma", n_copies=n_copies)
+            self.i_surf_photon = reg.add_cc("surf_photon", write_out=False)
+            self.i_surf_sigma = reg.add_cc("surf_sigma", n_copies=n_copies,
+                                           write_out=False)
 
         # electron energy density: the chemistry appends it to the species;
         # it is flux variable 2 (m_streamer.f90:244-269)
@@ -247,6 +249,12 @@ class Simulation:
                                  charged_cc, ch_q)
         if self.st.use_dielectric:
             self.field.mg.eps_data = self._eps_level_data
+        # user hooks into the field solver (m_field.f90:216-219, 515-519)
+        if self.user.potential_bc is not None:
+            self.field.user_potential_bc = self.user.potential_bc
+        if self.user.field_amplitude is not None:
+            self.field.user_field_amplitude = \
+                lambda t: self.user.field_amplitude(self, t)
         if self.st.use_electrode and self.field.electrode_type == "user":
             self.field.set_user_lsf(self.user.lsf, self.user.lsf_bc)
         reg.set_cc_methods(self.i_phi, self.field.phi_bc, rb=gc.RB_MG,
@@ -290,7 +298,7 @@ class Simulation:
                                        self.gas, self.init_cond,
                                        self.i_electric_fld, self.i_electron,
                                        lsf_data=self.field.lsf_data)
-        self.output = Output(cfg)
+        self.output = Output(cfg, reg)
 
         # ---- fluid model
         idx = FluidIndices(
@@ -331,6 +339,10 @@ class Simulation:
         self.global_time = 0.0
         self.global_dt = self.dt_cfg.dt_min
         self.dt_limits = np.full(4, 1e100)
+        # the streamer velocity from the displacement of max(E) between
+        # outputs (output_log, m_output.f90:628-630)
+        self.velocity = 0.0
+        self.prev_emax_pos = None
         self.global_rates = np.zeros(self.chem.n_reactions)
         self.global_JdotE = 0.0
         self.global_JdotE_current = 0.0
@@ -481,12 +493,8 @@ class Simulation:
     def _cell_coords(self, ids) -> np.ndarray:
         """Cell centres of boxes ``ids``, ghost layer included:
         [n, (nc+2)^ndim, ndim]."""
-        t = self.tree
-        axes = np.meshgrid(*[np.arange(-1, t.nc + 1) + 0.5] * self.ndim,
-                           indexing="ij")
-        off = np.stack([a.ravel() for a in axes], -1)
-        return (t.box_r_min(ids)[:, None, :]
-                + off[None, :, :] * t.box_dr(ids)[:, None, :])
+        return self.tree.boxes_cell_coords(ids).reshape(
+            len(ids), -1, self.ndim)
 
     # ---------------------------------------------------------- electrode
     def _fill_lsf(self, ids):
@@ -594,6 +602,7 @@ class Simulation:
             if info.n_add == 0:
                 break
             self._set_initial_values(np.asarray(info.added, np.int64))
+        self.output.initial_summary(self)
         self.output_write(0)
 
     def _init_surfaces(self):
@@ -622,9 +631,16 @@ class Simulation:
         self.refiner.time = self.global_time
         links = (self.surfaces.refinement_links()
                  if self.surfaces is not None else None)
+        if self.user.refine is not None:
+            # the user's criterion replaces the default one, called with
+            # the documented signature refine(sim, cc, ids)
+            def flags_fn(ids):
+                return self.user.refine(self, self.cc, ids)
+        else:
+            def flags_fn(ids):
+                return self.refiner.cell_flags(self.cc, ids)
         info = self.tree.adjust_refinement(
-            lambda ids: self.refiner.cell_flags(self.cc, ids),
-            ref_buffer=self.refine_cfg.buffer_width, ref_links=links)
+            flags_fn, ref_buffer=self.refine_cfg.buffer_width, ref_links=links)
         if info.n_add == 0 and info.n_rm == 0:
             return info
         self._sync_capacity()
@@ -645,9 +661,30 @@ class Simulation:
                                    methods[iv]["bc"], params)
         return info
 
-    def output_write(self, out_cnt: int):
-        if self.output.regression_test:
-            self.output.regression_log(self, out_cnt)
+    def output_write(self, out_cnt: int, wc_time: float = 0.0):
+        """The writers of one output (output_write, m_output.f90:331-410),
+        in the JAX package's order: the regression log, the text log (from
+        the second output on, after the velocity from the displacement of
+        max(E)), the grid file, and the chemistry files."""
+        out = self.output
+        if out.regression_test:
+            out.regression_log(self, out_cnt)
+        if out.write_log and out_cnt > 0:
+            _emax, pos = red.tree_max_cc(self.cc, self.mesh,
+                                         self.i_electric_fld)
+            if self.prev_emax_pos is not None:
+                self.velocity = float(np.linalg.norm(pos - self.prev_emax_pos)
+                                      / out.dt)
+            self.prev_emax_pos = pos
+            if self.user.log_subroutine is not None:
+                # a user log writer replaces the default one
+                self.user.log_subroutine(self, out_cnt)
+            else:
+                out.log(self, out_cnt, wc_time)
+        if out.silo_write and out_cnt % out.silo_per_outputs == 0:
+            out.write_grid(self, out_cnt)
+        out.chemical_rates(self)
+        out.chemical_amounts(self)
 
     def restrict_and_gc_densities(self):
         """Restrict + ghost-fill all densities (streamer.f90:383-386)."""
@@ -700,6 +737,10 @@ class Simulation:
             if wc_time - time_last_print > self.output.status_delay:
                 self.output.status(self, wc_time)
                 time_last_print = wc_time
+
+            # per-iteration user hook (streamer.f90:181-183)
+            if self.user.generic is not None:
+                self.user.generic(self, time)
 
             # pulse-train bookkeeping (streamer.f90:216-234)
             time_until_next_pulse = (self.field.field_pulse_period
@@ -799,6 +840,8 @@ class Simulation:
             if start_of_new_pulse:
                 # start a new pulse with a small time step
                 dt = self.dt_cfg.dt_min
+                if self.user.new_pulse_conditions is not None:
+                    self.user.new_pulse_conditions(self)
             self.global_dt = dt
             self.global_time = time
             self.dt_limits = diag["dt_limits"].cpu().numpy()
@@ -811,7 +854,7 @@ class Simulation:
                 out_cnt += 1
                 self.out_cnt = out_cnt
                 time_last_output = self.global_time
-                self.output_write(out_cnt)
+                self.output_write(out_cnt, _time.time() - t_start)
 
             # refinement every refine_per_steps (streamer.f90:380-411)
             if self.it % self.refine_cfg.per_steps == 0:

@@ -14,6 +14,9 @@ the face variable ``flux_energy``, with ``fixes%write_source_factor`` the
 ``srcfac`` variable, with an electrode the ``lsf`` variable (the level set
 on every cell; everything else of an electrode follows from the
 configuration); a 1D mesh has ``ix`` [n, 1] and two neighbor columns.
+The output state (the output counter, the streamer velocity and the
+position of max(E), the accumulated rates, J.E and currents) goes with
+the state.
 """
 
 from __future__ import annotations
@@ -55,11 +58,27 @@ def load_tree(tree, arrays: Dict[str, np.ndarray]) -> None:
     tree._rebuild_levels()
 
 
+#: the output state of a simulation, which the text log and the chemistry
+#: files read: the output counter, the streamer velocity and the position
+#: of max(E) at the last log line, and the accumulated reaction rates,
+#: J.E and the currents
+OUTPUT_STATE = ("out_cnt", "velocity", "prev_emax_pos", "global_rates",
+                "global_JdotE", "global_JdotE_current",
+                "global_displ_current")
+
+
+def output_state(sim) -> Dict:
+    """The output state of ``sim`` (either package's Simulation)."""
+    return {k: (np.array(v) if isinstance(v, np.ndarray) else v)
+            for k, v in ((k, getattr(sim, k)) for k in OUTPUT_STATE)}
+
+
 def state_from_numpy(sim, cc: np.ndarray, fc: np.ndarray,
                      tree: Optional[Dict[str, np.ndarray]] = None,
                      it: int = 0, global_time: float = 0.0,
                      global_dt: Optional[float] = None,
-                     surfaces=None, photoi_prev_time: float = 0.0) -> None:
+                     surfaces=None, photoi_prev_time: float = 0.0,
+                     output: Optional[Dict] = None) -> None:
     """Load a NumPy state into ``sim`` (in place).
 
     ``cc``/``fc`` hold at least the rows of the boxes of the mesh;
@@ -68,7 +87,9 @@ def state_from_numpy(sim, cc: np.ndarray, fc: np.ndarray,
     entries carry ``sd`` [photon flux, sigma states...] arrays) replaces
     ``sim``'s surfaces, and the data of the active ones goes into their
     state rows. ``photoi_prev_time`` is the time of the last
-    photoionization update (the JAX Simulation's ``_photoi_prev_time``)."""
+    photoionization update (the JAX Simulation's ``_photoi_prev_time``);
+    ``output`` the output state (``output_state``), so that a run resumed
+    from it writes the same log lines and chemistry files."""
     if tree is not None:
         own = tree_arrays(sim.tree)
         if any(not np.array_equal(np.asarray(tree[k]), own[k])
@@ -107,6 +128,10 @@ def state_from_numpy(sim, cc: np.ndarray, fc: np.ndarray,
     if global_dt is not None:
         sim.global_dt = float(global_dt)
     sim._photoi_prev_time = float(photoi_prev_time)
+    for k, v in (output or {}).items():
+        if k not in OUTPUT_STATE:
+            raise ValueError(f"unknown output state {k!r}")
+        setattr(sim, k, np.array(v) if isinstance(v, np.ndarray) else v)
 
 
 def surface_data(sim) -> Dict[int, np.ndarray]:
@@ -126,4 +151,4 @@ def state_to_numpy(sim) -> Dict:
             "tree": tree_arrays(sim.tree), "it": sim.it,
             "global_time": sim.global_time, "global_dt": sim.global_dt,
             "photoi_prev_time": sim._photoi_prev_time,
-            "surfaces": surface_data(sim)}
+            "surfaces": surface_data(sim), "output": output_state(sim)}

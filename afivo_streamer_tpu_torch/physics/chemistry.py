@@ -585,6 +585,11 @@ class Chemistry:
                 src += rates[:, n]
         return fields, src, loss
 
+    def stoich_matrix(self) -> np.ndarray:
+        """Net stoichiometry [n_reactions, n_species]
+        (output_stoichiometric_matrix writes its transpose row-wise)."""
+        return np.asarray(self.stoich)
+
     def write_summary(self, fname: str) -> None:
         """Swarm-parameter summary vs E/N (chemistry_write_summary,
         ``m_chemistry.f90:428-501``): mobility, diffusion, alpha, eta and

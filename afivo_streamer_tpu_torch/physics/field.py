@@ -121,7 +121,14 @@ class FieldSolver:
 
         self.bc_type = cfg.add_get("field_bc_type", "homogeneous",
                                    "Boundary condition for electric potential")
+        self.field_amplitude = field_amplitude
         self.current_voltage = 0.0
+        #: user hooks (m_field.f90:216-219, 515-519): the potential at the
+        #: domain boundary, callable(iv, d, coords, params) ->
+        #: (bc_type, values), and the applied field, callable(time) -> V/m,
+        #: which overrides the voltage control
+        self.user_potential_bc = None
+        self.user_field_amplitude = None
         self.surfaces = None  # solvers/surface.Surfaces with dielectrics
         self.lsf_data = None
         self.user_lsf_bc = None
@@ -271,9 +278,12 @@ class FieldSolver:
 
     # ------------------------------------------------- boundary conditions
     def phi_bc(self, iv, d, coords, params):
-        """Potential BC (field_bc_homogeneous / _neumann / _all_neumann)."""
+        """Potential BC (field_bc_homogeneous / _neumann / _all_neumann), or
+        the user's."""
         ndim = self.tree.ndim
         voltage = params.get("voltage", 0.0)
+        if self.user_potential_bc is not None:
+            return self.user_potential_bc(iv, d, coords, params)
         if self.bc_type == "homogeneous":
             if d // 2 == ndim - 1:
                 if d % 2 == 0:
@@ -294,6 +304,11 @@ class FieldSolver:
     # -------------------------------------------------------- voltage
     def set_voltage(self, time: float) -> float:
         """Set current_voltage (field_set_voltage, ``m_field.f90:508-543``)."""
+        if self.user_field_amplitude is not None:
+            amp = self.user_field_amplitude(time)
+            self.current_voltage = float(
+                -self.st.domain_len[self.tree.ndim - 1] * amp)
+            return self.current_voltage
         if self.given_by == self.TABULATED_VOLTAGE:
             tt, tv = self.field_table
             self.current_voltage = float(lin_interp_list(tt, tv, time))

@@ -165,7 +165,7 @@ class Photoionization:
         self.i_modes: List[int] = []
         self.mgs: List[Multigrid] = []
         for n in range(self.n_modes):
-            iv = registry.add_cc(f"helmh_{n+1}")
+            iv = registry.add_cc(f"helmh_{n+1}", write_out=False)
             registry.set_cc_methods(iv, bc, rb=gc.RB_MG, prolong="linear")
             self.i_modes.append(iv)
             self.mgs.append(Multigrid(

@@ -22,17 +22,21 @@ class Registry:
 
     def __init__(self):
         self.cc_names: List[str] = []
+        #: whether each cc variable goes into the grid output
+        self.cc_write_output: List[bool] = []
         self.fc_names: List[str] = []
         #: ghost-cell and prolongation methods of the base variables, in
         #: the order they were set (af_set_cc_methods)
         self.methods: Dict[int, Dict] = {}
 
-    def add_cc(self, name: str, n_copies: int = 1) -> int:
-        """Add a variable and its n_copies - 1 time-state copies; returns
-        the index of the first."""
+    def add_cc(self, name: str, n_copies: int = 1,
+               write_out: bool = True) -> int:
+        """Add a variable and its n_copies - 1 time-state copies (never
+        written to the grid output); returns the index of the first."""
         ix = len(self.cc_names)
         self.cc_names.append(name)
         self.cc_names.extend(f"{name}_{c}" for c in range(1, n_copies))
+        self.cc_write_output += [write_out] + [False] * (n_copies - 1)
         return ix
 
     def add_fc(self, name: str) -> int:

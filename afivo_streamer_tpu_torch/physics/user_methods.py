@@ -19,11 +19,19 @@ import path) defining ``user_initialize(cfg, sim)``, which sets hooks on
 * ``log_subroutine(sim, file)`` / ``log_variables(sim) -> (names, values)``
 * ``lsf(r) -> values`` and ``lsf_bc`` — custom electrode geometry
 
-The simulation takes ``initial_conditions`` (called on the boxes of the
-initial mesh and on the new boxes of every setup refinement pass) and, with
-``field_electrode_type = user``, ``lsf`` and ``lsf_bc`` (NumPy callables on
-points [n, ndim]); it refuses the other hooks, which need modules this
-package does not hold.
+The simulation calls every hook where the JAX package's host path does:
+``initial_conditions`` on the boxes of the initial mesh and on the new
+boxes of every setup refinement pass; ``refine`` in place of the default
+criterion at every refinement epoch, as documented above (the JAX driver
+passes the ids alone); ``potential_bc`` through the field solver's
+boundary condition, whose values may be NumPy arrays over the face
+coordinates [n_bc, F, ndim] or tensors on the state's device;
+``field_amplitude`` at every voltage update (the loop's top and every field
+solve); ``generic`` after the status line of every iteration;
+``new_pulse_conditions`` where a new pulse resets dt; ``log_variables`` and
+``log_subroutine`` in the text log; ``gas_density`` on every cell of a box
+once; and, with ``field_electrode_type = user``, ``lsf`` and ``lsf_bc``
+(NumPy callables on points [n, ndim]).
 """
 
 from __future__ import annotations

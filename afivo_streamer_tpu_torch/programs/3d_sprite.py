@@ -1,0 +1,10 @@
+"""User code for the 3d_sprite program: the sprite's altitude density and
+Wait-Spies ambient profile of programs/sprite.py, the port of the JAX
+package's ``programs/3d_sprite/user.py``.
+
+Use with ``-user%module=afivo_streamer_tpu_torch/programs/3d_sprite.py``.
+"""
+
+from afivo_streamer_tpu_torch.programs.sprite import user_initialize
+
+__all__ = ["user_initialize"]

@@ -13,24 +13,6 @@ import numpy as np
 import torch
 
 
-def cell_coords(tree, ids) -> np.ndarray:
-    """Cell-center coordinates of boxes ``ids`` including the ghost layer:
-    [n] + [nc+2]^ndim + [ndim] (Tree.cell_coords for many boxes)."""
-    ids = np.asarray(ids, np.int64)
-    r0 = tree.box_r_min(ids)
-    dr = tree.box_dr(ids)
-    ndim, nc = tree.ndim, tree.nc
-    off = np.arange(-1, nc + 1) + 0.5
-    axes = []
-    for k in range(ndim):
-        shape = [len(ids)] + [1] * ndim
-        shape[1 + k] = nc + 2
-        axes.append((r0[:, k, None] + off[None, :] * dr[:, k, None])
-                    .reshape(shape))
-    full = (len(ids),) + (nc + 2,) * ndim
-    return np.stack([np.broadcast_to(a, full) for a in axes], axis=-1)
-
-
 def user_initialize(cfg, sim):
     dielectric_type = cfg.add_get("dielectric_type", "top",
                                   "What kind of dielectric to use")
@@ -41,7 +23,7 @@ def user_initialize(cfg, sim):
         # user_initialize runs before the domain is set up (module order,
         # streamer.f90:439-455), so read the geometry at hook time
         L = s.st.domain_len
-        coords = cell_coords(s.tree, ids)
+        coords = s.tree.boxes_cell_coords(ids)
         if dielectric_type == "top":
             inside = coords[..., 1] > 0.75 * L[1]
         elif dielectric_type == "bottom":

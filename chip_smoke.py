@@ -25,7 +25,7 @@ failure exits non-zero):
    mesh at every refinement epoch, the densities, phi and the surface
    charge, and K3-swap launched; 3d, 3e. the cylindrical and the 3D slice
    with live refinement and Helmholtz photoionization (16,960 cells on 6
-   levels for 6 steps; 219,136 cells on 4 levels for 6 steps;
+   levels for 4 steps; 219,136 cells on 4 levels for 6 steps;
    photoionization every 2 steps): the same mesh at every epoch, one of
    which removes boxes, the same FMG cycle count of every Helmholtz mode
    at every update, and every variable;
@@ -124,7 +124,7 @@ failure exits non-zero):
    charge and max(E) at the tip; then (2b) K2 and K3-swap on the finest
    level with the level set and extrapolating ghosts of eps;
 3r, 3s. gas dynamics and a varying gas density on the card and on the CPU
-   at the committed sizes, 8 steps each, photoionization every 2 steps:
+   at the committed sizes, 6 steps each, photoionization every 2 steps:
    gas_heating_cyl_slice.cfg (the Euler equations of the gas, Joule
    heating and the EHD force) plain, with slow heating
    (-gas%fraction_slow_heating=0.3) and from a pre-heated channel on the
@@ -139,7 +139,26 @@ failure exits non-zero):
    plasma's dt, V-cycles per field solve, K1-K3 launches per step, peak
    memory, the Joule energy deposited and the largest temperature rise
    p / (N k_B) - T0; then (2b) K1, K2 and K3 on the finest level.
-Phases 9 to 15 run after phase 3s and before phase 4: after the long
+3t. the programs with the stock writers (the text log, the grid files, the
+   chemistry files) on the card and on the CPU at the committed sizes:
+   (a) air_cyl_amr_slice.cfg under programs/velocity_control_2d.py (both
+   simulations past 1 ns, so that the controller acts; photoionization
+   every 2 steps) for 4 steps, (b) comparison_air_2d.cfg (potential_bc: the
+   tabulated electrode potentials in the ghost constants A) for 8 steps,
+   (c) stability_3d.cfg (field_amplitude from the streamer's z-extent) for
+   4 steps: the same mesh at every epoch, dt at every attempted step, the
+   (FMG, V-cycle) counts of every field solve, every recorded hook call,
+   every variable within 1e-9 of its scale, every written file
+   (io/compare.py) within 1e-8 (the last of the 9 digits the text files
+   print), K1-K3 launched in (a) and (b), K4-K5 in (c);
+16. the stock writers on the main path at phase 7's size, under
+   velocity_control_2d with output%dt = 0.15 ps (3 outputs in 6 steps):
+   ms per step against phase 7's, seconds per output of the log, the grid
+   file and the chemistry files (synchronised), the grid file's bytes, the
+   hooks' host ms per step, V-cycles per field solve, K1-K3 launches per
+   step against phase 7's and inside the writers and hooks (none), peak
+   memory; fails if a writer wrote nothing. It runs just before phase 7.
+Phases 9 to 15 run after phase 3t and before phase 4: after the long
 profiler traces of phases 6 to 8 the host has been seen to run slower for
 the rest of the process.
 
@@ -149,7 +168,7 @@ per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
 ``launches_by_phase`` holds every full-size run's, those of phases 9 and
-11 to 15 among them);
+11 to 16 among them);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -233,15 +252,15 @@ PROGRAMS = ROOT / "afivo_streamer_tpu_torch" / "programs"
 GAS_CFG = DATA / "gas_heating_cyl_slice.cfg"
 TABLE_REACTIONS = DATA / "td_air_synthetic_reactions.txt"
 GAS_SMALL = [
-    ("3r", GAS_CFG, 2, TABLE_REACTIONS, ["-photoi%per_steps=2"], 8),
+    ("3r", GAS_CFG, 2, TABLE_REACTIONS, ["-photoi%per_steps=2"], 6),
     ("3r", GAS_CFG, 2, TABLE_REACTIONS,
-     ["-photoi%per_steps=2", "-gas%fraction_slow_heating=0.3"], 8),
+     ["-photoi%per_steps=2", "-gas%fraction_slow_heating=0.3"], 6),
     ("3r", GAS_CFG, 2, TABLE_REACTIONS,
      ["-photoi%per_steps=2", f"-user%module={PROGRAMS / 'heated_channel.py'}"],
-     8),
+     6),
     ("3s", DATA / "gas_channel_cyl_slice.cfg", 2, TABLE_REACTIONS,
      ["-photoi%per_steps=2", f"-user%module={PROGRAMS / 'gas_density_2d.py'}"],
-     8)]
+     6)]
 GAS_FULL_STEPS = 6
 #: the IMEX problem (phase 3q): uniform meshes (level-1 cells a side, level)
 #: and the runs of tests/test_imex.py (integrator, dt, steps)
@@ -300,7 +319,7 @@ DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
 #: every 2 steps there), and at the card's size (phases 7, 8) the
 #: overrides, the steps and the least leaf cells (the frozen slice's)
 AMR_CFG = {2: DATA / "air_cyl_amr_slice.cfg", 3: DATA / "air_3d_amr_slice.cfg"}
-AMR_SMALL_STEPS = {2: 6, 3: 6}
+AMR_SMALL_STEPS = {2: 4, 3: 6}
 AMR_FULL = {2: (["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
                  "-refine_regions_dr=7.8125e-6"], 6, 512 ** 2),
             3: (["-refine_max_dx=1.25e-4", "-refine_min_dx=3.125e-5",
@@ -663,7 +682,6 @@ def eps_level_inputs(torch, ndim, seed):
     from afivo_streamer_tpu_torch.core import ghostcell as tgc
     from afivo_streamer_tpu_torch.core.levels import MeshPlans
     from afivo_streamer_tpu_torch.core.tree import DO_REF, KEEP_REF, Tree
-    from afivo_streamer_tpu_torch.programs.dielectric_2d import cell_coords
     from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
     from afivo_streamer_tpu_torch.solvers.lsf import LsfData
     from afivo_streamer_tpu_torch.solvers.multigrid import Multigrid
@@ -695,8 +713,8 @@ def eps_level_inputs(torch, ndim, seed):
 
     mg = Multigrid(mesh, 0, 1, bc)
     mg.eps_data = lambda l: np.where(
-        cell_coords(tree, tree.lvl_ids[l - 1])[..., 1] < 0.25 * length, 2.0,
-        1.0).reshape(len(tree.lvl_ids[l - 1]), -1)
+        tree.boxes_cell_coords(tree.lvl_ids[l - 1])[..., 1] < 0.25 * length,
+        2.0, 1.0).reshape(len(tree.lvl_ids[l - 1]), -1)
     if ndim == 2:
         top, bottom, radius, tilt = EPS_ROD
         r0 = np.array([0.5 * length - 0.6e-3, top * length])
@@ -1289,10 +1307,14 @@ def check_energy_model(torch, sim, limits, phase, nonnegative=False):
 
 
 def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
-                   phase=None, cfg=None, table=TABLE, steps=None):
+                   phase=None, cfg=None, table=TABLE, steps=None,
+                   record=None):
     """Phase 7 (the main path: cylindrical) and 8 (3D): the slice with live
     refinement and photoionization at the card's size; returns the launch
-    counts of the run's kernels. Then phase 2b: the run's kernels on the
+    counts of the run's kernels, and fills ``record`` (when given) with ms
+    per step, the launches per step, the (FMG, V-cycle) counts of the field
+    solves, the FMG cycles of the photoionization updates, the meshes and
+    dt at every attempted step. Then phase 2b: the run's kernels on the
     finest level of the Helmholtz mode with the largest lambda. Phase 9:
     the same run of ``cfg`` (the cylindrical slice under ee53) with the
     checks of the energy model, without phase 2b and the busy share."""
@@ -1318,14 +1340,26 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
     t = sim.tree
     cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     boxes0 = [len(x) for x in t.lvl_ids]
-    epochs, updates = [], []
+    epochs, updates, solves, dts = [], [], [], []
     record_epochs(sim, epochs, torch)
     record_photoi(sim, ks, updates, torch)
+    if record is not None:
+        record_field_cycles(mgb, sim, solves)
+        record_dts(sim, dts)
     sim.run(max_steps=steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {k: ks.KERNELS[k].launches for k in names}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if record is not None:
+        # copies: the busy share's steps below would extend the lists
+        record.update(
+            ms_step=1e3 * (t2 - t1) / steps, solves=list(solves),
+            dts=list(dts),
+            per_step={k: round((launches[k] - setup_launches[k]) / steps, 2)
+                      for k in names},
+            updates=[u["cycles"] for u in updates],
+            epochs=[e["ids"] for e in epochs])
     n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     per_lvl = [len(x) for x in t.lvl_ids]
     changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
@@ -1704,6 +1738,286 @@ def phase_gas_full(torch, ks, Simulation, mgb, out_dir, smi):
     return launches
 
 
+#: the programs' cuda-vs-cpu runs (phase 3t): label, config, ndim, table,
+#: flags, steps, the kernels that must be launched, and whether both
+#: simulations start past 1 ns (the controller of velocity_control_2d acts
+#: from then on)
+PROGRAMS_SMALL = [
+    ("a", AMR_CFG[2], 2, TABLE,
+     ["-photoi%per_steps=2", "-field_amplitude=-1.8e6", "-output%log=t",
+      "-silo_write=t", "-output%dt=5e-14",
+      f"-user%module={PROGRAMS / 'velocity_control_2d.py'}"], 4,
+     ("fill_sweep_2d", "sweep_2d", "fill_2d"), True),
+    ("b", DATA / "comparison_air_2d.cfg", 2, TABLE, [], 8,
+     ("fill_sweep_2d", "sweep_2d", "fill_2d"), False),
+    ("c", DATA / "stability_3d.cfg", 3, TABLE, ["-output%dt=5e-14"], 4,
+     ("sweep_3d", "fill_3d"), False)]
+#: the stock writers on the main path at the card's size (phase 16), under
+#: velocity_control_2d: flags beside phase 7's and steps
+WRITERS_FULL = (["-field_amplitude=-1.8e6", "-output%log=t", "-silo_write=t",
+                 "-output%dt=1.5e-13",
+                 f"-user%module={PROGRAMS / 'velocity_control_2d.py'}"], 6)
+PAST_ONE_NS = 1.1e-9
+
+
+def record_hooks(sim, calls, torch=None, seconds=None):
+    """Record every call of the generic and field_amplitude hooks of
+    ``sim`` (name, time, amplitude); with ``seconds``, add each call's host
+    seconds there (synchronised before, so that the queue is not the
+    hook's)."""
+    for name in ("generic", "field_amplitude"):
+        hook = getattr(sim.user, name)
+        if hook is None:
+            continue
+
+        def wrapped(s, t_, hook=hook, name=name):
+            if seconds is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            out = hook(s, t_)
+            if seconds is not None:
+                seconds.append(time.perf_counter() - t0)
+            calls.append((name, t_, 0.0 if out is None else float(out)))
+            return out
+        setattr(sim.user, name, wrapped)
+
+
+def phase_programs_cpu_vs_cuda(torch, ks, Simulation, mgb, out_dir):
+    """Phase 3t: the programs with the stock writers on the card and on
+    the CPU at the committed sizes: (a) the main path's slice under
+    velocity_control_2d (both simulations past 1 ns, photoionization every
+    2 steps), (b) comparison_air_2d (the tabulated electrode potentials in
+    the ghost constants A), (c) stability_3d. The same mesh at every epoch,
+    dt at every attempted step, (FMG, V-cycle) counts of every field solve,
+    every recorded hook call, every variable within 1e-9 of its scale and
+    every written file (io/compare.py: log, grid files, chemistry files)
+    within 1e-8, the last of the 9 digits the text files print; the path's
+    kernels launched."""
+    from afivo_streamer_tpu_torch.io.compare import compare_outputs
+    for label, cfg, ndim, table, extra, steps, must, past in PROGRAMS_SMALL:
+        phase = f"3t{label}"
+        if cfg != AMR_CFG[2]:
+            extra = extra + [f"-user%module={PROGRAMS / (cfg.stem + '.py')}"]
+        sims, rec = {}, {}
+        for dev in ("cpu", "cuda"):
+            sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_{dev}", ndim,
+                                           dev, extra, cfg, table))
+            if past:
+                sim.global_time = PAST_ONE_NS
+            r = rec[dev] = {"epochs": [], "dts": [], "solves": [],
+                            "calls": []}
+            record_epochs(sim, r["epochs"], torch)
+            record_dts(sim, r["dts"])
+            record_field_cycles(mgb, sim, r["solves"])
+            record_hooks(sim, r["calls"])
+            before = {k: fn.launches for k, fn in ks.KERNELS.items()}
+            sim.run(max_steps=steps)
+            r["launched"] = {k: fn.launches - before[k]
+                             for k, fn in ks.KERNELS.items()}
+            sims[dev] = sim
+        a, b = sims["cpu"], sims["cuda"]
+        ra, rb = rec["cpu"], rec["cuda"]
+        if [e["ids"] for e in ra["epochs"]] != \
+                [e["ids"] for e in rb["epochs"]]:
+            raise RuntimeError(f"phase {phase}: the meshes differ")
+        if ra["solves"] != rb["solves"]:
+            raise RuntimeError(f"phase {phase}: the cycle counts differ: "
+                               f"{ra['solves']} {rb['solves']}")
+        if len(ra["dts"]) != len(rb["dts"]) or any(
+                abs(x / y - 1) > 1e-9 for x, y in zip(ra["dts"], rb["dts"])):
+            raise RuntimeError(f"phase {phase}: dt differs")
+        ca, cb = ra["calls"], rb["calls"]
+        if [c[0] for c in ca] != [c[0] for c in cb] or any(
+                abs(x - y) > 1e-9 * max(abs(x), 1e-300)
+                for p, q in zip(ca, cb) for x, y in zip(p[1:], q[1:])):
+            raise RuntimeError(f"phase {phase}: the hook calls differ")
+        if any(rb["launched"][k] <= 0 for k in must):
+            raise RuntimeError(f"phase {phase}: not launched on the card: "
+                               f"{rb['launched']}")
+        n = a.tree.highest_id
+        use = torch.as_tensor(a.tree.in_use[:n])
+        worst, worst_name = 0.0, ""
+        for iv, name in enumerate(a.registry.cc_names):
+            if iv == a.i_tmp:
+                continue
+            ref = a.cc[iv, :n][use]
+            err = float((b.cc[iv, :n].cpu()[use] - ref).abs().max())
+            scale = float(ref.abs().max())
+            rel = err / scale if scale > 0 else err
+            if rel > worst:
+                worst, worst_name = rel, name
+        if worst > 1e-9:
+            raise RuntimeError(f"phase {phase}: cuda vs cpu {worst} "
+                               f"{worst_name}")
+        # the text files print 9 significant digits: a deviation of 1e-13
+        # can turn the last one, 1e-8 of the value
+        files = compare_outputs(*(out_dir / f"p{phase}_{dev}"
+                                  for dev in sims), 1e-8)
+        grids = sum(k.startswith("grid_") for k in files)
+        if "log.txt" not in files or grids < 3 or b.out_cnt < 2:
+            raise RuntimeError(f"phase {phase}: too few outputs: {files}")
+        amps = [c[2] for c in cb if c[0] == "field_amplitude"]
+        extra_text = ""
+        if label == "b":
+            coords = b.mesh.gc(1).dirs[3].bc_coords
+            _kind, val = b.field.phi_bc(b.i_phi, 3, coords,
+                                        {"voltage": b.field.current_voltage})
+            if val.device.type != "cuda" or not float(val.max()) > float(
+                    val.min()):
+                raise RuntimeError(f"phase {phase}: no tabulated profile "
+                                   f"on the card")
+            extra_text = (f"; the top plane's potential on level 1 from "
+                          f"{float(val.min()):.6g} to {float(val.max()):.6g}"
+                          f" V at {b.field.current_voltage:.6g} V")
+        hooks = [k for k, v in vars(b.user).items() if v is not None]
+        log(f"phase {phase}: {cfg.name} (hooks {hooks}) "
+            f"cuda vs cpu, {steps} steps: the same mesh at "
+            f"{len(ra['epochs'])} epochs "
+            f"({sum(1 for e in ra['epochs'] if e['add'] or e['rm'])} changed "
+            f"it), dt at {len(ra['dts'])} attempted steps, (FMG, V-cycle) "
+            f"counts at {len(ra['solves'])} field solves "
+            f"{sorted(set(ra['solves']))}, {len(cb)} hook calls (field "
+            f"amplitude from {min(amps, default=0.0):.8g} to "
+            f"{max(amps, default=0.0):.8g} V/m); worst scaled deviation "
+            f"{worst:.3e} ({worst_name}); {len(files)} files within 1e-8, "
+            f"the worst {max(files.values()):.3e} "
+            f"({max(files, key=files.get)}), {grids} grid files; launches "
+            f"on the card {rb['launched']}{extra_text}")
+
+
+def writers_against_main_path(w, p7):
+    """Phase 16 against phase 7 of the same call: ms per step, and the K1-K3
+    launches per step, which must be equal where the two runs made the
+    same field solves and photoionization updates on the same meshes (the
+    writers and hooks launch nothing; phase 16 checks that itself). The
+    outputs of phase 16 shorten the steps that end at an output time, so
+    its solves may differ from phase 7's."""
+    same = (w["solves"] == p7["solves"] and w["updates"] == p7["updates"]
+            and w["epochs"] == p7["epochs"])
+    log(f"phase 16: {w['ms_step']:.2f} ms/step against phase 7's "
+        f"{p7['ms_step']:.2f} ({w['ms_step'] / p7['ms_step']:.3f}); K1-K3 "
+        f"launches per step {w['per_step']} against {p7['per_step']}; the "
+        f"same field solves, photoionization updates and meshes as phase "
+        f"7: {same} (V-cycles {sum(v for _f, v in w['solves'])} against "
+        f"{sum(v for _f, v in p7['solves'])}; dt per step "
+        f"{[float(f'{v:.4e}') for v in w['dts']]} against "
+        f"{[float(f'{v:.4e}') for v in p7['dts']]})")
+    if same and w["per_step"] != p7["per_step"]:
+        raise RuntimeError("phase 16: the same solves as phase 7 with other "
+                           "launch counts")
+
+
+def file_bytes(prefix, pattern):
+    return sum(p.stat().st_size for p in prefix.parent.glob(
+        f"{prefix.name}_{pattern}"))
+
+
+def phase_writers_full(torch, ks, Simulation, mgb, out_dir, smi):
+    """Phase 16: the main path at phase 7's size under velocity_control_2d
+    with the stock writers on (the text log and the grid files, the
+    chemistry files), output%dt set for outputs within the run: ms per
+    step, seconds per output of each writer (synchronised), the grid
+    file's bytes, the hooks' host ms per step, V-cycles per field solve,
+    K1-K3 launches per step and inside the writers and hooks (none), peak
+    memory. Returns what main() holds against phase 7."""
+    phase, ndim = "16", 2
+    extra7, _steps7, min_cells = AMR_FULL[ndim]
+    extra, steps = WRITERS_FULL
+    names = PATH_KERNELS[ndim]
+    free_earlier_runs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ks.reset_launch_counts()
+    prefix = out_dir / f"p{phase}_full"
+    t0 = time.perf_counter()
+    sim = Simulation(argv=amr_argv(prefix, ndim, "cuda", extra7 + extra))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup_launches = {k: ks.KERNELS[k].launches for k in names}
+    t = sim.tree
+    cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    epochs, updates, solves, dts, calls, hook_s = [], [], [], [], [], []
+    record_epochs(sim, epochs, torch)
+    record_photoi(sim, ks, updates, torch)
+    record_field_cycles(mgb, sim, solves)
+    record_dts(sim, dts)
+    record_hooks(sim, calls, torch, hook_s)
+    out = sim.output
+    writer_s = {"log": [], "grid": [], "chemistry": []}
+    inside = {k: 0 for k in names}
+
+    def timed(fn, key):
+        def wrapped(*args):
+            torch.cuda.synchronize()
+            before = {k: ks.KERNELS[k].launches for k in names}
+            t_ = time.perf_counter()
+            r = fn(*args)
+            torch.cuda.synchronize()
+            writer_s[key].append(time.perf_counter() - t_)
+            for k in names:
+                inside[k] += ks.KERNELS[k].launches - before[k]
+            return r
+        return wrapped
+    out.log = timed(out.log, "log")
+    out.write_grid = timed(out.write_grid, "grid")
+    out.chemical_rates = timed(out.chemical_rates, "chemistry")
+    out.chemical_amounts = timed(out.chemical_amounts, "chemistry")
+    sim.run(max_steps=steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: ks.KERNELS[k].launches for k in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    ms_step = 1e3 * (t2 - t1) / steps
+    n_out = sim.out_cnt
+    per_out = {k: sum(v) / max(len(v), 1) for k, v in writer_s.items()}
+    per_out["chemistry"] *= 2  # rates and amounts: one call each
+    grid_bytes = file_bytes(prefix, "grid_*.npz")
+    n_grid = len(list(prefix.parent.glob(f"{prefix.name}_grid_*.npz")))
+    hook_ms = 1e3 * sum(hook_s) / steps
+    n_v = sum(v for _f, v in solves)
+    per_step = {k: round((launches[k] - setup_launches[k]) / steps, 2)
+                for k in names}
+    log(f"phase {phase}: {AMR_CFG[ndim].name} {' '.join(extra7 + extra)}: "
+        f"{cells0} leaf cells after setup, {n_leaf} after {steps} steps; "
+        f"setup {t1 - t0:.2f} s; {steps} steps {t2 - t1:.2f} s = "
+        f"{ms_step:.2f} ms/step with {n_out} outputs in the run (t = "
+        f"{sim.global_time:.4e} s); peak memory {peak_gb:.3f} GB")
+    log(f"phase {phase}: seconds per output (synchronised, the run's "
+        f"outputs and the setup's): the log {per_out['log']:.4f} "
+        f"({len(writer_s['log'])} calls), the grid file "
+        f"{per_out['grid']:.4f} ({len(writer_s['grid'])} calls), the "
+        f"chemistry files {per_out['chemistry']:.4f}; {n_grid} grid files "
+        f"of {grid_bytes / max(n_grid, 1) / 1e6:.3f} MB each on average; "
+        f"hooks {hook_ms:.3f} host ms per step ({len(hook_s)} calls, "
+        f"{sum(1 for c in calls if c[0] == 'generic')} of generic); "
+        f"K1-K3 launches inside the writers and hooks {inside}")
+    log(f"phase {phase}: {len(solves)} field solves, {n_v} V-cycles = "
+        f"{n_v / len(solves):.2f} per solve; FMG cycles per photoionization "
+        f"update {[u['cycles'] for u in updates]}; dt per attempted step "
+        f"{[float(f'{v:.4e}') for v in dts]}; kernel launches {launches} "
+        f"(setup {setup_launches}), per step of the run {per_step}")
+    if min(cells0, n_leaf) < min_cells:
+        raise RuntimeError(f"fewer leaf cells than the frozen slice: "
+                           f"{cells0}, {n_leaf} < {min_cells}")
+    if not all(v > 0 for v in launches.values()) or any(inside.values()):
+        raise RuntimeError(f"launches {launches}, inside the writers and "
+                           f"hooks {inside}")
+    if n_out < 2 or n_grid != n_out + 1 or len(writer_s["log"]) != n_out:
+        raise RuntimeError(f"a writer wrote nothing: {n_out} outputs, "
+                           f"{n_grid} grid files, {writer_s}")
+    for name in ("log", "species", "reactions", "stoich_matrix", "summary",
+                 "rates", "amounts"):
+        if file_bytes(prefix, f"{name}.txt") == 0:
+            raise RuntimeError(f"phase {phase}: empty _{name}.txt")
+    n = t.highest_id
+    if not bool(torch.isfinite(sim.cc[:, :n]).all()):
+        raise RuntimeError("non-finite state after the run")
+    return {"launches": launches, "ms_step": ms_step, "per_step": per_step,
+            "solves": solves,
+            "updates": [u["cycles"] for u in updates],
+            "epochs": [e["ids"] for e in epochs], "dts": dts}
+
+
 def time_on_eps_level(torch, ks, mgb, sim, phase, smi):
     """Phase 2b of a dielectric run: its sweep and its fill (K4 and K5 in
     3D, K2 and K3-swap in 2D) on the finest level with extrapolating
@@ -2004,6 +2318,7 @@ def main():
     for phase, cfg, ndim, table, extra, steps in GAS_SMALL:
         phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
                               cfg, table, extra, steps, PATH_KERNELS[2])
+    phase_programs_cpu_vs_cuda(torch, ks, Simulation, mgb, out_dir)
     # phases 9 to 15 run before the long profiler traces of phases 6 to 8,
     # after which the host has been seen to run slower for the rest of the
     # process
@@ -2020,9 +2335,15 @@ def main():
             torch, ks, Simulation, mgb, out_dir, ndim, smi)
     by_phase["6"] = phase_dielectric_full(torch, ks, Simulation, mgb,
                                           out_dir, smi)
+    # phase 16 just before phase 7, whose host state it shares
+    writers = phase_writers_full(torch, ks, Simulation, mgb, out_dir, smi)
+    main_path = {}
     for ndim in (2, 3):
         by_phase[str(5 + ndim)] = phase_amr_full(
-            torch, ks, Simulation, mgb, out_dir, ndim, smi)
+            torch, ks, Simulation, mgb, out_dir, ndim, smi,
+            record=main_path if ndim == 2 else None)
+    writers_against_main_path(writers, main_path)
+    by_phase["16"] = writers["launches"]
     # each kernel's count is that of its main path: the cylindrical run
     # with photoionization for K1-K3, the 3D one for K4 and K5, the
     # dielectric run for K3-swap

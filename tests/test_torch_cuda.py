@@ -35,7 +35,10 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 * one gas step: the slice with gas dynamics, slow heating and a
   pre-heated channel for 2 steps (each ends with the coupling, a Heun step
   of the Euler equations and the new gas density), the state and the gas
-  dt limit on the card as on the CPU.
+  dt limit on the card as on the CPU;
+* the comparison_air_2d program (a potential_bc hook whose tabulated
+  profile stays on the card) with the text log and the grid files: the
+  state and every written file on the card as on the CPU.
 """
 
 import re
@@ -580,3 +583,28 @@ def test_gas_step_cuda_matches_cpu(cuda, tmp_path):
         torch.testing.assert_close(b.fc[f_iv, :, :n].cpu(), ref, rtol=1e-11,
                                    atol=1e-11 * float(ref.abs().max()))
     assert b.dt_gas_lim == pytest.approx(a.dt_gas_lim, rel=1e-12)
+
+
+@pytest.mark.gpu
+def test_potential_bc_and_writers_cuda_match_cpu(cuda, tmp_path):
+    """The comparison_air_2d program (potential_bc: the tabulated electrode
+    potentials, kept on the card and scaled there by the voltage) for 8
+    steps on the card and on the CPU, with the text log and the grid files
+    on: every variable within 1e-9 of its scale, K1-K3 launched, and every
+    file both runs wrote (io/compare.py) within 1e-8, the last of the 9
+    digits the text files print."""
+    from afivo_streamer_tpu_torch.io.compare import compare_outputs
+    programs = ROOT / "afivo_streamer_tpu_torch" / "programs"
+    ks.reset_launch_counts()
+    sims = slice_cuda_vs_cpu(
+        tmp_path, "comparison_air_2d.cfg", 2,
+        extra=(f"-user%module={programs / 'comparison_air_2d.py'}",),
+        steps=8)
+    assert all(ks.KERNELS[k].launches > 0
+               for k in ("fill_sweep_2d", "sweep_2d", "fill_2d"))
+    b = sims[1]
+    coords = b.mesh.gc(1).dirs[3].bc_coords
+    _kind, val = b.field.phi_bc(b.i_phi, 3, coords, {"voltage": 1.0})
+    assert val.device.type == "cuda" and float(val.max() - val.min()) > 0
+    worst = compare_outputs(tmp_path / "cpu", tmp_path / "cuda", 1e-8)
+    assert "log.txt" in worst and any(k.startswith("grid_") for k in worst)

@@ -3,8 +3,8 @@ loads no JAX and nothing of afivo_streamer_tpu; -device=cuda without a
 card raises; configurations that ask for unported modules raise
 NotImplementedError naming the module, and those for the modules that are
 ported (one dimension, the electron energy equation, new-style tables, the
-source factor, the plasma region, electrodes, dielectrics, gas dynamics
-and a user gas density) build a simulation. The same holds for
+source factor, the plasma region, electrodes, dielectrics, gas dynamics,
+a user gas density and the other user hooks) build a simulation. The same holds for
 chip_smoke.py and the scripts beside the data files."""
 
 import ast
@@ -85,7 +85,11 @@ def test_committed_data_files_are_present():
     for name in ("air_1d_slice.cfg", "air_cyl_ee_slice.cfg",
                  "gas_heating_cyl_slice.cfg", "gas_channel_cyl_slice.cfg",
                  "td_air_synthetic_new.txt", "td_air_synthetic.txt",
-                 "td_air_synthetic_reactions.txt"):
+                 "td_air_synthetic_reactions.txt",
+                 "velocity_control_2d.cfg", "stability_3d.cfg",
+                 "comparison_air_2d.cfg", "gas_gradient_2d.cfg",
+                 "2d_sprite.cfg", "3d_sprite.cfg",
+                 "applied_voltage_upper.txt", "applied_voltage_lower.txt"):
         assert (DATA / name).is_file(), name
     for cfg in DATA.glob("*.cfg"):
         table = [line.split("=")[1].strip() for line in
@@ -108,7 +112,7 @@ def test_device_cuda_without_card_raises(tmp_path):
     (["-output%npz=t"], "io/output.py"),
     (["-restart_from_file=run.npz"], "io/checkpoint.py"),
     (["-compiled%enabled=t"], "parallel/compiled.py"),
-    (["-user%module=USER_HOOKS"], "physics/user_methods.py"),
+    (["-lineout%write=t"], "io/output.py"),
     (["-use_dielectric=t", "-coarse_grid_size=256 256",
       "-dielectric_type=bottom", "-cylindrical=f", "-user%module="
       f"{DATA.parent / 'programs' / 'dielectric_2d.py'}"], "per-cell"),
@@ -118,11 +122,6 @@ def test_unported_configuration_raises(tmp_path, extra, module):
     JAX module; as in the JAX package, a level-1 grid above 32,768
     unknowns with a per-cell operator (eps, a level set) raises at the
     first field solve."""
-    if "-user%module=USER_HOOKS" in extra:
-        hooks = tmp_path / "hooks.py"
-        hooks.write_text("def user_initialize(cfg, sim):\n"
-                         "    sim.user.generic = lambda sim, time: None\n")
-        extra = [f"-user%module={hooks}"]
     with pytest.raises(NotImplementedError, match=module):
         Simulation(argv=argv(tmp_path, "-device=cpu", *extra))
 
@@ -174,6 +173,16 @@ DIELECTRIC = ["-use_dielectric=t", "-dielectric_type=bottom", "-user%module="
               f"{DATA.parent / 'programs' / 'dielectric_2d.py'}"]
 ELECTRODE_TYPES = ("sphere", "rod", "rod_rod", "rod_cone_top",
                    "two_rod_cone_electrodes", "user")
+#: user modules with one hook each, written by the test where a flag names
+#: them
+HOOK_MODULES = {
+    "GENERIC_HOOK": "sim.user.generic = lambda sim, time: None",
+    # the homogeneous boundary: Dirichlet in z (the voltage on top),
+    # Neumann in r
+    "POTENTIAL_BC_HOOK": "sim.user.potential_bc = lambda iv, d, coords, p: "
+                         "(1, p.get('voltage', 0.0) * (d == 3)) if d // 2 "
+                         "else (2, 0.0)",
+}
 
 
 @pytest.mark.parametrize("cfg, extra", [
@@ -192,14 +201,22 @@ ELECTRODE_TYPES = ("sphere", "rod", "rod_rod", "rod_cone_top",
     ("air_cyl_slice.cfg", ["-gas%dynamics=t", "-gas%fraction_slow_heating=0.3",
                            "-cylindrical=f"] + REACTIONS),
     ("air_cyl_slice.cfg", GAS_DENSITY + REACTIONS),
+    ("air_cyl_slice.cfg", ["-user%module=GENERIC_HOOK"]),
+    ("air_cyl_slice.cfg", ["-user%module=POTENTIAL_BC_HOOK"]),
 ] + [("air_cyl_slice.cfg", ELECTRODE + [f"-field_electrode_type={kind}"])
      for kind in ELECTRODE_TYPES],
     ids=["1d", "1d-ee53", "cyl-ee-alias", "new-style-table", "source-factor",
          "plasma-region", "electrode-dx-without-electrode", "dielectric-1d",
          "dielectric-3d", "coarse-grid-65536", "gas-dynamics",
-         "gas-dynamics-slow-heating", "gas-density-user"]
+         "gas-dynamics-slow-heating", "gas-density-user", "generic-hook",
+         "potential-bc-hook"]
     + [f"electrode-{kind}" for kind in ELECTRODE_TYPES])
 def test_ported_configuration_builds(tmp_path, cfg, extra):
+    for key, hook in HOOK_MODULES.items():
+        if f"-user%module={key}" in extra:
+            path = tmp_path / "hooks.py"
+            path.write_text(f"def user_initialize(cfg, sim):\n    {hook}\n")
+            extra = [f"-user%module={path}"]
     sim = Simulation(argv=[str(DATA / cfg), "-ndim=2",
                            f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
                            f"-output%name={tmp_path}/run", "-device=cpu",
@@ -242,6 +259,15 @@ def test_ported_configuration_builds(tmp_path, cfg, extra):
         else:
             # the Gaussian profile halves the density on the axis
             assert float(M.min()) < 0.55 * sim.gas.number_density
+    if sim.user.generic is not None:
+        sim.run(max_steps=1)
+        assert sim.it == 2
+    if sim.user.potential_bc is not None:
+        # the field solver takes the user's sides, which equal the
+        # default ones here
+        assert sim.field.user_potential_bc is sim.user.potential_bc
+        sim.run(max_steps=1)
+        assert sim.field.current_voltage > 0
 
 
 def test_ndim_3_raises(tmp_path):
