@@ -202,9 +202,11 @@ def restrict_tree(cc, plans, ivs, use_geometry: bool = True):
 
 
 def prolong(cc, plan: ProlongRestrictPlan, ivs, method: str,
-            limiter: Optional[int] = None):
+            limiter: Optional[int] = None, add: bool = False):
     """Prolong the parents' data (variables ivs) into the children's
-    interiors (af_prolong_* over the plan's children), in place."""
+    interiors (af_prolong_* over the plan's children), in place; with
+    ``add`` the prolonged values are added to the children's own (the
+    Monte-Carlo photons' deposit, physics/photoi_mc.py)."""
     ndim = plan.ndim
     if limiter is None:
         limiter = default_prolong_limiter(ndim)
@@ -241,5 +243,7 @@ def prolong(cc, plan: ProlongRestrictPlan, ivs, method: str,
                 fine = fine + sgn[:, :, d] * fd
         else:
             raise ValueError(f"unknown prolongation method {method}")
+        if add:
+            fine = cc[iv, plan.d.ch[:, None], t.fine[None, :]] + fine
         cc[iv, plan.d.ch[:, None], t.fine[None, :]] = fine
     return cc

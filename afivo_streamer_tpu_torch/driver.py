@@ -7,9 +7,9 @@ the main loop (``:177-415``) with output cadence, step rejection and retry
 (up to 10 attempts), and a refinement epoch every ``refine_per_steps``
 steps: restriction of the densities, the refinement criterion, the new
 mesh with prolongation into its new boxes, and a fresh field solve.
-Helmholtz photoionization (physics/photoi.py) is updated every
-``photoi%per_steps`` steps before the advance and after every epoch that
-changed the mesh.
+Photoionization (physics/photoi.py; Helmholtz modes or Monte-Carlo
+photons, physics/photoi_mc.py) is updated every ``photoi%per_steps`` steps
+before the advance and after every epoch that changed the mesh.
 
 Under the electron energy equation (``model%type = ee53``) the energy
 density is one more species with a flux of its own (physics/fluid.py); the
@@ -37,10 +37,14 @@ in the tree.
 Every user hook of physics/user_methods.py runs where the JAX host path
 calls it. Each output writes, in the JAX package's order, the regression
 log, the text log (``output%log``, from the second output on), the grid
-file (``silo_write``) and the chemistry files (io/output.py); setup writes
-the chemistry listings first. A configuration that asks for another
-module this package does not hold raises NotImplementedError naming that
-module.
+file (``silo_write``) and the chemistry files (io/output.py), and those
+writers the configuration turns on: the VTK grid (io/vtk.py), the
+checkpoint every ``datfile%per_outputs`` outputs (io/checkpoint.py), the
+uniform-grid npz, the field maxima, the plane, the line and the cross
+sections; setup writes the chemistry listings first.
+``restart_from_file`` restores the tree and the state of a checkpoint
+instead of the setup. A configuration that asks for another module this
+package does not hold raises NotImplementedError naming that module.
 """
 
 from __future__ import annotations
@@ -61,7 +65,9 @@ from .core.batch import BoxBatch, capacity
 from .core import spatial as sp
 from .core.levels import MeshPlans
 from .core.tree import Tree
+from .io.checkpoint import read_checkpoint, write_checkpoint
 from .io.output import Output
+from .io.vtk import write_vtk
 from .physics import advance as adv
 from .physics.chemistry import Chemistry
 from .physics.coupling import Coupling
@@ -99,17 +105,11 @@ def resolve_device(name: str) -> torch.device:
 
 
 def _refuse(cfg):
-    """NotImplementedError for the modules of the JAX package that this
-    package does not hold."""
-    checks = [
-        ("compiled%enabled", False, "parallel/compiled.py"),
-    ]
-    for key, default, module in checks:
-        if cfg.add_get(key, default, "Not available in this package"):
-            raise NotImplementedError(module)
-    if cfg.add_get("restart_from_file", "UNDEFINED",
-                   "Not available in this package") != "UNDEFINED":
-        raise NotImplementedError("io/checkpoint.py")
+    """NotImplementedError for the compiled engine of the JAX package, which
+    this package does not hold."""
+    if cfg.add_get("compiled%enabled", False,
+                   "Not available in this package"):
+        raise NotImplementedError("parallel/compiled.py")
 
 
 class Simulation:
@@ -179,6 +179,12 @@ class Simulation:
         self.i_electric_fld = reg.add_cc("electric_fld")
         self.i_rhs = reg.add_cc("rhs")
         self.i_tmp = reg.add_cc("tmp", write_out=False)
+        # optional power-density output variable (m_streamer.f90:336-341)
+        self.compute_power_density = cfg.add_get(
+            "compute_power_density", False,
+            "Whether to compute the deposited power density")
+        self.i_power_density = (reg.add_cc("power_density")
+                                if self.compute_power_density else -1)
         # optional output variable of the source factor
         # (m_streamer.f90:438-440)
         self.i_srcfac = -1
@@ -277,7 +283,7 @@ class Simulation:
         # ---- photoionization (registers photo and the Helmholtz modes)
         self.photoi = Photoionization(cfg, self.mesh, reg, self.gas, self.td,
                                       self.chem, self.i_rhs, self.i_electron,
-                                      self.i_electric_fld)
+                                      self.i_electric_fld, self.st)
         if self.photoi.enabled:
             self.photoi.species_cc = self.species_cc[
                 self.photoi.species_index - ngas]
@@ -298,7 +304,7 @@ class Simulation:
                                        self.gas, self.init_cond,
                                        self.i_electric_fld, self.i_electron,
                                        lsf_data=self.field.lsf_data)
-        self.output = Output(cfg, reg)
+        self.output = Output(cfg, reg, ndim)
 
         # ---- fluid model
         idx = FluidIndices(
@@ -354,7 +360,18 @@ class Simulation:
         self.electrode_derefine_factor = cfg.add_get(
             "electrode_derefine_factor", 1.0,
             "Multiplication factor to derefine electrode during interpulse")
-        self.setup_initial_conditions()
+        restart_from = cfg.add_get(
+            "restart_from_file", "UNDEFINED",
+            "If set, restart simulation from a previous checkpoint")
+        if restart_from != "UNDEFINED":
+            if self.st.use_dielectric:
+                # the surface state is not in the checkpoint
+                # (streamer.f90:138)
+                raise ValueError("Restarting not support with dielectric")
+            self._sync_capacity()
+            read_checkpoint(restart_from, self)
+        else:
+            self.setup_initial_conditions()
 
     # ------------------------------------------------------------ helpers
     def _eps_level_data(self, lvl: int) -> np.ndarray:
@@ -621,6 +638,8 @@ class Simulation:
                                      self.i_eps, charges, pos_ion_fc)
         self.field.surfaces = self.surfaces
         self.fluid.dielectric = self.dielectric
+        if self.photoi.mc is not None:
+            self.photoi.mc.dielectric = self.dielectric
 
     # ---------------------------------------------------- refinement step
     def adjust_refinement(self):
@@ -661,14 +680,57 @@ class Simulation:
                                    methods[iv]["bc"], params)
         return info
 
+    def _set_power_density(self):
+        """J.E deposited per cell on the leaves (set_power_density_box,
+        ``m_output.f90:940-965``): the electron flux times the field on
+        the faces, averaged to the cell centres, on the device."""
+        t = self.tree
+        nc, ndim = t.nc, self.ndim
+        for lvl in range(1, t.highest_lvl + 1):
+            tb = self.mesh.tb(lvl)
+            if len(tb.leaves) == 0:
+                continue
+            leaves = tb.d.leaves[:, None]
+            n = len(tb.leaves)
+            acc = 0.0
+            for d in range(ndim):
+                faxes = [np.arange(0, nc + 1) if k == d else np.arange(0, nc)
+                         for k in range(ndim)]
+                fidx = torch.as_tensor(sp.fc_flat(ndim, nc, *faxes),
+                                       dtype=torch.int64,
+                                       device=self.device)[None, :]
+                shp = (n,) + tuple(nc + 1 if k == d else nc
+                                   for k in range(ndim))
+                prod = (self.fc[self.fc_flux[0], d, leaves, fidx]
+                        * self.fc[self.fc_E, d, leaves, fidx]).reshape(shp)
+                lo = tuple(slice(0, nc) if k == d else slice(None)
+                           for k in range(ndim))
+                hi = tuple(slice(1, nc + 1) if k == d else slice(None)
+                           for k in range(ndim))
+                acc = acc + 0.5 * (prod[(slice(None),) + lo]
+                                   + prod[(slice(None),) + hi]
+                                   ).reshape(n, -1)
+            ro.cc_set_interior(self.cc, self.i_power_density, tb.d.leaves,
+                               acc * uc.elec_charge, nc, ndim)
+
     def output_write(self, out_cnt: int, wc_time: float = 0.0):
         """The writers of one output (output_write, m_output.f90:331-410),
-        in the JAX package's order: the regression log, the text log (from
-        the second output on, after the velocity from the displacement of
-        max(E)), the grid file, and the chemistry files."""
+        in the JAX package's order: the power density, the regression log,
+        the VTK grid, the checkpoint, the text log (from the second output
+        on, after the velocity from the displacement of max(E)), the
+        uniform-grid npz, the grid file, the chemistry files, the field
+        maxima, the plane, the line and the cross sections."""
         out = self.output
+        if self.compute_power_density:
+            self._set_power_density()
         if out.regression_test:
             out.regression_log(self, out_cnt)
+        if out.write_vtk_files:
+            write_vtk(f"{out.name}_{out_cnt:06d}.vtk", self, out_cnt,
+                      self.global_time)
+        if out.datfile_write and out_cnt % out.datfile_per_outputs == 0:
+            # ".dat.npz": np.savez appends ".npz" to other suffixes
+            write_checkpoint(f"{out.name}_{out_cnt:06d}.dat.npz", self)
         if out.write_log and out_cnt > 0:
             _emax, pos = red.tree_max_cc(self.cc, self.mesh,
                                          self.i_electric_fld)
@@ -681,10 +743,20 @@ class Simulation:
                 self.user.log_subroutine(self, out_cnt)
             else:
                 out.log(self, out_cnt, wc_time)
+        if out.npz_write:
+            out.write_npz(self, out_cnt)
         if out.silo_write and out_cnt % out.silo_per_outputs == 0:
             out.write_grid(self, out_cnt)
         out.chemical_rates(self)
         out.chemical_amounts(self)
+        if out.field_maxima_write:
+            out.write_fld_maxima(self, out_cnt)
+        if out.plane_write and self.ndim > 1:
+            out.write_plane(self, out_cnt)
+        if out.lineout_write:
+            out.write_line(self, out_cnt)
+        if out.cross_write and self.ndim == 2 and self.tree.coord == "cyl":
+            out.write_cross(self, out_cnt)
 
     def restrict_and_gc_densities(self):
         """Restrict + ghost-fill all densities (streamer.f90:383-386)."""

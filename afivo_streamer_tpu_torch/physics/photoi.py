@@ -9,6 +9,9 @@ custom coefficient sets scaled by p*O2-fraction ``:80-139``; each mode
 reuses the geometric multigrid with helmholtz_lambda = lambda_i^2 and runs
 FMG cycles until the relative residual is below 1e-2 ``:162-204``).
 
+With ``photoi%method = montecarlo`` the photo row comes instead from
+discrete photons (physics/photoi_mc.py), without modes or multigrids.
+
 Each mode has its own variable and its own multigrid, so its smoother
 tables, stencil coefficients and dense level-1 inverse are cached apart
 from the field solver's and the other modes'. The stop test reads the
@@ -30,6 +33,7 @@ from ..core import rowops as ro
 from ..core.reductions import tree_maxabs_cc
 from ..solvers import mg_blocks as mgb
 from ..solvers.multigrid import Multigrid
+from .photoi_mc import PhotoiMC
 from .transport_data import TD_ALPHA, TD_MOBILITY
 
 MAX_FMG_CYCLES = 10  # photoi_helmh_compute, m_photoi_helmh.f90:185
@@ -45,7 +49,9 @@ def helmh_bc(iv, d, coords, params, ndim=2):
 
 class Photoionization:
     def __init__(self, cfg, mesh, registry, gas, transport, chemistry,
-                 i_rhs, i_electron, i_electric_fld):
+                 i_rhs, i_electron, i_electric_fld, settings=None):
+        """settings: the StreamerSettings (the domain, the dielectric and
+        the random seed of the Monte-Carlo method)."""
         self.mesh = mesh
         self.tree = mesh.tree
         self.gas = gas
@@ -106,10 +112,10 @@ class Photoionization:
         self.i_excited_cc = -1
         #: FMG cycles of each mode in the last update
         self.fmg_cycles: List[int] = []
+        #: physics/photoi_mc.PhotoiMC under photoi%method = montecarlo
+        self.mc = None
         if not self.enabled:
             return
-        if self.method == "montecarlo":
-            raise NotImplementedError("physics/photoi_mc.py")
         if not (0.0 < self.eta <= 1.0):
             raise ValueError("photoi%eta out of range")
 
@@ -126,6 +132,14 @@ class Photoionization:
         self.i_photo = registry.add_cc("photo")
         registry.set_cc_methods(self.i_photo, bc, rb=gc.RB_INTERP,
                                 prolong="linear")
+
+        if self.method == "montecarlo":
+            self.mc = PhotoiMC(cfg, mesh, gas, settings,
+                               rng_seed=abs(settings.rng_seed[0]) + 1)
+            self.n_modes = 0
+            self.i_modes: List[int] = []
+            self.mgs: List[Multigrid] = []
+            return
 
         # Helmholtz coefficient sets (photoi_helmh_initialize :80-139)
         ix = gas.index("O2")
@@ -175,7 +189,8 @@ class Photoionization:
     # ------------------------------------------------------------ source
     def set_src(self, cc, dt: Optional[float] = None, params=None):
         """photoi_set_src (``m_photoi.f90:140-187``): the source on the
-        leaf interiors of rhs, then the Helmholtz solves into photo."""
+        leaf interiors of rhs, then the Helmholtz solves or the
+        Monte-Carlo photons into photo."""
         if not self.enabled:
             return cc
         t = self.tree
@@ -211,7 +226,9 @@ class Photoionization:
                 ro.cc_set_interior(cc, self.i_excited_cc, leaves,
                                    (1 - decay_fraction) * exc, nc, ndim)
             ro.cc_set_interior(cc, self.i_rhs, leaves, src, nc, ndim)
-        return self._helmh_compute(cc, params or {})
+        if self.method == "helmholtz":
+            return self._helmh_compute(cc, params or {})
+        return self.mc.set_src(self, cc, dt, params)
 
     def _helmh_compute(self, cc, params):
         """photoi_helmh_compute (``m_photoi_helmh.f90:162-204``): photo is

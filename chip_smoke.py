@@ -158,9 +158,38 @@ failure exits non-zero):
    hooks' host ms per step, V-cycles per field solve, K1-K3 launches per
    step against phase 7's and inside the writers and hooks (none), peak
    memory; fails if a writer wrote nothing. It runs just before phase 7.
-Phases 9 to 15 run after phase 3t and before phase 4: after the long
-profiler traces of phases 6 to 8 the host has been seen to run slower for
-the rest of the process.
+3u. Monte-Carlo photoionization (photoi%method = montecarlo, physical
+   photons off, 20,000 photons every 2 steps) on the card and on the CPU:
+   air_cyl_amr_slice.cfg for 6 steps, air_3d_amr_slice.cfg for 4 and
+   dielectric_cyl_slice.cfg with both photoemission coefficients 0.1 for 6
+   (photons absorbed on the surfaces): as 3m-3p, with the surfaces' photon
+   fluxes among the surface data; the photons come from one NumPy stream
+   on the host, so the card's and the CPU's runs make the same ones;
+3v. checkpoints and restart on the card: air_cyl_amr_slice.cfg for 8 steps
+   on the card and on the CPU with a checkpoint at every output; runs
+   restarted from the first checkpoint between two epochs (on the card
+   from the card's and from the CPU's, on the CPU from the card's) end with
+   the uninterrupted run's mesh, time, dt and state within 1e-9;
+3w. the opt-in writers on the card and on the CPU, every file held by
+   io/compare.py within 1e-8: on air_cyl_amr_slice.cfg the uniform-grid
+   npz with the extra variables, the VTK grid, the checkpoints, the line,
+   the plane, the cross sections, the field maxima and the power density;
+   the mean energy on air_cyl_slice.cfg with the new-style table; the
+   surfaces' data on the cylindrical dielectric; the 3D slice's npz, VTK,
+   plane, line and checkpoints;
+17. the Monte-Carlo main path at full size: phase 7's configuration and
+   flags with photoi%method = montecarlo at the default 5,000,000 photons
+   per update (physical photons off), 6 steps: ms per step and the busy
+   share, photons per update, ms per update split into the host's
+   generation and flight, the locate, the copy to the card, the deposit and
+   the prolongation, peak device and host memory, K1-K3 launches per step;
+   then one checkpoint of the final state written and read back onto the
+   card (seconds, bytes, the state restored exactly). It runs after phase
+   15; after phase 7 a line sets its ms per update beside phase 7's
+   Helmholtz updates.
+Phases 9 to 15 and 17 run after phase 3w and before phase 4: after the
+long profiler traces of phases 6 to 8 the host has been seen to run slower
+for the rest of the process.
 
 The launch counts are set to 0 just before each full-size run and read
 just after it. The line before the last is a JSON object with one entry
@@ -168,7 +197,7 @@ per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
 ``launches_by_phase`` holds every full-size run's, those of phases 9 and
-11 to 16 among them);
+11 to 17 among them);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -262,6 +291,22 @@ GAS_SMALL = [
      ["-photoi%per_steps=2", f"-user%module={PROGRAMS / 'gas_density_2d.py'}"],
      6)]
 GAS_FULL_STEPS = 6
+#: Monte-Carlo photoionization without physical photons (phases 3u, 17):
+#: the cuda-vs-cpu runs in the form of BRANCHES_SMALL, 20,000 photons per
+#: update; phase 17 at the default 5,000,000
+MC_FLAGS = ["-photoi%method=montecarlo", "-photoi_mc%physical_photons=f"]
+MC_SMALL = [
+    ("3u", DATA / "air_cyl_amr_slice.cfg", 2, TABLE,
+     MC_FLAGS + ["-photoi_mc%num_photons=20000", "-photoi%per_steps=2"], 6,
+     ("fill_sweep_2d", "sweep_2d", "fill_2d")),
+    ("3u", DATA / "air_3d_amr_slice.cfg", 3, TABLE,
+     MC_FLAGS + ["-photoi_mc%num_photons=20000", "-photoi%per_steps=2"], 4,
+     ("sweep_3d", "fill_3d")),
+    ("3u", DATA / "dielectric_cyl_slice.cfg", 2, TABLE,
+     MC_FLAGS + ["-photoi_mc%num_photons=20000", "-photoi%per_steps=2",
+                 "-dielectric%gamma_se_ph_highenergy=0.1",
+                 "-dielectric%gamma_se_ph_lowenergy=0.1",
+                 f"-user%module={USER_MODULE}"], 6, ("fill_2d_swap",))]
 #: the IMEX problem (phase 3q): uniform meshes (level-1 cells a side, level)
 #: and the runs of tests/test_imex.py (integrator, dt, steps)
 IMEX_MESHES = ((16, 2), (16, 6))
@@ -1184,6 +1229,8 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
         raise RuntimeError(f"phase {phase}: dt differs")
     if a.gasdyn is not None:
         gas_increments(torch, a, b, gas0, phase)
+    if b.photoi.mc is not None:
+        check_mc_photons(b, phase)
 
 
 #: the gas variables whose increments the gas phases compare
@@ -1359,6 +1406,7 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
             per_step={k: round((launches[k] - setup_launches[k]) / steps, 2)
                       for k in names},
             updates=[u["cycles"] for u in updates],
+            update_ms=[1e3 * u["s"] for u in updates],
             epochs=[e["ids"] for e in epochs])
     n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     per_lvl = [len(x) for x in t.lvl_ids]
@@ -2178,6 +2226,276 @@ def phase_1d_full(torch, ks, Simulation, out_dir):
     check_energy_model(torch, sim, limits, "10")
 
 
+
+# ------------------------------------------------ Monte-Carlo photons (3u)
+def check_mc_photons(sim, phase):
+    """The Monte-Carlo update of the card's run made photons, and with
+    dielectrics some reached a surface; a line on the last update."""
+    mc = sim.photoi.mc
+    note = (f"phase {phase}: last Monte-Carlo update: {mc.n_photons} photons"
+            f" made, {mc.n_deposited} deposited")
+    if mc.n_photons <= 0:
+        raise RuntimeError(f"phase {phase}: no Monte-Carlo photons")
+    if sim.surfaces is not None:
+        rows = [s.id_out for s in sim.surfaces.active()]
+        flux = float(sim.cc[sim.surfaces.i_photon, rows,
+                            :sim.surfaces.face_cells].abs().max())
+        n_lit = int((sim.cc[sim.surfaces.i_photon, rows,
+                            :sim.surfaces.face_cells] != 0).any(1).sum())
+        note += (f"; {n_lit} of {len(rows)} surfaces hold a photon flux, "
+                 f"max {flux:.4e} 1/(m2 s)")
+        if n_lit == 0:
+            raise RuntimeError(f"phase {phase}: no photon reached a surface")
+    log(note)
+
+
+# ------------------------------------------- checkpoint and restart (3v)
+def restart_point(prefix, per_steps):
+    """The first checkpoint of a run written at an iteration that is no
+    refinement epoch (one written at an epoch's iteration holds the state
+    before that epoch, which a restart skips, in both packages)."""
+    import numpy as np
+    for path in sorted(prefix.parent.glob(f"{prefix.name}_*.dat.npz")):
+        it = int(np.load(path)["payload_it"])
+        if it > 0 and it % per_steps != 0:
+            return path
+    raise RuntimeError(f"no checkpoint of {prefix.name} between epochs")
+
+
+def state_deviation(torch, a, b):
+    """The same mesh and the worst deviation of ``b``'s variables (but the
+    scratch one) from ``a``'s, scaled by each variable's largest magnitude
+    over the boxes in use."""
+    if [list(x) for x in a.tree.lvl_ids] != [list(x) for x in b.tree.lvl_ids]:
+        return None
+    n = a.tree.highest_id
+    use = torch.as_tensor(a.tree.in_use[:n])
+    worst = 0.0
+    for iv, name in enumerate(a.registry.cc_names):
+        if iv == a.i_tmp:
+            continue
+        ref = a.cc[iv, :n].cpu()[use]
+        got = b.cc[iv, :n].cpu()[use]
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+    return worst
+
+
+def phase_restart(torch, Simulation, out_dir):
+    """Phase 3v: checkpoints and restart on the card. The cylindrical slice
+    with live refinement and photoionization every 2 steps (air_cyl_amr_
+    slice.cfg) runs 8 steps on the card and on the CPU, writing a
+    checkpoint at every output; a run restarted from the first checkpoint
+    between two epochs continues to the same step: on the card from the
+    card's checkpoint, on the card from the CPU's and on the CPU from the
+    card's. Each must give the uninterrupted run's mesh, time, dt and
+    state (within 1e-9 of each variable's scale)."""
+    phase, steps = "3v", 8
+    flags = ["-photoi%per_steps=2", "-output%dt=1e-13", "-datfile%write=t"]
+    full, ckpt = {}, {}
+    for dev in ("cuda", "cpu"):
+        prefix = out_dir / f"p{phase}_{dev}"
+        full[dev] = Simulation(argv=amr_argv(prefix, 2, dev, flags))
+        full[dev].run(max_steps=steps)
+        ckpt[dev] = restart_point(prefix, full[dev].refine_cfg.per_steps)
+    lines = []
+    for dev, src in (("cuda", "cuda"), ("cuda", "cpu"), ("cpu", "cuda")):
+        t0 = time.perf_counter()
+        sim = Simulation(argv=amr_argv(
+            out_dir / f"p{phase}_{dev}_from_{src}", 2, dev,
+            flags[:2] + [f"-restart_from_file={ckpt[src]}"]))
+        it0 = sim.it
+        sim.run(max_steps=steps)
+        ref = full[src]
+        worst = state_deviation(torch, ref, sim)
+        ok = (worst is not None and worst <= 1e-9
+              and abs(sim.global_time / ref.global_time - 1) <= 1e-9
+              and abs(sim.global_dt / ref.global_dt - 1) <= 1e-9)
+        lines.append(f"{dev} from the {src}'s checkpoint at step {it0} "
+                     f"({time.perf_counter() - t0:.2f} s): same mesh "
+                     f"{worst is not None}, worst scaled deviation from the "
+                     f"uninterrupted {src} run {worst}")
+        if not ok:
+            raise RuntimeError(f"phase {phase}: {lines[-1]}")
+    log(f"phase {phase}: air_cyl_amr_slice.cfg, {steps} steps with a "
+        f"checkpoint at every output; restarted runs: " + "; ".join(lines))
+
+
+# ------------------------------------------------ the opt-in writers (3w)
+#: the writers' runs of phase 3w: config, ndim, table, flags, steps
+WRITER_FLAGS = ["-output%dt=1e-13", "-output%npz=t", "-output%vtk=t",
+                "-lineout%write=t", "-lineout%npoints=100", "-plane%write=t",
+                "-plane%npixels=32 32", "-cross%write=t", "-cross%npoints=50",
+                "-field_maxima%write=t", "-field_maxima%threshold=1.9e6",
+                "-compute_power_density=t", "-output%conductivity=t",
+                "-output%electron_current=t", "-output%write_source=e",
+                "-datfile%write=t", "-silo_write=t"]
+WRITERS_SMALL = [
+    (AMR_CFG[2], 2, TABLE, ["-photoi%per_steps=2"] + WRITER_FLAGS, 4),
+    (DATA / "air_cyl_slice.cfg", 2, TABLE_NEW,
+     ["-input_data%old_style=f", "-output%dt=2e-14", "-output%npz=t",
+      "-output%electron_energy=t"], 4),
+    (DATA / "dielectric_cyl_slice.cfg", 2, TABLE,
+     ["-photoi%per_steps=2", f"-user%module={USER_MODULE}",
+      "-output%dt=1e-13", "-silo_write=t", "-dielectric%write=t",
+      "-output%vtk=t"] + MC_FLAGS[:2] + ["-photoi_mc%num_photons=20000"], 4),
+    (CFG[3], 3, TABLE,
+     ["-refine_max_dx=5e-4", "-output%dt=1e-13", "-output%npz=t",
+      "-output%vtk=t", "-plane%write=t", "-plane%rmin=0 0 0.45",
+      "-plane%rmax=1 1 0.45", "-lineout%write=t", "-datfile%write=t"], 2)]
+
+
+def phase_writers_cpu_vs_cuda(torch, Simulation, out_dir):
+    """Phase 3w: the opt-in writers on the card and on the CPU, every file
+    the CPU's run wrote held against the card's by io/compare.py within
+    1e-8 (the uniform-grid npz with the extra variables, the VTK grid, the
+    checkpoints, the line, the plane, the cross sections, the field maxima
+    above 1.9 MV/m, the power density, and the surfaces' data in the grid
+    files)."""
+    from afivo_streamer_tpu_torch.io.compare import compare_outputs
+    phase = "3w"
+    for k, (cfg, ndim, table, extra, steps) in enumerate(WRITERS_SMALL):
+        t0 = time.perf_counter()
+        for dev in ("cpu", "cuda"):
+            sim = Simulation(argv=amr_argv(out_dir / f"p{phase}{k}_{dev}",
+                                           ndim, dev, extra, cfg, table))
+            sim.run(max_steps=steps)
+        worst = compare_outputs(out_dir / f"p{phase}{k}_cpu",
+                                out_dir / f"p{phase}{k}_cuda", 1e-8)
+        kinds = sorted({re.sub(r"\d{6}", "N", name) for name in worst})
+        log(f"phase {phase}: {cfg.name} ({steps} steps, "
+            f"{time.perf_counter() - t0:.2f} s): {len(worst)} files the "
+            f"same within 1e-8 (kinds {kinds}), worst "
+            f"{max(worst.values()):.3e}")
+        if ("vtk" in " ".join(extra)) != any(n.endswith(".vtk")
+                                             for n in worst):
+            raise RuntimeError(f"phase {phase}: a writer wrote nothing")
+
+
+# -------------------------- the Monte-Carlo main path at full size (17)
+MC_FULL_STEPS = 6
+
+
+def host_rss_gb():
+    """The process's peak host memory so far (ru_maxrss) in GB."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def phase_mc_full(torch, ks, Simulation, out_dir):
+    """Phase 17: the main path at phase 7's size with Monte-Carlo
+    photoionization at the default 5,000,000 photons per update (physical
+    photons off), 6 steps: ms per step and the busy share, photons per
+    update, ms per update split into the host's generation and flight, the
+    locate, the copy to the card, the deposit and the prolongation (each
+    stage synchronised), peak device and host memory, K1-K3 launches per
+    step; then one checkpoint of the final state written and read back
+    onto the card (seconds and bytes, the state restored exactly).
+    Returns the launch counts and the per-update ms."""
+    from afivo_streamer_tpu_torch.io.checkpoint import write_checkpoint
+    from afivo_streamer_tpu_torch.physics.photoi_mc import STAGES
+    phase, ndim, steps = "17", 2, MC_FULL_STEPS
+    extra7, _steps7, min_cells = AMR_FULL[ndim]
+    names = PATH_KERNELS[ndim]
+    free_earlier_runs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ks.reset_launch_counts()
+    rss0 = host_rss_gb()
+    prefix = out_dir / f"p{phase}_full"
+    t0 = time.perf_counter()
+    sim = Simulation(argv=amr_argv(prefix, ndim, "cuda", extra7 + MC_FLAGS))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mc = sim.photoi.mc
+    mc.sync_stages = True
+    setup_launches = {k: ks.KERNELS[k].launches for k in names}
+    t = sim.tree
+    cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    epochs, updates, stages = [], [], []
+    record_epochs(sim, epochs, torch)
+    record_photoi(sim, ks, updates, torch)
+    orig = sim.photoi.set_src
+
+    def with_stages(cc, dt=None, params=None):
+        cc = orig(cc, dt, params)
+        stages.append((mc.n_photons, mc.n_deposited, dict(mc.timings)))
+        return cc
+    sim.photoi.set_src = with_stages
+    sim.run(max_steps=steps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: ks.KERNELS[k].launches for k in names}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step = 1e3 * (t2 - t1) / steps
+    n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
+    changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
+    log(f"phase {phase}: {AMR_CFG[2].name} {' '.join(extra7 + MC_FLAGS)} "
+        f"(num_photons {mc.num_photons}): {cells0} leaf cells after setup, "
+        f"{n_leaf} after {steps} steps on {t.highest_lvl} levels; setup "
+        f"{t1 - t0:.2f} s; {steps} steps {t2 - t1:.2f} s = {ms_step:.2f} "
+        f"ms/step, of which the epochs {sum(e['s'] for e in epochs):.2f} s "
+        f"and the Monte-Carlo updates {sum(u['s'] for u in updates):.2f} s; "
+        f"{len(changed)} epochs changed the mesh; peak device memory "
+        f"{peak_gb:.3f} GB, peak host memory of the process {rss0:.3f} GB "
+        f"before the phase and {host_rss_gb():.3f} GB after")
+    for u, (made, kept, tm) in zip(updates, stages):
+        log(f"phase {phase}: update at step {u['it']}: {made} photons made, "
+            f"{kept} deposited; {1e3 * u['s']:.1f} ms = "
+            + ", ".join(f"{s} {1e3 * tm.get(s, 0.0):.1f}" for s in STAGES)
+            + f" ms (host plan building {1e3 * u['build_s']:.1f} ms); "
+            f"kernel launches {u['launches']}")
+    per_step = {k: round((launches[k] - setup_launches[k]) / steps, 2)
+                for k in names}
+    log(f"phase {phase}: kernel launches {launches}, per step {per_step}")
+    if min(cells0, n_leaf) < min_cells:
+        raise RuntimeError(f"phase {phase}: fewer leaf cells than the frozen "
+                           f"slice: {cells0}, {n_leaf} < {min_cells}")
+    if not all(v > 0 for v in launches.values()):
+        raise RuntimeError(f"phase {phase}: a kernel was not launched")
+    if not changed or len(updates) < 2:
+        raise RuntimeError(f"phase {phase}: needs a changing epoch and two "
+                           f"photoionization updates")
+    if any(abs(made / mc.num_photons - 1) > 0.01 for made, _k, _t in stages):
+        raise RuntimeError(f"phase {phase}: photons per update "
+                           f"{[s[0] for s in stages]}, not ~{mc.num_photons}")
+    n = t.highest_id
+    if not bool(torch.isfinite(sim.cc[:, :n]).all()):
+        raise RuntimeError(f"phase {phase}: non-finite state")
+    photo_max = float(sim.cc[sim.photoi.i_photo, :n].max())
+    emax = float(sim.cc[sim.i_electric_fld, :n].max())
+    log(f"phase {phase}: max(E) = {emax:.4e} V/m, max(photo) = "
+        f"{photo_max:.4e} 1/(m3 s)")
+    if not emax > BACKGROUND_FIELD or not photo_max > 0.0:
+        raise RuntimeError(f"phase {phase}: no streamer or no photons")
+
+    # one checkpoint of the final state, written and read back on the card
+    path = Path(f"{prefix}_final.dat.npz")
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    write_checkpoint(str(path), sim)
+    t4 = time.perf_counter()
+    back = Simulation(argv=amr_argv(prefix.parent / f"p{phase}_back", ndim,
+                                    "cuda", extra7 + MC_FLAGS
+                                    + [f"-restart_from_file={path}"]))
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    same = (back.tree.highest_id == n and back.it == sim.it
+            and bool(torch.equal(back.cc[:, :n], sim.cc[:, :n]))
+            and bool(torch.equal(back.fc[:, :, :n], sim.fc[:, :, :n])))
+    log(f"phase {phase}: checkpoint of the final state: {path.stat().st_size} "
+        f"bytes ({n} boxes), written in {t4 - t3:.2f} s, read back onto the "
+        f"card (a new simulation) in {t5 - t4:.2f} s; state restored "
+        f"exactly: {same}")
+    if not same:
+        raise RuntimeError(f"phase {phase}: the checkpoint does not restore "
+                           "the state")
+    del back
+    log(f"phase {phase}: device busy share: "
+        f"{busy_share(torch, sim, ms_step)}")
+    return launches, [1e3 * u["s"] for u in updates]
+
+
 def busy_share(torch, sim, ms_per_step):
     """Device-kernel time per step of two more steps under torch.profiler
     over the unprofiled ms per step (the profiler slows the host), or 'not
@@ -2319,6 +2637,11 @@ def main():
         phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
                               cfg, table, extra, steps, PATH_KERNELS[2])
     phase_programs_cpu_vs_cuda(torch, ks, Simulation, mgb, out_dir)
+    for phase, cfg, ndim, table, extra, steps, must in MC_SMALL:
+        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
+                              cfg, table, extra, steps, must)
+    phase_restart(torch, Simulation, out_dir)
+    phase_writers_cpu_vs_cuda(torch, Simulation, out_dir)
     # phases 9 to 15 run before the long profiler traces of phases 6 to 8,
     # after which the host has been seen to run slower for the rest of the
     # process
@@ -2330,6 +2653,8 @@ def main():
         by_phase[phase] = phase_electrode_full(torch, ks, Simulation, mgb,
                                                out_dir, phase, smi)
     by_phase["15"] = phase_gas_full(torch, ks, Simulation, mgb, out_dir, smi)
+    by_phase["17"], mc_update_ms = phase_mc_full(torch, ks, Simulation,
+                                                 out_dir)
     for ndim in (2, 3):
         by_phase[str(2 + ndim)] = phase_full_slice(
             torch, ks, Simulation, mgb, out_dir, ndim, smi)
@@ -2343,6 +2668,9 @@ def main():
             torch, ks, Simulation, mgb, out_dir, ndim, smi,
             record=main_path if ndim == 2 else None)
     writers_against_main_path(writers, main_path)
+    log(f"phase 17: ms per Monte-Carlo update "
+        f"{[round(v, 1) for v in mc_update_ms]} against phase 7's ms per "
+        f"Helmholtz update {[round(v, 1) for v in main_path['update_ms']]}")
     by_phase["16"] = writers["launches"]
     # each kernel's count is that of its main path: the cylindrical run
     # with photoionization for K1-K3, the 3D one for K4 and K5, the

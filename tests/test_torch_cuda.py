@@ -38,7 +38,11 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
   dt limit on the card as on the CPU;
 * the comparison_air_2d program (a potential_bc hook whose tabulated
   profile stays on the card) with the text log and the grid files: the
-  state and every written file on the card as on the CPU.
+  state and every written file on the card as on the CPU;
+* Monte-Carlo photoionization on the cylindrical slice and on the
+  cylindrical dielectric (the surfaces' photon fluxes), the particle
+  deposits and gather, and a restart on the card from a checkpoint the CPU
+  wrote, each against the CPU.
 """
 
 import re
@@ -608,3 +612,75 @@ def test_potential_bc_and_writers_cuda_match_cpu(cuda, tmp_path):
     assert val.device.type == "cuda" and float(val.max() - val.min()) > 0
     worst = compare_outputs(tmp_path / "cpu", tmp_path / "cuda", 1e-8)
     assert "log.txt" in worst and any(k.startswith("grid_") for k in worst)
+
+
+MC = ("-photoi%method=montecarlo", "-photoi_mc%physical_photons=f",
+      "-photoi_mc%num_photons=20000", "-photoi%per_steps=2")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg, ndim, extra", [
+    ("air_cyl_amr_slice.cfg", 2, MC),
+    ("dielectric_cyl_slice.cfg", 2,
+     MC + (DIEL_USER, "-dielectric%gamma_se_ph_highenergy=0.1",
+           "-dielectric%gamma_se_ph_lowenergy=0.1")),
+], ids=["cyl", "cyl-dielectric"])
+def test_monte_carlo_cuda_matches_cpu(cfg, ndim, extra, cuda, tmp_path):
+    """Monte-Carlo photoionization (20,000 photons every 2 steps) for 4
+    steps on the card and on the CPU: the same photons (one NumPy stream),
+    every variable within 1e-9 and with dielectrics the surfaces' photon
+    fluxes, which are among the variables."""
+    sims = slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=extra, steps=4)
+    a, b = sims
+    assert b.photoi.mc.n_photons == a.photoi.mc.n_photons > 0
+    assert float(b.cc[b.photoi.i_photo].abs().max()) > 0.0
+
+
+@pytest.mark.gpu
+def test_particles_cuda_match_cpu(cuda):
+    """core/particles.py with the state on the card: deposits of order 0
+    and 1 and the gather back, against the same on the CPU."""
+    import numpy as np
+    from afivo_streamer_tpu_torch.core import particles as part
+    from afivo_streamer_tpu_torch.core.tree import Tree
+    t = Tree(2, 8, [1.0, 1.0], [16, 16])
+    rng = np.random.default_rng(3)
+    r = rng.uniform(0.05, 0.95, size=(500, 2))
+    w = rng.uniform(0.5, 2.0, size=500)
+    for order in (0, 1):
+        out = []
+        for dev in ("cpu", cuda):
+            cc = torch.zeros((1, t.highest_id, 100), dtype=torch.float64,
+                             device=dev)
+            cc = part.particles_to_grid(cc, t, 0, r, w, order=order)
+            out.append((cc.cpu(), part.grid_to_particles(cc, t, 0, r).cpu()))
+        torch.testing.assert_close(out[1][0], out[0][0], rtol=1e-12,
+                                   atol=0.0)
+        torch.testing.assert_close(out[1][1], out[0][1], rtol=1e-12,
+                                   atol=0.0)
+
+
+@pytest.mark.gpu
+def test_restart_on_the_card_from_a_cpu_checkpoint(cuda, tmp_path):
+    """A checkpoint written on the CPU after 5 steps, read onto the card,
+    and 3 more steps there: the CPU's uninterrupted run, within 1e-9."""
+    from afivo_streamer_tpu_torch.driver import Simulation
+    base = [str(DATA / "air_cyl_amr_slice.cfg"), "-ndim=2",
+            "-photoi%per_steps=2", "-output%dt=1e-13"]
+    a = Simulation(argv=base + [f"-output%name={tmp_path}/a", "-device=cpu",
+                                "-datfile%write=t"])
+    a.run(max_steps=8)
+    b = Simulation(argv=base + [
+        f"-output%name={tmp_path}/b", "-device=cuda",
+        f"-restart_from_file={tmp_path}/a_000002.dat.npz"])
+    assert b.it == 5 and b.cc.device.type == "cuda"
+    b.run(max_steps=8)
+    assert [list(x) for x in b.tree.lvl_ids] == \
+        [list(x) for x in a.tree.lvl_ids]
+    n = a.tree.highest_id
+    for iv, name in enumerate(a.registry.cc_names):
+        if name == "tmp":
+            continue
+        ref = a.cc[iv, :n]
+        torch.testing.assert_close(b.cc[iv, :n].cpu(), ref, rtol=1e-9,
+                                   atol=1e-9 * float(ref.abs().max()))

@@ -1,7 +1,10 @@
 """The port stands alone: importing any module of afivo_streamer_tpu_torch
 loads no JAX and nothing of afivo_streamer_tpu; -device=cuda without a
-card raises; configurations that ask for unported modules raise
-NotImplementedError naming the module, and those for the modules that are
+card raises; configurations that ask for unported modules (the compiled
+engine, a per-cell coarse grid above 32,768 unknowns) raise
+NotImplementedError naming the module, those the port once refused
+(Monte-Carlo photoionization, the VTK and npz writers, a restart, the
+lineout) run, and those for the modules that are
 ported (one dimension, the electron energy equation, new-style tables, the
 source factor, the plasma region, electrodes, dielectrics, gas dynamics,
 a user gas density and the other user hooks) build a simulation. The same holds for
@@ -106,13 +109,7 @@ def test_device_cuda_without_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra, module", [
-    (["-photoi%enabled=t", "-photoi%method=montecarlo"],
-     "physics/photoi_mc.py"),
-    (["-output%vtk=t"], "io/output.py"),
-    (["-output%npz=t"], "io/output.py"),
-    (["-restart_from_file=run.npz"], "io/checkpoint.py"),
     (["-compiled%enabled=t"], "parallel/compiled.py"),
-    (["-lineout%write=t"], "io/output.py"),
     (["-use_dielectric=t", "-coarse_grid_size=256 256",
       "-dielectric_type=bottom", "-cylindrical=f", "-user%module="
       f"{DATA.parent / 'programs' / 'dielectric_2d.py'}"], "per-cell"),
@@ -124,6 +121,42 @@ def test_unported_configuration_raises(tmp_path, extra, module):
     first field solve."""
     with pytest.raises(NotImplementedError, match=module):
         Simulation(argv=argv(tmp_path, "-device=cpu", *extra))
+
+
+@pytest.mark.parametrize("extra, written", [
+    (["-photoi%enabled=t", "-photoi%species=M_plus",
+      "-photoi%method=montecarlo", "-photoi%per_steps=1",
+      "-photoi_mc%physical_photons=f", "-photoi_mc%num_photons=2000"], ""),
+    (["-output%vtk=t"], "_000001.vtk"),
+    (["-output%npz=t"], "_000001.npz"),
+    (["-restart_from_file=RESTART"], ""),
+    (["-lineout%write=t"], "_line_000001.txt"),
+], ids=["montecarlo", "vtk", "npz", "restart", "lineout"])
+def test_formerly_refused_configuration_runs(tmp_path, extra, written):
+    """The configurations the port refused before it held Monte-Carlo
+    photoionization, the opt-in writers and checkpoints build and run one
+    step on the CPU (with an output at that step). The restart reads the
+    checkpoint of a run's setup; a missing checkpoint raises what the JAX
+    package raises."""
+    if extra == ["-restart_from_file=RESTART"]:
+        from afivo_streamer_tpu.driver import Simulation as JaxSimulation
+        missing = f"-restart_from_file={tmp_path / 'none.dat.npz'}"
+        with pytest.raises(FileNotFoundError):
+            JaxSimulation(argv=argv(tmp_path / "j", missing))
+        with pytest.raises(FileNotFoundError):
+            Simulation(argv=argv(tmp_path / "t", "-device=cpu", missing))
+        Simulation(argv=argv(tmp_path / "w", "-device=cpu",
+                             "-datfile%write=t"))
+        extra = [f"-restart_from_file={tmp_path / 'w' / 'run_000000.dat.npz'}"]
+    sim = Simulation(argv=argv(tmp_path, "-device=cpu", "-output%dt=1e-14",
+                               *extra))
+    sim.run(max_steps=1)
+    assert sim.it == 2 and sim.global_time > 0.0
+    if written:
+        assert (tmp_path / f"run{written}").is_file()
+    if sim.photoi.enabled:
+        assert sim.photoi.mc.n_photons > 0
+        assert float(sim.cc[sim.photoi.i_photo].abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("integrator", ["imex_euler", "imex_trapezoidal"])

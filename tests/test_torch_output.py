@@ -29,8 +29,8 @@ from afivo_streamer_tpu.driver import Simulation as JSim
 from afivo_streamer_tpu_torch import interop
 from afivo_streamer_tpu_torch.core import reductions as red
 from afivo_streamer_tpu_torch.driver import Simulation as TSim
-from afivo_streamer_tpu_torch.io.compare import LISTINGS
-from torch_pairs import (DATA, PROGRAMS, assert_files_agree,
+from afivo_streamer_tpu_torch.io.compare import LISTINGS, compare_outputs
+from torch_pairs import (DATA, PROGRAMS, RTOL, assert_files_agree,
                          assert_logs_agree, assert_runs_agree, build_pair)
 
 torch.set_num_threads(1)
@@ -127,11 +127,22 @@ def test_stock_configuration_runs(tmp_path):
 @pytest.mark.parametrize("key", ["output%npz", "output%vtk", "cross%write",
                                  "dielectric%write"])
 def test_opt_in_writers_still_raise(tmp_path, key):
-    with pytest.raises(NotImplementedError, match="io/output.py"):
-        TSim(argv=[str(DATA / "air_cyl_slice.cfg"), "-ndim=2",
-                   "-device=cpu", "-refine_max_dx=5e-4", f"-{key}=t",
-                   f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
-                   f"-output%name={tmp_path / 'run'}"])
+    """The opt-in writers the port refused until it held them (the name is
+    kept from then): each now runs in the port as in the JAX package, and
+    the files of two steps with an output at each are the JAX package's
+    (tests/test_torch_writers.py holds them all on more configurations)."""
+    argv = [str(DATA / "air_cyl_slice.cfg"), "-ndim=2", "-refine_max_dx=5e-4",
+            f"-{key}=t", "-output%dt=1e-14", "-silo_write=t",
+            f"-input_data%file={DATA / 'td_air_synthetic.txt'}"]
+    t = TSim(argv=argv + ["-device=cpu", f"-output%name={tmp_path / 't'}"])
+    t.run(max_steps=2)
+    JSim(argv=argv + [f"-output%name={tmp_path / 'j'}"]).run(max_steps=2)
+    assert t.out_cnt == 2
+    worst = compare_outputs(tmp_path / "j", tmp_path / "t", RTOL)
+    mark = {"output%npz": "000002.npz", "output%vtk": "000002.vtk",
+            "cross%write": "cross_000002.txt",
+            "dielectric%write": "grid_000002.npz"}[key]
+    assert mark in worst
 
 
 def test_resumed_port_run_writes_the_jax_log(tmp_path):
