@@ -68,7 +68,11 @@ class _DirPlan:
 
 
 class GcLevelPlan:
-    """All index tables to fill one ghost layer on one level."""
+    """All index tables to fill one ghost layer on one level. ``halo``
+    (set by core/levels.MeshPlans in a sharded run) refreshes the halo
+    rows of the level and of the level below before a fill."""
+
+    halo = None
 
     def __init__(self, tree: Tree, lvl: int, device):
         ndim, nc = tree.ndim, tree.nc
@@ -357,6 +361,8 @@ def fill_ghosts_lvl(cc, plan: GcLevelPlan, ivs, rb_method: str, bc_fn,
     refinement-boundary entry}) selects the entries that take the
     extrapolating ghost instead of ``rb_method``."""
     params = params or {}
+    if plan.halo is not None:
+        plan.halo(cc, (plan.lvl - 1, plan.lvl), ivs)
     for d, p in enumerate(plan.dirs):
         dim, low = neighb_dim(d), neighb_low(d)
         t = p.d

@@ -7,6 +7,15 @@ follow a changing tree: each cached object names the levels it derives
 from, and after a refinement epoch only the objects of levels whose boxes
 changed are rebuilt (a level's fingerprint covers its boxes, their
 neighbors, children and parents, and the parents' neighbors).
+
+In a sharded run (parallel/halo.py) a rank's MeshPlans is built over its
+``LocalTree``: the tables cover the rank's own boxes and address its local
+rows, a level's fingerprint also covers the partition, the restriction
+plans cover the children of the rank's own parents, and the ghost-cell,
+restriction and prolongation plans exchange the halo rows they read
+(``halo``). ``full`` is the MeshPlans of the whole tree (the level-1
+solve, the writers on rank 0, where a reduction's leaf lies); an unsharded
+MeshPlans is its own ``full``.
 """
 
 from __future__ import annotations
@@ -40,6 +49,11 @@ class LevelTables:
                                    np.int32)
         self.parents_pos = np.array([pos[int(b)] for b in self.parents],
                                     np.int32)
+        # each leaf's position in the tree's leaf list of the level (the
+        # order of the reductions; the rank's leaves of a sharded run)
+        gpos = getattr(tree, "lvl_leaves_gpos", None)
+        self.leaves_gpos = (np.arange(len(self.leaves)) if gpos is None
+                            else np.asarray(gpos[lvl - 1], np.int64))
         dr = tree.lvl_dr(lvl)
         n = len(self.leaves)
         if tree.coord == "cyl":
@@ -69,6 +83,10 @@ def level_fingerprint(tree: Tree, lvl: int) -> bytes:
     ids = np.asarray(tree.lvl_ids[lvl - 1], np.int64)
     par = tree.parent[ids]
     h = hashlib.blake2b(digest_size=16)
+    layout = getattr(tree, "layout", None)
+    if layout is not None:
+        # a sharded run's rows: every local row and its box
+        h.update(np.ascontiguousarray(layout.glob).tobytes())
     for a in (ids, tree.ix[ids], tree.neighbors[ids],
               tree.children[ids, 0] >= 0, par,
               tree.neighbors[par] if lvl > 1 else par):
@@ -84,9 +102,11 @@ class MeshPlans:
     since it was built. ``epoch`` follows the tree's topology version;
     ``build_seconds`` counts the host time spent building objects."""
 
-    def __init__(self, tree: Tree, device):
+    def __init__(self, tree: Tree, device, full: "MeshPlans" = None):
         self.tree = tree
         self.device = torch.device(device)
+        #: the MeshPlans of the whole tree (self when unsharded)
+        self.full = self if full is None else full
         self.epoch = -1
         self._fp: Dict[int, bytes] = {}
         self._cache: Dict = {}
@@ -130,22 +150,60 @@ class MeshPlans:
     def n_levels(self) -> int:
         return self.tree.highest_lvl
 
+    @property
+    def layout(self):
+        """The partition of a sharded run (parallel/halo.Layout), None
+        when unsharded."""
+        return getattr(self.tree, "layout", None)
+
+    def halo(self, x, levels, ivs=None, fc: bool = False):
+        """Refresh the halo rows of ``levels`` of ``x`` (cc, or fc with
+        ``fc``) from their owners (parallel/halo.exchange); nothing when
+        unsharded."""
+        layout = self.layout
+        if layout is not None:
+            from ..parallel.halo import exchange
+            exchange(x, layout, levels, ivs, fc)
+        return x
+
+    def _hooked(self, plan):
+        plan.halo = self.halo if self.layout is not None else None
+        return plan
+
     def tb(self, lvl: int) -> LevelTables:
         return self.cached(("tb", lvl),
                            lambda: LevelTables(self.tree, lvl, self.device),
                            (lvl,))
 
     def gc(self, lvl: int) -> GcLevelPlan:
-        return self.cached(("gc", lvl),
-                           lambda: GcLevelPlan(self.tree, lvl, self.device),
-                           (lvl,))
+        return self.cached(("gc", lvl), lambda: self._hooked(
+            GcLevelPlan(self.tree, lvl, self.device)), (lvl,))
 
     def pr(self, lvl: int):
-        """Restriction plan of the children at ``lvl`` (None at level 1)."""
+        """Restriction plan of the children at ``lvl`` (None at level 1);
+        sharded: the children of the rank's own parents."""
         if lvl == 1:
             return None
-        return self.cached(("pr", lvl), lambda: ProlongRestrictPlan(
-            self.tree, self.tree.lvl_ids[lvl - 1], self.device), (lvl,))
+        if self.layout is None:
+            children = self.tree.lvl_ids[lvl - 1]
+        else:
+            children = self.tree.children[
+                np.asarray(self.tree.lvl_parents[lvl - 2], np.int64)].ravel()
+        return self.cached(("pr", lvl), lambda: self._hooked(
+            ProlongRestrictPlan(self.tree, children, self.device, lvl)),
+            (lvl,))
+
+    def prolong_plan(self, lvl: int, ids) -> ProlongRestrictPlan:
+        """Prolongation plan into the boxes ``ids`` at ``lvl`` (box ids
+        of the tree; sharded: the rank's own among them, in local
+        rows)."""
+        ids = np.asarray(ids, np.int64)
+        layout = self.layout
+        if layout is not None:
+            ids = ids[layout.shards.owner(ids, layout.cap) == layout.rank]
+            ids = layout.row_of[ids]
+        return self._hooked(ProlongRestrictPlan(self.tree, ids, self.device,
+                                                lvl))
 
     def pr_all(self):
         return [self.pr(l) for l in range(1, self.n_levels + 1)]

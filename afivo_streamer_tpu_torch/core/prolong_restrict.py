@@ -102,11 +102,15 @@ class ProlongRestrictPlan:
     their parents ``par``, each child's coarse target cells in its parent
     ``tgt`` [m, Cc] (flat, by the child's parity), the fine source cells of
     every coarse cell ``src`` (one table per child bit combination) and the
-    cylindrical restriction weights ``cyl_w`` [m, Cc, 2]."""
+    cylindrical restriction weights ``cyl_w`` [m, Cc, 2]. ``lvl`` is the
+    children's level; ``halo`` (set by core/levels.MeshPlans in a sharded
+    run) refreshes the halo rows that a transfer reads."""
 
-    def __init__(self, tree: Tree, child_ids, device):
+    halo = None
+
+    def __init__(self, tree: Tree, child_ids, device, lvl: int = 0):
         ndim, nc = tree.ndim, tree.nc
-        self.ndim, self.nc = ndim, nc
+        self.ndim, self.nc, self.lvl = ndim, nc, lvl
         self.coord = tree.coord
         hnc = nc // 2
         self.ch = np.asarray(child_ids, dtype=np.int64)
@@ -175,6 +179,8 @@ class ProlongRestrictPlan:
 
 def restrict(cc, plan: ProlongRestrictPlan, ivs, use_geometry: bool = True):
     """Restrict child interiors into parents (af_restrict_box), in place."""
+    if plan.halo is not None:
+        plan.halo(cc, (plan.lvl,), ivs)
     ndim, d = plan.ndim, plan.d
     for iv in ivs:
         iv = int(iv)
@@ -210,6 +216,8 @@ def prolong(cc, plan: ProlongRestrictPlan, ivs, method: str,
     ndim = plan.ndim
     if limiter is None:
         limiter = default_prolong_limiter(ndim)
+    if plan.halo is not None:
+        plan.halo(cc, (plan.lvl - 1,), ivs)
     t = plan.prolong_tables()
     par = plan.d.par[:, None]
     for iv in ivs:

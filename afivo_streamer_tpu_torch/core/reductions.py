@@ -5,6 +5,12 @@ Re-implements the reference's ``afivo/src/m_af_utils.f90`` reductions
 af_tree_max_cc, af_tree_min_cc, af_tree_max_fc and af_tree_min_fc with
 location). Each reduction is one batched op per level on the device; only
 the final scalar (and where it is) comes back to the host.
+
+In a sharded run (parallel/halo.py) every rank reduces its own leaves and
+the ranks' results are combined: the per-level sums are added up over the
+ranks before the level sum (so a sum differs from the unsharded one by
+rounding), an extremum is exact, and its location breaks ties as the
+unsharded scan does, by (level, position in the tree's leaf list, cell).
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import numpy as np
 
 import torch
 
+from ..parallel.halo import all_extremum, all_reduce
 from .levels import MeshPlans
 from .rowops import cc_get_interior, fc_get_faces
 
@@ -24,10 +31,14 @@ def tree_sum_cc(cc, mesh: MeshPlans, iv: int, power: int = 1) -> float:
     level on the device, added up on the host in level order."""
     tree = mesh.tree
     nc, ndim = tree.nc, tree.ndim
+    layout = mesh.layout
     lvls, sums = [], []
     for lvl in range(1, tree.highest_lvl + 1):
         tb = mesh.tb(lvl)
         if len(tb.leaves) == 0:
+            if layout is not None:  # every rank sums every level
+                lvls.append(lvl)
+                sums.append(cc.new_zeros(()))
             continue
         vals = cc_get_interior(cc, iv, tb.d.leaves, nc, ndim)
         if power != 1:
@@ -38,7 +49,8 @@ def tree_sum_cc(cc, mesh: MeshPlans, iv: int, power: int = 1) -> float:
         sums.append(vals.sum())
     total = 0.0
     if sums:
-        for lvl, s in zip(lvls, torch.stack(sums).cpu().tolist()):
+        per_lvl = all_reduce(torch.stack(sums), layout, "sum")
+        for lvl, s in zip(lvls, per_lvl.cpu().tolist()):
             total += float(np.prod(tree.lvl_dr(lvl))) * s
     return total
 
@@ -49,7 +61,9 @@ def leaf_extremum(mesh: MeshPlans, values, largest: bool = True):
     the row), or None without leaves. Each level reduces on the device and
     one small tensor comes to the host. Ties go to the first level, then
     the first row and index, as a scan of the levels with np.argmax (or
-    np.argmin) finds them."""
+    np.argmin) finds them. In a sharded run the row is the leaf's position
+    in the tree's leaf list of its level (``leaf_box``)."""
+    layout = mesh.layout
     lvls, best, where = [], [], []
     for lvl in range(1, mesh.tree.highest_lvl + 1):
         tb = mesh.tb(lvl)
@@ -63,14 +77,24 @@ def leaf_extremum(mesh: MeshPlans, values, largest: bool = True):
         lvls.append((lvl, vals.shape[1]))
         best.append(flat[k].to(torch.float64))
         where.append(k.to(torch.float64))
-    if not lvls:
-        return None
-    host = torch.stack(best + where).cpu().numpy()
-    vals = host[:len(lvls)]
-    j = int(np.argmax(vals) if largest else np.argmin(vals))
-    lvl, m = lvls[j]
-    row, k = divmod(int(host[len(lvls) + j]), m)
-    return float(vals[j]), lvl, row, k
+    found = []
+    if lvls:
+        host = torch.stack(best + where).cpu().numpy()
+        vals = host[:len(lvls)]
+        j = int(np.argmax(vals) if largest else np.argmin(vals))
+        lvl, m = lvls[j]
+        row, k = divmod(int(host[len(lvls) + j]), m)
+        found = [float(vals[j]), lvl, row, k]
+        if layout is not None:
+            found[2] = int(mesh.tb(lvl).leaves_gpos[row])
+    found = all_extremum(found, layout, largest)
+    return None if not found else tuple(found)
+
+
+def leaf_box(mesh: MeshPlans, lvl: int, row: int) -> int:
+    """The box id (in the whole tree) of the leaf at ``row`` of a level's
+    leaves as leaf_extremum reports it."""
+    return int(mesh.full.tree.lvl_leaves[lvl - 1][row])
 
 
 def tree_max_cc(cc, mesh: MeshPlans, iv: int) -> Tuple[float, np.ndarray]:
@@ -84,7 +108,7 @@ def tree_max_cc(cc, mesh: MeshPlans, iv: int) -> Tuple[float, np.ndarray]:
         return -np.inf, np.zeros(ndim)
     best, lvl, row, k = found
     cell = np.unravel_index(k, (nc,) * ndim)
-    r0 = tree.box_r_min(np.asarray([int(mesh.tb(lvl).leaves[row])]))[0]
+    r0 = mesh.full.tree.box_r_min(np.asarray([leaf_box(mesh, lvl, row)]))[0]
     return best, r0 + (np.asarray(cell) + 0.5) * tree.lvl_dr(lvl)
 
 
@@ -111,7 +135,7 @@ def tree_max_fc(fc, mesh: MeshPlans, dim: int, iv: int
     face = np.asarray(np.unravel_index(k, fshape), np.float64)
     off = np.full(ndim, 0.5)
     off[dim] = 0.0
-    r0 = tree.box_r_min(np.asarray([int(mesh.tb(lvl).leaves[row])]))[0]
+    r0 = mesh.full.tree.box_r_min(np.asarray([leaf_box(mesh, lvl, row)]))[0]
     return best, r0 + (face + off) * tree.lvl_dr(lvl)
 
 
@@ -134,4 +158,5 @@ def tree_maxabs_cc(cc, mesh: MeshPlans, iv: int) -> float:
 
 
 def n_leaf_cells(tree) -> int:
+    """Leaf cells of the tree (of the rank's own leaves for a LocalTree)."""
     return sum(len(l) for l in tree.lvl_leaves) * tree.nc ** tree.ndim

@@ -23,15 +23,14 @@ def cc_rows(cc, iv: int, ids, nc: int, ndim: int):
 
 def cc_get_interior(cc, iv: int, ids, nc: int, ndim: int):
     """Interior cells of cc rows: [n, nc^ndim]."""
-    return cc_rows(cc, iv, ids, nc, ndim)[interior(nc, ndim)].reshape(
-        len(ids), -1)
+    return cc_rows(cc, iv, ids, nc, ndim)[interior(nc, ndim)].flatten(1)
 
 
 def cc_set_interior(cc, iv: int, ids, vals, nc: int, ndim: int):
     """Write interior cells [n, nc^ndim] into cc rows (in place)."""
     B = cc_rows(cc, iv, ids, nc, ndim)
     B[interior(nc, ndim)] = vals.reshape((len(ids),) + (nc,) * ndim)
-    cc[iv, ids] = B.reshape(len(ids), -1)
+    cc[iv, ids] = B.flatten(1)
     return cc
 
 
@@ -39,7 +38,7 @@ def cc_add_interior(cc, iv: int, ids, vals, nc: int, ndim: int):
     """Add to interior cells [n, nc^ndim] of cc rows (in place)."""
     B = cc_rows(cc, iv, ids, nc, ndim)
     B[interior(nc, ndim)] += vals.reshape((len(ids),) + (nc,) * ndim)
-    cc[iv, ids] = B.reshape(len(ids), -1)
+    cc[iv, ids] = B.flatten(1)
     return cc
 
 
@@ -60,7 +59,7 @@ def fc_set_faces(fc, f_iv: int, d: int, ids, vals, nc: int, ndim: int):
     shape = (len(ids),) + tuple(nc + 1 if k == d else nc
                                 for k in range(ndim))
     B[_faces(nc, ndim, d)] = vals.reshape(shape)
-    fc[f_iv, d, ids] = B.reshape(len(ids), -1)
+    fc[f_iv, d, ids] = B.flatten(1)
     return fc
 
 

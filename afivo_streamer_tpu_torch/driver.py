@@ -45,10 +45,21 @@ sections; setup writes the chemistry listings first.
 ``restart_from_file`` restores the tree and the state of a checkpoint
 instead of the setup. A configuration that asks for another module this
 package does not hold raises NotImplementedError naming that module.
+
+``-compiled%enabled=T`` runs this path (parallel/compiled.py);
+``-compiled%shards=N`` runs it over the N ranks of a torch.distributed
+process group (parallel/halo.py): the state holds the rank's own boxes
+and their halo, the tree and the plans are replicated, the refinement
+flags are gathered so that every rank takes the same decision, the rows
+move to their new owners after every epoch that changes the mesh, and
+rank 0 gathers the state and writes every file. The branches whose state
+lives outside the box rows (dielectric surfaces, Monte-Carlo photons),
+electrodes and user modules raise NotImplementedError there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time as _time
 from typing import List, Optional
 
@@ -68,6 +79,8 @@ from .core.tree import Tree
 from .io.checkpoint import read_checkpoint, write_checkpoint
 from .io.output import Output
 from .io.vtk import write_vtk
+from .parallel import halo
+from .parallel.compiled import CompiledSettings, Shards, pad_capacity_to
 from .physics import advance as adv
 from .physics.chemistry import Chemistry
 from .physics.coupling import Coupling
@@ -104,14 +117,6 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _refuse(cfg):
-    """NotImplementedError for the compiled engine of the JAX package, which
-    this package does not hold."""
-    if cfg.add_get("compiled%enabled", False,
-                   "Not available in this package"):
-        raise NotImplementedError("parallel/compiled.py")
-
-
 class Simulation:
     def __init__(self, argv: Optional[List[str]] = None,
                  cfg: Optional[CFG] = None, ndim: Optional[int] = None):
@@ -139,7 +144,16 @@ class Simulation:
             # which passes no solver (advance.py, m_af_advance.f90:146-147)
             raise ValueError(f"time integrator {self.dt_cfg.integrator} "
                              "requires an implicit_solver")
-        _refuse(cfg)
+        # the compiled engine's options; N > 1 shards run over the ranks of
+        # a process group of size N
+        self.compiled = CompiledSettings(cfg)
+        n_shards = self.compiled.n_shards
+        self.shards = (Shards(n_shards, self.device.type) if n_shards > 1
+                       else None)
+        if self.shards is not None:
+            self.device = self.shards.device
+        #: whether this process writes the files and prints
+        self.is_root = self.shards is None or self.shards.rank == 0
         table_settings = TableDataSettings(cfg)
         self.gas = Gas(cfg)
         if self.user.gas_density is not None and not self.gas.dynamics:
@@ -233,7 +247,18 @@ class Simulation:
         self.tree = Tree(ndim, self.st.box_size, self.st.domain_len,
                          self.st.coarse_grid_size, periodic=self.st.periodic,
                          coord=self.st.coord, r_min=self.st.domain_origin)
-        self.mesh = MeshPlans(self.tree, self.device)
+        self.layout = None
+        if self.shards is None:
+            self.mesh = MeshPlans(self.tree, self.device)
+        else:
+            # the rank's rows: its own boxes and their halo
+            self._cap = pad_capacity_to(capacity(self.tree.highest_id),
+                                        self.shards.world)
+            self.layout = halo.Layout(self.tree, self.shards, self._cap)
+            self.local_tree = halo.LocalTree(self.tree)
+            self.local_tree.refresh(self.layout)
+            self.mesh = MeshPlans(self.local_tree, self.device,
+                                  full=MeshPlans(self.tree, self.device))
 
         # ---- species BCs and methods
         if self.st.species_boundary_condition == "neumann_zero":
@@ -304,6 +329,7 @@ class Simulation:
                                        self.gas, self.init_cond,
                                        self.i_electric_fld, self.i_electron,
                                        lsf_data=self.field.lsf_data)
+        self.refiner.mesh = self.mesh
         self.output = Output(cfg, reg, ndim)
 
         # ---- fluid model
@@ -332,11 +358,14 @@ class Simulation:
                                      reg, charged_cc, ch_q)
         self.surfaces = None
         self.dielectric = None
+        if self.shards is not None:
+            self._refuse_unsharded()
 
         # ---- storage (grown with the mesh, _sync_capacity)
         batch = BoxBatch(self.tree, reg.n_cc, reg.n_fc,
-                         capacity(self.tree.highest_id), self.dtype,
-                         self.device)
+                         capacity(self.tree.highest_id)
+                         if self.layout is None else self.layout.n_rows,
+                         self.dtype, self.device)
         self.cc, self.fc = batch.cc, batch.fc
 
         # runtime state
@@ -374,6 +403,31 @@ class Simulation:
             self.setup_initial_conditions()
 
     # ------------------------------------------------------------ helpers
+    def _refuse_unsharded(self):
+        """NotImplementedError for the branches that do not run sharded,
+        naming the module that holds their state."""
+        st = self.st
+        for on, module in (
+                (st.use_dielectric, "solvers/surface.py"),
+                (st.use_electrode, "solvers/lsf.py"),
+                (self.photoi.enabled and self.photoi.method != "helmholtz",
+                 "physics/photoi_mc.py"),
+                (self.cfg.get("user%module") != "UNDEFINED",
+                 "physics/user_methods.py")):
+            if on:
+                raise NotImplementedError(
+                    f"{module} under compiled%shards")
+
+    def _rows(self, ids):
+        """(tree, rows) to address boxes ``ids`` of the tree in the state:
+        the tree and the ids, or in a sharded run the LocalTree and the
+        rows that the rank holds among them."""
+        ids = np.asarray(ids, np.int64)
+        if self.layout is None:
+            return self.tree, ids
+        rows = self.layout.row_of[ids]
+        return self.local_tree, rows[rows >= 0]
+
     def _eps_level_data(self, lvl: int) -> np.ndarray:
         """Permittivity blocks of a level on the host (the variable-eps
         multigrid operator)."""
@@ -400,7 +454,7 @@ class Simulation:
                 mask &= (eps - 1.0).abs() <= 1e-10
             if self.st.plasma_region_enabled:
                 # cell centres of all leaves: [n, nc^ndim, ndim]
-                r0 = self.tree.box_r_min(np.asarray(tb.leaves))
+                r0 = self.mesh.tree.box_r_min(np.asarray(tb.leaves))
                 dr = self.tree.lvl_dr(lvl)
                 axes = np.meshgrid(*[np.arange(nc) + 0.5] * ndim,
                                    indexing="ij")
@@ -415,7 +469,12 @@ class Simulation:
 
     def _sync_capacity(self):
         """Grow the state so rows 0..highest_id exist (by 30 % and at
-        least 64 rows, as the JAX package grows its batch)."""
+        least 64 rows, as the JAX package grows its batch). In a sharded
+        run, after every change of the tree: the capacity grows by the
+        same rule, padded to a multiple of the ranks, the new layout is
+        made and the rows move to their new owners."""
+        if self.layout is not None:
+            return self._relayout()
         need = self.tree.highest_id
         cap = self.cc.shape[1]
         if need <= cap:
@@ -428,13 +487,49 @@ class Simulation:
         fc[:, :, :cap] = self.fc
         self.cc, self.fc = cc, fc
 
+    def _relayout(self):
+        need, cap = self.tree.highest_id, self._cap
+        if need > cap:
+            cap = pad_capacity_to(max(need + 64, int(1.3 * cap)),
+                                  self.shards.world)
+        new = halo.Layout(self.tree, self.shards, cap)
+        self.cc = halo.relayout(self.cc, self.layout, new, 1)
+        self.fc = halo.relayout(self.fc, self.layout, new, 2)
+        new.stats = self.layout.stats
+        self.layout, self._cap = new, cap
+        self.local_tree.refresh(new)
+        if self.is_root:
+            print(f" shards: leaf cells per rank "
+                  f"{new.leaf_cells(self.tree)}", flush=True)
+
+    @contextlib.contextmanager
+    def full_view(self):
+        """In a sharded run, the whole state gathered on rank 0 with the
+        whole tree's MeshPlans, for the writers: yields True on the rank
+        that holds it (every rank when unsharded)."""
+        if self.layout is None:
+            yield True
+            return
+        cc = halo.gather_to_root(self.cc, self.layout, 1, self._cap)
+        fc = halo.gather_to_root(self.fc, self.layout, 2, self._cap)
+        if not self.is_root:
+            yield False
+            return
+        saved = self.cc, self.fc, self.mesh
+        self.cc, self.fc, self.mesh = cc, fc, self.mesh.full
+        try:
+            yield True
+        finally:
+            self.cc, self.fc, self.mesh = saved
+
     def _set_initial_values(self, ids):
         """The level set, the user's gas density, the initial conditions,
         the initial gas state and the user hook on boxes ``ids``; no
         density inside an electrode."""
         self._fill_lsf(ids)
         self._fill_user_gas_density(ids)
-        self.cc = self.init_cond.apply(self.cc, self.tree, ids)
+        tree, rows = self._rows(ids)
+        self.cc = self.init_cond.apply(self.cc, tree, rows)
         self._init_gas_state(ids)
         if self.user.initial_conditions is not None:
             self.user.initial_conditions(self, np.asarray(ids, np.int64))
@@ -464,7 +559,7 @@ class Simulation:
         if self.gasdyn is None or len(ids) == 0:
             return
         gd, gas = self.gasdyn, self.gas
-        ids = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        ids = torch.as_tensor(self._rows(ids)[1], device=self.device)
         N = gas.number_density
         self.cc[gd.i_gas_dens, ids] = N
         self.cc[gd.gas_vars[gd.i_rho], ids] = N * gas.molecular_weight
@@ -619,7 +714,9 @@ class Simulation:
             if info.n_add == 0:
                 break
             self._set_initial_values(np.asarray(info.added, np.int64))
-        self.output.initial_summary(self)
+        with self.full_view() as root:
+            if root:
+                self.output.initial_summary(self)
         self.output_write(0)
 
     def _init_surfaces(self):
@@ -670,8 +767,7 @@ class Simulation:
         for lvl in sorted(info.added_per_lvl):
             self._fill_lsf(info.added_per_lvl[lvl])
             self._fill_user_gas_density(info.added_per_lvl[lvl])
-            plan = pr.ProlongRestrictPlan(self.tree, info.added_per_lvl[lvl],
-                                          self.device)
+            plan = self.mesh.prolong_plan(lvl, info.added_per_lvl[lvl])
             for iv in self.registry.auto_vars:
                 pr.prolong(self.cc, plan, [iv], methods[iv]["prolong"])
             gplan = self.mesh.gc(lvl)
@@ -720,9 +816,14 @@ class Simulation:
         on, after the velocity from the displacement of max(E)), the
         uniform-grid npz, the grid file, the chemistry files, the field
         maxima, the plane, the line and the cross sections."""
-        out = self.output
         if self.compute_power_density:
             self._set_power_density()
+        with self.full_view() as root:
+            if root:
+                self._write_outputs(out_cnt, wc_time)
+
+    def _write_outputs(self, out_cnt: int, wc_time: float):
+        out = self.output
         if out.regression_test:
             out.regression_log(self, out_cnt)
         if out.write_vtk_files:
@@ -807,7 +908,8 @@ class Simulation:
                 break
             wc_time = _time.time() - t_start
             if wc_time - time_last_print > self.output.status_delay:
-                self.output.status(self, wc_time)
+                if self.is_root:
+                    self.output.status(self, wc_time)
                 time_last_print = wc_time
 
             # per-iteration user hook (streamer.f90:181-183)
@@ -864,8 +966,9 @@ class Simulation:
                     time = time_new
                     break
                 n_steps_rejected += 1
-                print(f"{self.it} Step rejected (#{n_steps_rejected}) "
-                      f"(dt, dt_lim) = {dt:.4E} {dt_lim:.4E}")
+                if self.is_root:
+                    print(f"{self.it} Step rejected (#{n_steps_rejected}) "
+                          f"(dt, dt_lim) = {dt:.4E} {dt_lim:.4E}")
                 dt = self.dt_cfg.safety_factor * dt_lim_step
                 time = self.global_time
                 write_out = False
@@ -919,7 +1022,8 @@ class Simulation:
             self.dt_limits = diag["dt_limits"].cpu().numpy()
 
             if self.global_dt < self.dt_cfg.dt_min:
-                self.output.status(self, _time.time() - t_start)
+                if self.is_root:
+                    self.output.status(self, _time.time() - t_start)
                 raise RuntimeError(f"dt too small: {self.global_dt}")
 
             if write_out:
@@ -942,7 +1046,8 @@ class Simulation:
                     if self.photoi.enabled:
                         self._photoi_set_src(time)
 
-        self.output.status(self, _time.time() - t_start)
+        if self.is_root:
+            self.output.status(self, _time.time() - t_start)
         return out_cnt
 
     def _time_state_vars(self) -> List[int]:

@@ -11,7 +11,10 @@ topology and the state onto the simulation's device; the per-level tables
 and plans the port keeps (core/levels.MeshPlans and everything cached
 there: ghost, prolongation and multigrid plans, the level-1 solvers, the
 level-set data) are rebuilt from the restored tree at first use. The
-checks are the JAX package's (``streamer.f90:129-140``).
+checks are the JAX package's (``streamer.f90:129-140``). A sharded run
+writes the state that rank 0 gathers (driver.Simulation.full_view) and
+reads the rows of its new layout, so that its checkpoints restart
+unsharded and the other way round.
 """
 
 from __future__ import annotations
@@ -98,8 +101,16 @@ def read_checkpoint(fname: str, sim) -> None:
 
     sim._sync_capacity()
     dev, dtype = sim.cc.device, sim.cc.dtype
-    sim.cc[:, :n] = torch.as_tensor(d["cc"], dtype=dtype, device=dev)
-    sim.fc[:, :, :n] = torch.as_tensor(d["fc"], dtype=dtype, device=dev)
+    if sim.layout is None:
+        sim.cc[:, :n] = torch.as_tensor(d["cc"], dtype=dtype, device=dev)
+        sim.fc[:, :, :n] = torch.as_tensor(d["fc"], dtype=dtype, device=dev)
+    else:
+        # a sharded run keeps the rows of its own boxes and their halo
+        rows = sim.layout.glob
+        sim.cc[:] = torch.as_tensor(d["cc"][:, rows], dtype=dtype,
+                                    device=dev)
+        sim.fc[:] = torch.as_tensor(d["fc"][:, :, rows], dtype=dtype,
+                                    device=dev)
     sim.it = int(d["payload_it"])
     sim.out_cnt = int(d["payload_out_cnt"]) if "payload_out_cnt" in d \
         else 0

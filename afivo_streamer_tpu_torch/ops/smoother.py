@@ -169,12 +169,17 @@ def _check(phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
 
 def _launch(mode, ndim, phi3, R=None, mask=None, A=None, g=None, W=None,
             cs=None):
+    """The kernel of ``mode`` on the blocks phi3; None for no block (a
+    level on which a rank of a sharded run holds no box), which launches
+    nothing."""
     if phi3.device.type != "cuda":
         raise ValueError(f"no smoother kernel for device {phi3.device}")
     if phi3.dim() != ndim + 1:
         raise ValueError(f"phi3 must have {ndim + 1} dims, got "
                          f"{tuple(phi3.shape)}")
     n, nc = _check(phi3, R, mask, A, g, W, cs)
+    if n == 0:
+        return None
     vectors = {"phi3": phi3, "R": R, "mask": mask, "cs": cs}
     for name in _VECTOR_INPUTS.get((ndim, mode), ()):
         if vectors[name].data_ptr() % 16:
@@ -360,6 +365,8 @@ def sweep_2d(phi3, R, mask, g, cs):
     if phi3.device.type == "cpu":
         return sweep_2d_plain(phi3, R, mask, g, cs)
     out = _launch(_MODE_SWEEP, 2, phi3, R=R, mask=mask, g=g, cs=cs)
+    if out is None:
+        return phi3.clone()
     sweep_2d.launches += 1
     return out
 
@@ -369,6 +376,8 @@ def fill_2d(phi3, A, g, W):
     if phi3.device.type == "cpu":
         return fill_2d_plain(phi3, A, g, W)
     out = _launch(_MODE_FILL, 2, phi3, A=A, g=g, W=W)
+    if out is None:
+        return phi3.clone()
     fill_2d.launches += 1
     return out
 
@@ -379,6 +388,8 @@ def fill_2d_swap(phi3, A, g, W):
     if phi3.device.type == "cpu":
         return fill_2d_swap_plain(phi3, A, g, W)
     out = _launch(_MODE_FILL_SWAP, 2, phi3, A=A, g=g, W=W)
+    if out is None:
+        return phi3.clone()
     fill_2d_swap.launches += 1
     return out
 
@@ -390,6 +401,8 @@ def fill_sweep_2d(phi3, R, mask, A, g, W, cs):
         return fill_sweep_2d_plain(phi3, R, mask, A, g, W, cs)
     out = _launch(_MODE_FILL_SWEEP, 2, phi3, R=R, mask=mask, A=A, g=g, W=W,
                   cs=cs)
+    if out is None:
+        return phi3.clone()
     fill_sweep_2d.launches += 1
     return out
 
@@ -399,6 +412,8 @@ def sweep_3d(phi3, R, mask, g, cs):
     if phi3.device.type == "cpu":
         return sweep_3d_plain(phi3, R, mask, g, cs)
     out = _launch(_MODE_SWEEP, 3, phi3, R=R, mask=mask, g=g, cs=cs)
+    if out is None:
+        return phi3.clone()
     sweep_3d.launches += 1
     return out
 
@@ -408,6 +423,8 @@ def fill_3d(phi3, A, g, W):
     if phi3.device.type == "cpu":
         return fill_3d_plain(phi3, A, g, W)
     out = _launch(_MODE_FILL, 3, phi3, A=A, g=g, W=W)
+    if out is None:
+        return phi3.clone()
     fill_3d.launches += 1
     return out
 
@@ -532,7 +549,7 @@ class SmootherTables:
                 rb_dirs.append(d)
                 self.rb_pos[d] = torch.as_tensor(rows, dtype=torch.int64,
                                                  device=device)
-        if g.min() < 0 or g.max() >= max(n, 1):
+        if n and (g.min() < 0 or g.max() >= n):
             raise ValueError("neighbor row table out of range")
         self.g = torch.as_tensor(g, dtype=torch.int32, device=device)
         self._W = W

@@ -45,6 +45,7 @@ from ..core import rowops as ro
 from ..core import spatial as sp
 from ..core.tree import Tree, NO_BOX, neighb_dim, neighb_low
 from ..ops.limiters import limiter_apply, LIMITER_KOREN
+from ..parallel.halo import all_reduce
 from .chemistry import IONIZATION_REACTION
 from .transport_data import (TD_MOBILITY, TD_DIFFUSION, TD_EE_MOBILITY,
                              TD_EE_DIFFUSION, TD_EE_LOSS)
@@ -288,12 +289,16 @@ def build_consistent_plan(tree: Tree, device) -> List[ConsistentGroup]:
     t = tree
     nc, ndim = t.nc, t.ndim
     hnc = nc // 2
+    # a sharded run (parallel/halo.LocalTree): the coarse faces of the
+    # rank's own boxes, next to any local parent
+    parents = getattr(t, "lvl_parents_local", t.lvl_parents)
+    n_own = getattr(t, "n_own", t.highest_id)
     by_key: Dict = {}
     for lvl in range(1, t.highest_lvl):
-        for p_id in t.lvl_parents[lvl - 1]:
+        for p_id in parents[lvl - 1]:
             for d in range(2 * ndim):
                 nb = int(t.neighbors[p_id, d])
-                if nb < 0 or t.has_children(nb):
+                if nb < 0 or nb >= n_own or t.has_children(nb):
                     continue
                 dim, low = neighb_dim(d), neighb_low(d)
                 # children of p_id adjacent to direction d
@@ -463,6 +468,8 @@ class FluidModel:
 
         for lvl in range(1, t.highest_lvl + 1):
             plan = gc2_plan(self.mesh, lvl)
+            # the neighbors and the coarse boxes the 2-ghost fill reads
+            self.mesh.halo(cc, (lvl - 1, lvl), sp_ivs)
             n = len(plan.leaves)
             if n == 0:
                 continue
@@ -564,6 +571,9 @@ class FluidModel:
                                     ndim)
             inv_max_cfl = torch.maximum(inv_max_cfl, cfl_sum.max())
 
+        # the fine fluxes next to the rank's coarse faces
+        self.mesh.halo(fc, range(2, t.highest_lvl + 1), idx.flux_fc,
+                       fc=True)
         fc = consistent_fluxes(fc, consistent_plan(self.mesh), idx.flux_fc)
         dt_cfl = 1.0 / torch.clamp(inv_max_cfl, min=TINY)
         dt_drt = uc.eps0 / (uc.elem_charge * max_sigma)
@@ -810,6 +820,17 @@ class FluidModel:
         # (m_fluid.f90:96-98), so af_advance returns the limit of the LAST
         # substep, not the minimum over substeps.
         dt_other = diag.pop("dt_other")
+        layout = self.mesh.layout
+        if layout is not None:
+            # the limits over every rank's leaves (exact: a min in any
+            # order) and the sums of the rates and of J.E (partial sums)
+            lims = all_reduce(torch.stack([dt_cfl, dt_drt, dt_chem,
+                                           dt_other]), layout, "min")
+            dt_cfl, dt_drt, dt_chem, dt_other = lims.unbind()
+            sums = all_reduce(torch.cat([diag["rates"],
+                                         diag["JdotE"].reshape(1)]),
+                              layout, "sum")
+            diag["rates"], diag["JdotE"] = sums[:-1], sums[-1]
         dt_cfl = dt_cfl * self.dt_cfg.cfl_number
         dt_lim = torch.clamp(torch.minimum(torch.minimum(dt_cfl, dt_drt),
                                            torch.minimum(dt_chem, dt_other)),

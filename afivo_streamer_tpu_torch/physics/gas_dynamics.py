@@ -28,6 +28,7 @@ from ..core import ghostcell as gc
 from ..core import prolong_restrict as pr
 from ..core import rowops as ro
 from ..ops.limiters import limiter_apply, LIMITER_VANLEER
+from ..parallel.halo import all_reduce
 from .fluid import _lo_hi, consistent_fluxes, consistent_plan, gc2_extend, \
     gc2_plan
 
@@ -149,6 +150,8 @@ class GasDynamics:
 
         for lvl in range(1, t.highest_lvl + 1):
             plan = gc2_plan(self.mesh, lvl)
+            # the neighbors and coarse boxes of a sharded run's 2-ghost fill
+            self.mesh.halo(cc, (lvl - 1, lvl), ivs)
             n = len(plan.leaves)
             if n == 0:
                 continue
@@ -186,7 +189,11 @@ class GasDynamics:
                     ro.fc_set_faces(fc, f_iv, d, leaves, flux[:, m], nc, ndim)
             inv_max_cfl = torch.maximum(inv_max_cfl, cfl_sum.max())
 
+        self.mesh.halo(fc, range(2, t.highest_lvl + 1), self.gas_fluxes,
+                       fc=True)
         fc = consistent_fluxes(fc, consistent_plan(self.mesh), self.gas_fluxes)
+        # the CFL limit over every rank's leaves (a max: exact)
+        inv_max_cfl = all_reduce(inv_max_cfl, self.mesh.layout, "max")
 
         # conservative update with the cylindrical geometric source
         for lvl in range(1, t.highest_lvl + 1):

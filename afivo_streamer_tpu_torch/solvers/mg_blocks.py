@@ -14,6 +14,12 @@ mg_fas_vcycle :185-264, update_coarse :691-738, correct_children
 :741-777), including the edge and corner ghost fills of
 ``af_gc_box_corner`` (``m_af_ghostcell.f90:125-170``) as direct
 block-index updates.
+
+In a sharded run (parallel/halo.py) a level's arrays hold the rank's own
+boxes and its halo (``Multigrid.rows``). The halo rows are refreshed from
+their owners before every fill, before a restriction reads the children's
+residuals, after the coarse level of a restriction is filled and after
+each level of the upward pass; the level-1 solve runs on the whole level.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from ..core import ghostcell as gc
 from ..core import prolong_restrict as pr
 from ..core.rowops import as_value
 from ..ops import smoother as ks
+from ..parallel import halo
 
 
 class LevelBlockPlan:
@@ -37,15 +44,24 @@ class LevelBlockPlan:
     edge- and corner-fill tables, the transfer tables between the level's
     blocks and their parents' (children in the order [parent, parity],
     with the cylindrical restriction weights) and the parent mask of the
-    coarse level for the FAS rhs update."""
+    coarse level for the FAS rhs update.
 
-    def __init__(self, mesh, lvl: int):
+    The block arrays hold the state rows ``rows(lvl)`` (default: the
+    level's boxes; Multigrid.rows). In a sharded run the tables cover the
+    rank's own boxes: the restriction into its own parents, whose children
+    may be halo rows, and the prolongation into its own children
+    (``pro_*``), whose parents may be halo rows."""
+
+    def __init__(self, mesh, lvl: int, rows=None):
         tree, device = mesh.tree, mesh.device
         nc, ndim = tree.nc, tree.ndim
         self.lvl, self.nc, self.ndim = lvl, nc, ndim
-        tb_l = mesh.tb(lvl)
-        self.n = len(tb_l.ids)
-        pos_l = _posmap(tree, tb_l.ids)
+        if rows is None:
+            def rows(l):
+                return mesh.tb(l).ids
+        rows_l = rows(lvl)
+        self.n = len(rows_l)
+        pos_l = _posmap(tree, rows_l)
         plan = mesh.gc(lvl)
         S = (nc + 2) ** ndim
 
@@ -60,8 +76,9 @@ class LevelBlockPlan:
         self.n_c = 0
         if lvl > 1:
             tb_c = mesh.tb(lvl - 1)
-            self.n_c = len(tb_c.ids)
-            pos_c = _posmap(tree, tb_c.ids)
+            rows_c = rows(lvl - 1)
+            self.n_c = len(rows_c)
+            pos_c = _posmap(tree, rows_c)
             for d, p in enumerate(plan.dirs):
                 if len(p.rb_ids):
                     self.rb_cpos[d] = dev(pos_c[p.rb_coarse])
@@ -77,6 +94,7 @@ class LevelBlockPlan:
         # each child restricts into, and the linear prolongation stencil
         # of all parities at once
         self.parent_mask = None
+        self.pro_ch = None
         if lvl > 1:
             parents = np.asarray(tb_c.parents, np.int64)
             parities = list(itertools.product([0, 1], repeat=ndim))
@@ -102,6 +120,17 @@ class LevelBlockPlan:
             m = np.zeros(self.n_c, bool)
             m[pos_c[parents]] = True
             self.parent_mask = dev(m, torch.bool)
+            if mesh.layout is not None:
+                # the prolongation into the rank's own children: each
+                # child's parent row and the stencil of its parity
+                own = np.asarray(mesh.tb(lvl).ids, np.int64)
+                code = sum((tree.ix[own][:, k] % 2) << (ndim - 1 - k)
+                           for k in range(ndim))
+                self.pro_ch = dev(pos_l[own])
+                self.pro_par = dev(pos_c[tree.parent[own]])
+                self.pro_corners = [
+                    (w, dev(np.stack([t.corners[k][1] for t in tabs])[code]))
+                    for k, (w, _s) in enumerate(tabs[0].corners)]
 
 
 def _posmap(tree, ids) -> np.ndarray:
@@ -183,9 +212,19 @@ def prolong_add_correction(P_f, corr_c, bp: LevelBlockPlan, nc: int):
     """phi += prolong(phi_c - phi_old_c) (correct_children,
     ``m_af_multigrid.f90:624-646``) with the linear 2^ndim-point
     prolongation (af_prolong_linear); corr_c is the full coarse block
-    array incl. ghosts."""
+    array incl. ghosts. In a sharded run: into the rank's own children,
+    the same sums per cell."""
     ndim = bp.ndim
-    src = corr_c.reshape(corr_c.shape[0], -1)[bp.par]
+    if bp.pro_ch is not None:
+        src = corr_c.flatten(1)[bp.pro_par]
+        fine = 0.0
+        for w, sidx in bp.pro_corners:
+            fine = fine + float(w) * torch.gather(src, 1, sidx)
+        P_f = P_f.clone()
+        P_f[(bp.pro_ch,) + _interior(nc, ndim)[1:]] += fine.reshape(
+            (len(bp.pro_ch),) + (nc,) * ndim)
+        return P_f
+    src = corr_c.flatten(1)[bp.par]
     fine = 0.0
     for w, sidx in bp.p_corners:
         fine = fine + float(w) * src[:, sidx]
@@ -198,13 +237,21 @@ def prolong_add_correction(P_f, corr_c, bp: LevelBlockPlan, nc: int):
 # ---------------------------------------------------------------------------
 # the cycles
 # ---------------------------------------------------------------------------
+def _exchange(mg, lvl: int, X):
+    """A level's array with its halo rows from their owners (a sharded
+    run; X itself otherwise)."""
+    return halo.exchange_blocks(X, mg.mesh.layout, lvl)
+
+
 def gather_levels(mg, cc):
-    """(P, R) per level from cc: the only full-state reads of a solve."""
+    """(P, R) per level from cc: the only full-state reads of a solve (in a
+    sharded run after the halo rows of phi and rhs are refreshed)."""
     nc, ndim = mg.tree.nc, mg.tree.ndim
     block = (nc + 2,) * ndim
+    mg.mesh.halo(cc, range(1, mg.n_levels + 1), [mg.i_phi, mg.i_rhs])
     P, R = [], []
     for l in range(1, mg.n_levels + 1):
-        ids = mg.mesh.tb(l).d.ids
+        ids = mg.level_ids(l)
         P.append(cc[mg.i_phi, ids].reshape((len(ids),) + block))
         R.append(cc[mg.i_rhs, ids].reshape((len(ids),) + block)[
             _interior(nc, ndim)].contiguous())
@@ -217,11 +264,11 @@ def scatter_levels(mg, cc, P, R):
     nc, ndim = mg.tree.nc, mg.tree.ndim
     block = (nc + 2,) * ndim
     for l in range(1, mg.n_levels + 1):
-        ids = mg.mesh.tb(l).d.ids
-        cc[mg.i_phi, ids] = P[l - 1].reshape(len(ids), -1)
+        ids = mg.level_ids(l)
+        cc[mg.i_phi, ids] = P[l - 1].flatten(1)
         Rb = cc[mg.i_rhs, ids].reshape((len(ids),) + block)
         Rb[_interior(nc, ndim)] = R[l - 1]
-        cc[mg.i_rhs, ids] = Rb.reshape(len(ids), -1)
+        cc[mg.i_rhs, ids] = Rb.flatten(1)
     return cc
 
 
@@ -252,7 +299,7 @@ def build_A_blocks(mg, lvl: int, Pc, params, dtype):
                                          device=device))
             Ad.index_add_(0, sm.bc_pos[d], val)
         if d in sm.rb_dirs and Pc is not None:
-            flat = Pc.reshape(Pc.shape[0], -1)
+            flat = Pc.flatten(1)
             contrib = 0.5 * gc.mg_rb_interp(
                 flat[bp.rb_cpos[d][:, None], bp.rb_tmp[d]], ndim, nc)
             if sm.rb_extrap[d] is not None:
@@ -290,21 +337,24 @@ def smooth_blocks(mg, lvl: int, P_l, R_l, A_l, cs_l, n_cycle: int,
     sm = mg.smoother(lvl)
     masks = mg.parity_masks(2 * n_cycle)
     W = sm.W(P_l.dtype)
+    # a sharded run refreshes the halo rows before every fill, which reads
+    # the neighbors' interiors (K1, K3, K3-swap, K5)
     if sm.has_swap:
         for mask in masks:
             P_l = ks.sweep_2d(P_l, R_l, mask, sm.g, cs_l)
-            P_l = ks.fill_2d_swap(P_l, A_l, sm.g, W)
+            P_l = ks.fill_2d_swap(_exchange(mg, lvl, P_l), A_l, sm.g, W)
     elif sm.ndim == 2:
         P_l = ks.sweep_2d(P_l, R_l, masks[0], sm.g, cs_l)
         for mask in masks[1:]:
-            P_l = ks.fill_sweep_2d(P_l, R_l, mask, A_l, sm.g, W, cs_l)
-        P_l = ks.fill_2d(P_l, A_l, sm.g, W)
+            P_l = ks.fill_sweep_2d(_exchange(mg, lvl, P_l), R_l, mask, A_l,
+                                   sm.g, W, cs_l)
+        P_l = ks.fill_2d(_exchange(mg, lvl, P_l), A_l, sm.g, W)
     else:
         sweep, fill = ((ks.sweep_1d, ks.fill_1d) if sm.ndim == 1
                        else (ks.sweep_3d, ks.fill_3d))
         for mask in masks:
             P_l = sweep(P_l, R_l, mask, sm.g, cs_l)
-            P_l = fill(P_l, A_l, sm.g, W)
+            P_l = fill(_exchange(mg, lvl, P_l), A_l, sm.g, W)
     if up_cycle:
         P_l = corner_fill_blocks(P_l, mg.blocks(lvl), sm.nc)
     return P_l
@@ -317,7 +367,7 @@ def fill_blocks(mg, lvl: int, P_l, A_l):
     sm = mg.smoother(lvl)
     fill = (ks.fill_2d_swap if sm.has_swap
             else {1: ks.fill_1d, 2: ks.fill_2d, 3: ks.fill_3d}[sm.ndim])
-    P_l = fill(P_l, A_l, sm.g, sm.W(P_l.dtype))
+    P_l = fill(_exchange(mg, lvl, P_l), A_l, sm.g, sm.W(P_l.dtype))
     return corner_fill_blocks(P_l, mg.blocks(lvl), sm.nc)
 
 
@@ -335,8 +385,14 @@ def _restrict_level(mg, l, P, R, params):
     dtype = P[0].dtype
     res = rhs_with_boundary(mg, l, R[li], params) - apply_cs(
         P[li], mg.cs(l, dtype), nc)
+    # sharded: the halo children's residuals from their owners (their
+    # interiors are fresh since the last fill's exchange)
+    res = _exchange(mg, l, res)
     Pc, res_c = restrict_to_parent(P[li], res, P[li - 1], mg.blocks(l), nc)
     Pc = fill_blocks(mg, l - 1, Pc, _A(mg, l - 1, P, params, dtype))
+    # sharded: the halo rows with their owners' ghosts, for the coarse
+    # strips and the correction of the upward pass
+    Pc = _exchange(mg, l - 1, Pc)
     Lp = apply_cs(Pc, mg.cs(l - 1, dtype), nc)
     corr_c = mg.corr(l - 1, dtype)
     if corr_c is not None:
@@ -362,19 +418,33 @@ def fas_vcycle_blocks(mg, P, R, params, top: Optional[int] = None):
         _restrict_level(mg, l, P, R, params)
         tmp[li - 1] = P[li - 1]
     # coarse level
-    P[0] = mg.coarse_solver().solve_blocks(P[0], R[0], mg.i_phi, params)
-    P[0] = fill_blocks(mg, 1, P[0], _A(mg, 1, P, params, dtype))
-    # upward
+    P[0] = coarse_solve(mg, P[0], R[0], params)
+    P[0] = _exchange(mg, 1, fill_blocks(mg, 1, P[0],
+                                        _A(mg, 1, P, params, dtype)))
+    # upward; sharded, each level ends with its halo rows refreshed, as the
+    # next level's correction and coarse strips read them
     for l in range(2, L + 1):
         li = l - 1
         P[li] = prolong_add_correction(P[li], P[li - 1] - tmp[li - 1],
                                        mg.blocks(l), mg.tree.nc)
         A_l = _A(mg, l, P, params, dtype)
         P[li] = fill_blocks(mg, l, P[li], A_l)
-        P[li] = smooth_blocks(mg, l, P[li],
-                              rhs_with_boundary(mg, l, R[li], params), A_l,
-                              mg.cs(l, dtype), mg.n_cycle_up, True)
+        P[li] = _exchange(mg, l, smooth_blocks(
+            mg, l, P[li], rhs_with_boundary(mg, l, R[li], params), A_l,
+            mg.cs(l, dtype), mg.n_cycle_up, True))
     return P, R
+
+
+def coarse_solve(mg, P1, R1, params):
+    """The level-1 solve (solvers/coarse.py); in a sharded run on the whole
+    level gathered on every rank, of which each keeps its rows."""
+    layout = mg.mesh.layout
+    if layout is None:
+        return mg.coarse_solver().solve_blocks(P1, R1, mg.i_phi, params)
+    full = mg.coarse_solver().solve_blocks(
+        halo.gather_level(P1, layout, 1), halo.gather_level(R1, layout, 1),
+        mg.i_phi, params)
+    return halo.level_rows_of(full, layout, 1)
 
 
 def fas_fmg_blocks(mg, P, R, params):
@@ -414,4 +484,5 @@ def max_leaf_residual_blocks(mg, P, R, params=None):
         res = rhs_with_boundary(mg, l, R[l - 1], params) - apply_cs(
             P[l - 1], mg.cs(l, dtype), mg.tree.nc)
         m = torch.maximum(m, res[tb.d.leaves_pos].abs().max())
-    return m
+    # sharded: the rank's own leaves, the maximum over the ranks (exact)
+    return halo.all_reduce(m, mg.mesh.layout, "max")

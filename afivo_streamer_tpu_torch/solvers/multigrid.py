@@ -17,6 +17,7 @@ HYPRE bridge with an assembled direct solve (solvers/coarse.py).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
@@ -61,11 +62,12 @@ class LevelOp:
     operator with a boundary at potential phi_b is
     L(phi) - f bc_coeff phi_b. On those boxes c_sum is not -lambda."""
 
-    def __init__(self, tree, lvl: int, lam: float, eps=None, lsf_data=None):
+    def __init__(self, tree, lvl: int, lam: float, eps=None, lsf_data=None,
+                 ids=None):
         nc, ndim = tree.nc, tree.ndim
         dr = tree.lvl_dr(lvl)
         inv_dr2 = 1.0 / dr**2
-        ids = tree.lvl_ids[lvl - 1]
+        ids = tree.lvl_ids[lvl - 1] if ids is None else ids
         c_nb = [float(inv_dr2[d // 2]) for d in range(2 * ndim)]
         c0 = -2.0 * float(np.sum(inv_dr2)) - lam
         if tree.coord == "cyl":
@@ -135,7 +137,15 @@ class Multigrid:
     ``params["lsf_phi_b"]``.
     The per-level operator, smoother and transfer tables are cached with
     the mesh's plans and rebuilt for the levels a refinement epoch
-    changed."""
+    changed.
+
+    In a sharded run (parallel/halo.py) a level's arrays hold the rank's
+    rows of the level (``rows``: its own boxes, then its halo), the tables
+    cover its own boxes (a halo row's neighbor rows name itself), the
+    cycles exchange the halo rows between their steps
+    (solvers/mg_blocks.py), the level-1 solve runs on the whole level
+    gathered on every rank, and the leaf residual is the maximum over the
+    ranks, so that every rank takes the same stop decisions."""
 
     def __init__(self, mesh: MeshPlans, i_phi: int, i_rhs: int,
                  sides_bc: Callable, helmholtz_lambda: float = 0.0,
@@ -150,6 +160,20 @@ class Multigrid:
         self.eps_data = None
         self.lsf_data = None
 
+    def rows(self, lvl: int) -> np.ndarray:
+        """The state rows of a level's arrays: the level's boxes, or in a
+        sharded run the rank's own boxes of the level then its halo."""
+        layout = self.mesh.layout
+        if layout is None:
+            return np.asarray(self.mesh.tb(lvl).ids, np.int64)
+        return layout.lvl_rows[lvl - 1]
+
+    def level_ids(self, lvl: int) -> torch.Tensor:
+        """``rows(lvl)`` on the device."""
+        return self._get(("rows", lvl), lambda: torch.as_tensor(
+            self.rows(lvl), dtype=torch.int64, device=self.mesh.device),
+            (lvl,))
+
     def _get(self, key, make, lvls=None):
         return self.mesh.cached(("mg", self.i_phi) + key, make, lvls)
 
@@ -162,7 +186,7 @@ class Multigrid:
         return self._get(("op", lvl), lambda: LevelOp(
             self.tree, lvl, self.lam,
             None if self.eps_data is None else self.eps_data(lvl),
-            self.lsf_data), (lvl,))
+            self.lsf_data, ids=self.rows(lvl)), (lvl,))
 
     def rb_extrap(self, lvl: int):
         """{direction: bool per refinement-boundary entry} of the entries
@@ -173,8 +197,7 @@ class Multigrid:
         if op.veps is None:
             return None
         pos = np.full(int(self.tree.highest_id) + 1, -1, np.int64)
-        pos[np.asarray(self.mesh.tb(lvl).ids, np.int64)] = np.arange(
-            len(op.veps))
+        pos[self.rows(lvl)] = np.arange(len(op.veps))
         out = {}
         for d, p in enumerate(self.mesh.gc(lvl).dirs):
             m = op.veps[pos[p.rb_ids]] if len(p.rb_ids) else None
@@ -184,13 +207,15 @@ class Multigrid:
 
     def smoother(self, lvl: int) -> SmootherTables:
         return self._get(("sm", lvl), lambda: SmootherTables(
-            self.tree, lvl, self.mesh.gc(lvl), self.mesh.tb(lvl),
+            self.tree, lvl, self.mesh.gc(lvl),
+            SimpleNamespace(ids=self.rows(lvl)),
             self.sides_bc, self.i_phi, self.mesh.device,
             self.rb_extrap(lvl)), (lvl,))
 
     def blocks(self, lvl: int) -> mgb.LevelBlockPlan:
         return self._get(("blk", lvl),
-                         lambda: mgb.LevelBlockPlan(self.mesh, lvl),
+                         lambda: mgb.LevelBlockPlan(self.mesh, lvl,
+                                                    self.rows),
                          (lvl - 1, lvl))
 
     def cs(self, lvl: int, dtype) -> torch.Tensor:
@@ -218,7 +243,7 @@ class Multigrid:
         must use the per-cell level-1 operator."""
         per_cell = self.eps_data is not None or self.lsf_data is not None
         return self._get(("coarse",), lambda: make_coarse_solver(
-            self.tree, self.sides_bc, self.lam, self.mesh.device,
+            self.mesh.full.tree, self.sides_bc, self.lam, self.mesh.device,
             level1_op=self.op(1) if per_cell else None), ())
 
     # --------------------------------------------------------- cycles
@@ -285,5 +310,5 @@ class Multigrid:
             acc = acc + (F[(slice(None),) + lo] + F[(slice(None),) + hi]) ** 2
         B = cc[i_norm, ids].reshape((len(ids),) + (nc + 2,) * ndim)
         B[(slice(None),) + (slice(1, nc + 1),) * ndim] = 0.5 * torch.sqrt(acc)
-        cc[i_norm, ids] = B.reshape(len(ids), -1)
+        cc[i_norm, ids] = B.flatten(1)
         return cc

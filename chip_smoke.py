@@ -25,7 +25,7 @@ failure exits non-zero):
    mesh at every refinement epoch, the densities, phi and the surface
    charge, and K3-swap launched; 3d, 3e. the cylindrical and the 3D slice
    with live refinement and Helmholtz photoionization (16,960 cells on 6
-   levels for 4 steps; 219,136 cells on 4 levels for 6 steps;
+   levels for 4 steps; 219,136 cells on 4 levels for 4 steps;
    photoionization every 2 steps): the same mesh at every epoch, one of
    which removes boxes, the same FMG cycle count of every Helmholtz mode
    at every update, and every variable;
@@ -59,7 +59,7 @@ failure exits non-zero):
    local field approximation and under the electron energy equation (ee53,
    new-style table) for 16 steps, and the cylindrical slice under ee53
    (air_cyl_ee_slice.cfg, live refinement and photoionization every 2
-   steps) for 6 steps: the same mesh at every epoch, the same FMG cycles,
+   steps) for 4 steps: the same mesh at every epoch, the same FMG cycles,
    every variable; 3i. the physics of the energy equation on the card: the
    1D slice without a seed in its uniform field to 0.3 ns, where the mean
    energy in mid-domain must relax to the table's value at the local
@@ -160,7 +160,7 @@ failure exits non-zero):
    memory; fails if a writer wrote nothing. It runs just before phase 7.
 3u. Monte-Carlo photoionization (photoi%method = montecarlo, physical
    photons off, 20,000 photons every 2 steps) on the card and on the CPU:
-   air_cyl_amr_slice.cfg for 6 steps, air_3d_amr_slice.cfg for 4 and
+   air_cyl_amr_slice.cfg for 4 steps, air_3d_amr_slice.cfg for 4 and
    dielectric_cyl_slice.cfg with both photoemission coefficients 0.1 for 6
    (photons absorbed on the surfaces): as 3m-3p, with the surfaces' photon
    fluxes among the surface data; the photons come from one NumPy stream
@@ -187,9 +187,28 @@ failure exits non-zero):
    card (seconds, bytes, the state restored exactly). It runs after phase
    15; after phase 7 a line sets its ms per update beside phase 7's
    Helmholtz updates.
-Phases 9 to 15 and 17 run after phase 3w and before phase 4: after the
+3x. the sharded run (parallel/, -compiled%enabled=T -compiled%shards=N)
+   with its ranks sharing the card over gloo: air_cyl_amr_slice.cfg at
+   the committed size (16,960 cells) with a field that rises over 0.3 ps,
+   so that an epoch adds boxes, over 2 and over 4 ranks for 8 steps, and
+   air_3d_amr_slice.cfg (219,136 cells) over 2 ranks for 2 steps, the
+   three started together, each against the unsharded card run: the same
+   mesh at every epoch, dt at every attempted step, (FMG, V-cycle) counts
+   and FMG cycles per mode, every variable within 1e-12 of its scale (and
+   whether bit for bit), the regression logs at rtol 1e-8, atol 1e-10,
+   K1-K3 (K4-K5) launched on every rank, each rank's rows, cells and
+   exchanges; the 2-rank run's ranks also probe which gloo collectives take
+   CUDA tensors (the port passes them to every collective);
+18. the sharded main path at full size: phase 7's configuration and flags
+   over 2 ranks sharing the card, 6 steps: ms per step against phase 7's,
+   each rank's leaf cells, rows, K1-K3 launches per step, halo exchanges
+   and level gathers per step (calls, bytes, host ms), peak device memory
+   and the device busy share of two more steps. It runs last.
+Phases 9 to 15 and 17 run after phase 3x and before phase 4: after the
 long profiler traces of phases 6 to 8 the host has been seen to run slower
-for the rest of the process.
+for the rest of the process. Phases 3e, 3h and the cylindrical run of 3u
+take 4 steps, and phase 3x's sharded runs start before phase 3r and end
+after phase 3w, so that the script stays well within its time.
 
 The launch counts are set to 0 just before each full-size run and read
 just after it. The line before the last is a JSON object with one entry
@@ -197,7 +216,8 @@ per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
 ``launches_by_phase`` holds every full-size run's, those of phases 9 and
-11 to 17 among them);
+11 to 18 among them, and phase 3x's; a sharded phase's count is summed
+over its runs and ranks);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -228,7 +248,7 @@ EE_CFG = DATA / "air_cyl_ee_slice.cfg"
 VARIANTS_SMALL = [
     ("3f", ONED_CFG, 1, TABLE, [], 16),
     ("3g", ONED_CFG, 1, TABLE_NEW, EE_FLAGS, 16),
-    ("3h", EE_CFG, 2, TABLE_NEW, ["-photoi%per_steps=2"], 6)]
+    ("3h", EE_CFG, 2, TABLE_NEW, ["-photoi%per_steps=2"], 4)]
 #: the electrode slices; cuda-vs-cpu runs (phases 3j-3l) in the form of
 #: VARIANTS_SMALL, and at the card's size (phases 11, 12): config, ndim,
 #: flags, steps, least leaf cells
@@ -297,7 +317,7 @@ GAS_FULL_STEPS = 6
 MC_FLAGS = ["-photoi%method=montecarlo", "-photoi_mc%physical_photons=f"]
 MC_SMALL = [
     ("3u", DATA / "air_cyl_amr_slice.cfg", 2, TABLE,
-     MC_FLAGS + ["-photoi_mc%num_photons=20000", "-photoi%per_steps=2"], 6,
+     MC_FLAGS + ["-photoi_mc%num_photons=20000", "-photoi%per_steps=2"], 4,
      ("fill_sweep_2d", "sweep_2d", "fill_2d")),
     ("3u", DATA / "air_3d_amr_slice.cfg", 3, TABLE,
      MC_FLAGS + ["-photoi_mc%num_photons=20000", "-photoi%per_steps=2"], 4,
@@ -364,7 +384,7 @@ DIELECTRIC_FULL = (["-refine_max_dx=3.2e-5",
 #: every 2 steps there), and at the card's size (phases 7, 8) the
 #: overrides, the steps and the least leaf cells (the frozen slice's)
 AMR_CFG = {2: DATA / "air_cyl_amr_slice.cfg", 3: DATA / "air_3d_amr_slice.cfg"}
-AMR_SMALL_STEPS = {2: 4, 3: 6}
+AMR_SMALL_STEPS = {2: 4, 3: 4}
 AMR_FULL = {2: (["-refine_max_dx=3.2e-5", "-refine_min_dx=4e-6",
                  "-refine_regions_dr=7.8125e-6"], 6, 512 ** 2),
             3: (["-refine_max_dx=1.25e-4", "-refine_min_dx=3.125e-5",
@@ -1407,7 +1427,9 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
                       for k in names},
             updates=[u["cycles"] for u in updates],
             update_ms=[1e3 * u["s"] for u in updates],
-            epochs=[e["ids"] for e in epochs])
+            epochs=[e["ids"] for e in epochs],
+            epochs_n=[boxes0] + [[len(x) for x in e["ids"]]
+                                 for e in epochs])
     n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     per_lvl = [len(x) for x in t.lvl_ids]
     changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
@@ -2519,6 +2541,245 @@ def busy_share(torch, sim, ms_per_step):
             f"{dev_ms * 2e-3 / wall:.3f} of the profiled wall time)")
 
 
+#: phase 3x: the main path sharded over ranks that share the card
+#: (gloo), against the unsharded run on the card: (config, ndim, flags,
+#: steps, rank counts); the field rises over 0.3 ps so that an epoch of
+#: the 2D run adds boxes
+SHARDED_SMALL = [
+    (AMR_CFG[2], 2, ["-photoi%per_steps=2", "-field_rise_time=3e-13",
+                     "-output%dt=1e-13"], 8, (2, 4)),
+    (AMR_CFG[3], 3, ["-photoi%per_steps=2", "-output%dt=1e-13"], 2, (2,))]
+#: phase 18: phase 7's configuration and flags over 2 ranks on the card
+SHARDED_FULL = (2, 6)
+
+
+def shard_flags(n):
+    return ["-compiled%enabled=T", f"-compiled%shards={n}"] if n > 1 else []
+
+
+def _probe_gloo_cuda():
+    """On every rank of a gloo group whose ranks share the card: which
+    collectives take CUDA tensors ("ok" or the error's first line)."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    x = torch.ones(4, device=dev) * (dist.get_rank() + 1)
+    n = dist.get_world_size()
+    out = {}
+    for name, fn in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("all_gather", lambda: dist.all_gather(
+                [torch.empty_like(x) for _ in range(n)], x)),
+            ("all_to_all_single", lambda: dist.all_to_all_single(
+                torch.empty(4 * n // n, device=dev), x[:4 * n // n])),
+            ("gather", lambda: dist.gather(
+                x, [torch.empty_like(x) for _ in range(n)]
+                if dist.get_rank() == 0 else None, dst=0)),
+            ("broadcast", lambda: dist.broadcast(x.clone(), 0))):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # the answer is the probe's result
+            out[name] = str(e).splitlines()[0][:120] if str(e) else repr(e)
+        dist.barrier()
+    return out
+
+
+def _busy_of_rank(sim, seconds):
+    """The device busy share of two more steps on this rank against the
+    ms per step of the run (every rank runs them: they hold
+    collectives)."""
+    import torch
+    return busy_share(torch, sim, 1e3 * seconds / SHARDED_FULL[1])
+
+
+def compare_sharded(torch, phase, u, s, steps, ndim, prefixes):
+    """Hold a sharded run's record (parallel/compiled.record_run) against
+    the unsharded one's: the same mesh at every epoch, dts, (FMG, V-cycle)
+    counts and FMG cycles per Helmholtz mode; every variable within 1e-12
+    of its scale; the regression logs at rtol 1e-8, atol 1e-10; the path's
+    kernels launched on every rank. Returns (worst scaled deviation,
+    bitwise equal)."""
+    import numpy as np
+    if len(u["epochs"]) != len(s["epochs"]) or any(
+            len(a) != len(b) or any(not np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+            for a, b in zip(u["epochs"], s["epochs"])):
+        raise RuntimeError(f"phase {phase}: the meshes differ")
+    if u["changes"] != s["changes"] or u["solves"] != s["solves"] \
+            or u["photoi"] != s["photoi"]:
+        raise RuntimeError(f"phase {phase}: epochs or cycle counts differ")
+    if len(u["dts"]) != len(s["dts"]) or any(
+            abs(a / b - 1) > 1e-12 for a, b in zip(u["dts"], s["dts"])):
+        raise RuntimeError(f"phase {phase}: dt differs")
+    if not np.array_equal(u["ids"], s["ids"]) or u["it"] != s["it"]:
+        raise RuntimeError(f"phase {phase}: boxes or steps differ")
+    worst, bitwise = 0.0, True
+    for key in ("cc", "fc"):
+        for iv in range(len(u[key])):
+            a, b = u[key][iv], s[key][iv]
+            scale = float(np.abs(a).max())
+            err = float(np.abs(a - b).max())
+            worst = max(worst, err / scale if scale > 0 else err)
+            bitwise &= bool(np.array_equal(a, b))
+    if worst > 1e-12:
+        raise RuntimeError(f"phase {phase}: state deviates by {worst}")
+    ru, rs = (np.loadtxt(f"{p}_rtest.log", skiprows=1, ndmin=2)
+              for p in prefixes)
+    if ru.shape != rs.shape or not np.allclose(rs, ru, rtol=1e-8,
+                                               atol=1e-10):
+        raise RuntimeError(f"phase {phase}: the regression logs differ")
+    for r, rank in enumerate(s["ranks"]):
+        if not all(rank["launches"][k] > 0 for k in PATH_KERNELS[ndim]):
+            raise RuntimeError(f"phase {phase}: rank {r} launched "
+                               f"{rank['launches']}")
+    if not steps or not np.isfinite(s["cc"]).all():
+        raise RuntimeError(f"phase {phase}: non-finite state")
+    return worst, bitwise
+
+
+def _probe_after(_sim, _seconds):
+    return _probe_gloo_cuda()
+
+
+def start_sharded(out_dir):
+    """Phase 3x, first half: start the main path sharded over 2 and 4
+    ranks that share the card (gloo), and the 3D one over 2, all together,
+    in threads that spawn their ranks; the 2-rank run's ranks then probe
+    which gloo collectives take CUDA tensors. Returns what
+    ``phase_sharded`` joins."""
+    import threading
+    from afivo_streamer_tpu_torch.parallel import compiled
+    runs, errors = {}, []
+
+    def sharded(key, argv, n, steps, after):
+        t0 = time.perf_counter()
+        try:
+            runs[key] = (compiled.run_ranks(compiled.record_run, n,
+                                            (argv, steps, after)),
+                         time.perf_counter() - t0)
+        except Exception as e:  # re-raised below, after every run ended
+            errors.append((key, e))
+    threads = []
+    for cfg, ndim, extra, steps, rank_counts in SHARDED_SMALL:
+        for n in rank_counts:
+            after = _probe_after if (ndim, n) == (2, 2) else None
+            argv = (amr_argv(out_dir / f"p3x_{ndim}d_{n}", ndim, "cuda",
+                             extra, cfg) + shard_flags(n))
+            threads.append(threading.Thread(
+                target=sharded, args=((ndim, n), argv, n, steps, after)))
+    for th in threads:
+        th.start()
+    return threads, runs, errors
+
+
+def phase_sharded(torch, out_dir, started):
+    """Phase 3x, second half: the unsharded card runs, then the sharded
+    runs ``start_sharded`` started, joined and held against them. Returns
+    the launches of every kernel summed over the sharded runs and ranks."""
+    from afivo_streamer_tpu_torch.parallel import compiled
+    threads, runs, errors = started
+    try:
+        ref = {ndim: compiled.record_run(
+            amr_argv(out_dir / f"p3x_{ndim}d_1", ndim, "cuda", extra, cfg),
+            steps) for cfg, ndim, extra, steps, _n in SHARDED_SMALL}
+    finally:
+        for th in threads:
+            th.join()
+    if errors:
+        raise RuntimeError(f"phase 3x: sharded runs failed: {errors}")
+    probe = runs[(2, 2)][0]["ranks"][0]["after"]
+    log(f"phase 3x: gloo with CUDA tensors, 2 ranks on one card: {probe}")
+    if any(v != "ok" for v in probe.values()):
+        raise RuntimeError("phase 3x: a gloo collective refuses CUDA "
+                           "tensors, which parallel/compiled.Shards passes")
+    total = {}
+    for cfg, ndim, extra, steps, rank_counts in SHARDED_SMALL:
+        u = ref[ndim]
+        for n in rank_counts:
+            s, wall = runs[(ndim, n)]
+            worst, bitwise = compare_sharded(
+                torch, "3x", u, s, steps, ndim,
+                (out_dir / f"p3x_{ndim}d_1", out_dir / f"p3x_{ndim}d_{n}"))
+            adds = [c for c in s["changes"] if c[0] or c[1]]
+            if ndim == 2 and not any(a for a, _r in adds):
+                raise RuntimeError("phase 3x: no epoch added boxes")
+            for rank in s["ranks"]:
+                for k, v in rank["launches"].items():
+                    total[k] = total.get(k, 0) + v
+            log(f"phase 3x: {cfg.name} {' '.join(extra)} over {n} ranks "
+                f"sharing the card (gloo) against the unsharded card run, "
+                f"{steps} steps, {s['n_leaf_cells']} leaf cells at the end: "
+                f"the same mesh at {len(s['epochs'])} meshes (epochs that "
+                f"changed it, boxes added/removed: {adds}), the same dt at "
+                f"{len(s['dts'])} attempted steps, (FMG, V-cycle) counts at "
+                f"{len(s['solves'])} field solves and FMG cycles per mode at "
+                f"{len(s['photoi'])} updates; state worst scaled deviation "
+                f"{worst:.3e} (limit 1e-12), bitwise equal: {bitwise}; "
+                f"regression logs within rtol 1e-8; per rank: leaf cells "
+                f"{s['leaf_cells']}, rows (own + halo) "
+                f"{[(r['own'], r['halo']) for r in s['ranks']]} against "
+                f"{u['ranks'][0]['rows']} unsharded, launches "
+                f"{[{k: v for k, v in r['launches'].items() if v} for r in s['ranks']]}, "
+                f"halo exchanges (calls, bytes) "
+                f"{[(r['exchange']['calls'], r['exchange']['bytes']) for r in s['ranks']]}; "
+                f"{wall:.1f} s with the ranks' start (the three sharded runs "
+                f"started together, beside phases 3r-3w)")
+    return total
+
+
+def phase_sharded_full(torch, out_dir, main_path):
+    """Phase 18: phase 7's configuration and flags over 2 ranks sharing the
+    card (gloo), 6 steps: ms per step against phase 7's, each rank's leaf
+    cells, K1-K3 launches per step, halo exchanges and level gathers per
+    step (bytes, host ms), peak device memory and the device busy share of
+    two more steps; returns the launches summed over the ranks."""
+    from afivo_streamer_tpu_torch.parallel import compiled
+    n, steps = SHARDED_FULL
+    extra = AMR_FULL[2][0]
+    free_earlier_runs(torch)
+    t0 = time.perf_counter()
+    s = compiled.run_ranks(compiled.record_run, n, (
+        amr_argv(out_dir / "p18", 2, "cuda", extra) + shard_flags(n), steps,
+        _busy_of_rank))
+    wall = time.perf_counter() - t0
+    ranks = s["ranks"]
+    names = PATH_KERNELS[2]
+    ms_step = 1e3 * ranks[0]["seconds"] / steps
+    for r, rank in enumerate(ranks):
+        st = rank["exchange"]
+        log(f"phase 18: rank {r}: {rank['leaf_cells_own']} leaf cells at the "
+            f"end, rows own + halo {rank['own']} + {rank['halo']}; K1-K3 "
+            f"launches per step "
+            f"{ {k: round(rank['launches'][k] / steps, 2) for k in names} }; "
+            f"halo exchanges per step {st['calls'] / steps:.1f} calls, "
+            f"{st['bytes'] / steps:.0f} bytes, "
+            f"{1e3 * st['seconds'] / steps:.2f} host ms; level and root "
+            f"gathers per step {st['gather_calls'] / steps:.1f} calls, "
+            f"{st['gather_bytes'] / steps:.0f} bytes, "
+            f"{1e3 * st['gather_seconds'] / steps:.2f} host ms; peak device "
+            f"memory {rank['peak_bytes'] / 1e9:.3f} GB; device busy share "
+            f"of two more steps {rank.get('after', 'not measured')}")
+        if not all(rank["launches"][k] > 0 for k in names):
+            raise RuntimeError(f"phase 18: rank {r} launched "
+                               f"{rank['launches']}")
+    log(f"phase 18: {s['n_leaf_cells']} leaf cells at the end over {n} ranks "
+        f"({s['leaf_cells']}), {steps} steps {ms_step:.2f} ms/step on rank 0 "
+        f"against phase 7's {main_path['ms_step']:.2f} ms/step unsharded "
+        f"({ms_step / main_path['ms_step']:.3f} times); the same meshes as "
+        f"phase 7: {[[len(x) for x in m] for m in s['epochs']] == main_path['epochs_n']}; "
+        f"{wall:.1f} s with the ranks' start and setup")
+    import numpy as np
+    if not np.isfinite(s["cc"]).all() or not np.isfinite(s["fc"]).all():
+        raise RuntimeError("phase 18: non-finite state")
+    total = {}
+    for rank in ranks:
+        for k, v in rank["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim, smi):
     """Phase 4 (2D) and 5 (3D): a full-size slice on the card; returns the
     launch counts of that run's kernels."""
@@ -2633,6 +2894,7 @@ def main():
         phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
                               cfg, table, extra, steps, must)
     phase_imex(torch, ks)
+    started = start_sharded(out_dir)
     for phase, cfg, ndim, table, extra, steps in GAS_SMALL:
         phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
                               cfg, table, extra, steps, PATH_KERNELS[2])
@@ -2642,6 +2904,7 @@ def main():
                               cfg, table, extra, steps, must)
     phase_restart(torch, Simulation, out_dir)
     phase_writers_cpu_vs_cuda(torch, Simulation, out_dir)
+    sharded = phase_sharded(torch, out_dir, started)
     # phases 9 to 15 run before the long profiler traces of phases 6 to 8,
     # after which the host has been seen to run slower for the rest of the
     # process
@@ -2668,6 +2931,8 @@ def main():
             torch, ks, Simulation, mgb, out_dir, ndim, smi,
             record=main_path if ndim == 2 else None)
     writers_against_main_path(writers, main_path)
+    by_phase["3x"] = sharded
+    by_phase["18"] = phase_sharded_full(torch, out_dir, main_path)
     log(f"phase 17: ms per Monte-Carlo update "
         f"{[round(v, 1) for v in mc_update_ms]} against phase 7's ms per "
         f"Helmholtz update {[round(v, 1) for v in main_path['update_ms']]}")

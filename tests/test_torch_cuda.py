@@ -684,3 +684,33 @@ def test_restart_on_the_card_from_a_cpu_checkpoint(cuda, tmp_path):
         ref = a.cc[iv, :n]
         torch.testing.assert_close(b.cc[iv, :n].cpu(), ref, rtol=1e-9,
                                    atol=1e-9 * float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_the_card_match_the_unsharded_run(cuda, tmp_path):
+    """The cylindrical slice with live refinement and photoionization over
+    two gloo ranks that share the card (-compiled%shards=2), 8 steps: the
+    unsharded card run's meshes, dts and cycle counts, every variable
+    within 1e-12 of its scale, and K1-K3 launched on each rank."""
+    import numpy as np
+    from afivo_streamer_tpu_torch.parallel import compiled
+    base = [str(DATA / "air_cyl_amr_slice.cfg"), "-ndim=2",
+            "-photoi%per_steps=2", "-field_rise_time=3e-13",
+            "-output%dt=1e-13", "-device=cuda"]
+    u = compiled.record_run(base + [f"-output%name={tmp_path}/u"], 8)
+    s = compiled.run_ranks(compiled.record_run, 2, (
+        base + [f"-output%name={tmp_path}/s", "-compiled%enabled=T",
+                "-compiled%shards=2"], 8))
+    assert len(s["epochs"]) == len(u["epochs"])
+    for a, b in zip(u["epochs"], s["epochs"]):
+        assert [list(x) for x in a] == [list(x) for x in b]
+    assert s["changes"] == u["changes"] and any(c[0] for c in u["changes"])
+    assert s["dts"] == pytest.approx(u["dts"], rel=1e-12)
+    assert s["solves"] == u["solves"] and s["photoi"] == u["photoi"]
+    for key in ("cc", "fc"):
+        for a, b in zip(u[key], s[key]):
+            scale = max(float(np.abs(a).max()), 1e-300)
+            np.testing.assert_allclose(b, a, rtol=0.0, atol=1e-12 * scale)
+    for rank in s["ranks"]:
+        for k in ("fill_sweep_2d", "sweep_2d", "fill_2d"):
+            assert rank["launches"][k] > 0

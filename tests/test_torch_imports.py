@@ -1,13 +1,14 @@
 """The port stands alone: importing any module of afivo_streamer_tpu_torch
 loads no JAX and nothing of afivo_streamer_tpu; -device=cuda without a
 card raises; configurations that ask for unported modules (the compiled
-engine, a per-cell coarse grid above 32,768 unknowns) raise
+engine's float32 state, a per-cell coarse grid above 32,768 unknowns) raise
 NotImplementedError naming the module, those the port once refused
 (Monte-Carlo photoionization, the VTK and npz writers, a restart, the
 lineout) run, and those for the modules that are
 ported (one dimension, the electron energy equation, new-style tables, the
 source factor, the plasma region, electrodes, dielectrics, gas dynamics,
-a user gas density and the other user hooks) build a simulation. The same holds for
+a user gas density, the other user hooks and the compiled engine's
+ordinary path) build a simulation. The same holds for
 chip_smoke.py and the scripts beside the data files."""
 
 import ast
@@ -109,7 +110,8 @@ def test_device_cuda_without_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra, module", [
-    (["-compiled%enabled=t"], "parallel/compiled.py"),
+    (["-compiled%enabled=t", "-compiled%dtype=float32"],
+     "parallel/compiled.py"),
     (["-use_dielectric=t", "-coarse_grid_size=256 256",
       "-dielectric_type=bottom", "-cylindrical=f", "-user%module="
       f"{DATA.parent / 'programs' / 'dielectric_2d.py'}"], "per-cell"),
@@ -236,13 +238,14 @@ HOOK_MODULES = {
     ("air_cyl_slice.cfg", GAS_DENSITY + REACTIONS),
     ("air_cyl_slice.cfg", ["-user%module=GENERIC_HOOK"]),
     ("air_cyl_slice.cfg", ["-user%module=POTENTIAL_BC_HOOK"]),
+    ("air_cyl_slice.cfg", ["-compiled%enabled=t"]),
 ] + [("air_cyl_slice.cfg", ELECTRODE + [f"-field_electrode_type={kind}"])
      for kind in ELECTRODE_TYPES],
     ids=["1d", "1d-ee53", "cyl-ee-alias", "new-style-table", "source-factor",
          "plasma-region", "electrode-dx-without-electrode", "dielectric-1d",
          "dielectric-3d", "coarse-grid-65536", "gas-dynamics",
          "gas-dynamics-slow-heating", "gas-density-user", "generic-hook",
-         "potential-bc-hook"]
+         "potential-bc-hook", "compiled-enabled"]
     + [f"electrode-{kind}" for kind in ELECTRODE_TYPES])
 def test_ported_configuration_builds(tmp_path, cfg, extra):
     for key, hook in HOOK_MODULES.items():
