@@ -13,9 +13,12 @@ In a sharded run (parallel/halo.py) a rank's MeshPlans is built over its
 rows, a level's fingerprint also covers the partition, the restriction
 plans cover the children of the rank's own parents, and the ghost-cell,
 restriction and prolongation plans exchange the halo rows they read
-(``halo``). ``full`` is the MeshPlans of the whole tree (the level-1
-solve, the writers on rank 0, where a reduction's leaf lies); an unsharded
-MeshPlans is its own ``full``.
+(``halo``). The numerical code reaches the exchanges and collectives
+through this class alone (``halo``, ``halo_blocks``, ``reduce``,
+``extremum``, ``map_boxes``, ``whole_level``), each the identity or the
+plain answer when unsharded. ``full`` is the MeshPlans of the whole tree
+(the level-1 solve, the writers on rank 0, where a reduction's leaf
+lies); an unsharded MeshPlans is its own ``full``.
 """
 
 from __future__ import annotations
@@ -49,11 +52,6 @@ class LevelTables:
                                    np.int32)
         self.parents_pos = np.array([pos[int(b)] for b in self.parents],
                                     np.int32)
-        # each leaf's position in the tree's leaf list of the level (the
-        # order of the reductions; the rank's leaves of a sharded run)
-        gpos = getattr(tree, "lvl_leaves_gpos", None)
-        self.leaves_gpos = (np.arange(len(self.leaves)) if gpos is None
-                            else np.asarray(gpos[lvl - 1], np.int64))
         dr = tree.lvl_dr(lvl)
         n = len(self.leaves)
         if tree.coord == "cyl":
@@ -83,10 +81,9 @@ def level_fingerprint(tree: Tree, lvl: int) -> bytes:
     ids = np.asarray(tree.lvl_ids[lvl - 1], np.int64)
     par = tree.parent[ids]
     h = hashlib.blake2b(digest_size=16)
-    layout = getattr(tree, "layout", None)
-    if layout is not None:
+    if tree.layout is not None:
         # a sharded run's rows: every local row and its box
-        h.update(np.ascontiguousarray(layout.glob).tobytes())
+        h.update(np.ascontiguousarray(tree.layout.glob).tobytes())
     for a in (ids, tree.ix[ids], tree.neighbors[ids],
               tree.children[ids, 0] >= 0, par,
               tree.neighbors[par] if lvl > 1 else par):
@@ -150,21 +147,77 @@ class MeshPlans:
     def n_levels(self) -> int:
         return self.tree.highest_lvl
 
+    # ------------------------------------------------ the sharded run
+    # Each of these is the identity, or the plain answer, when unsharded.
     @property
     def layout(self):
         """The partition of a sharded run (parallel/halo.Layout), None
         when unsharded."""
-        return getattr(self.tree, "layout", None)
+        return self.tree.layout
+
+    @property
+    def n_own(self) -> int:
+        """State rows of the rank's own boxes, which come first (every row
+        when unsharded)."""
+        return (self.tree.highest_id if self.layout is None
+                else self.layout.n_own)
+
+    def parents_held(self, lvl: int):
+        """The parents of level ``lvl`` among the state's rows (a sharded
+        run's own and halo rows)."""
+        return (self.tree.lvl_parents[lvl - 1] if self.layout is None
+                else self.layout.lvl_parents_held[lvl - 1])
+
+    def level_rows(self, lvl: int) -> np.ndarray:
+        """The state rows of a level's multigrid arrays: the level's boxes,
+        or the rank's own boxes of the level then its halo."""
+        return (np.asarray(self.tb(lvl).ids, np.int64) if self.layout is None
+                else self.layout.lvl_rows[lvl - 1])
 
     def halo(self, x, levels, ivs=None, fc: bool = False):
         """Refresh the halo rows of ``levels`` of ``x`` (cc, or fc with
-        ``fc``) from their owners (parallel/halo.exchange); nothing when
-        unsharded."""
-        layout = self.layout
-        if layout is not None:
-            from ..parallel.halo import exchange
-            exchange(x, layout, levels, ivs, fc)
+        ``fc``) from their owners (parallel/halo.Layout.exchange)."""
+        if self.layout is not None:
+            self.layout.exchange(x, levels, ivs, fc)
         return x
+
+    def halo_blocks(self, X, lvl: int):
+        """A level's multigrid array (rows ``level_rows``) with its halo
+        rows from their owners."""
+        return X if self.layout is None else self.layout.exchange_blocks(
+            X, lvl)
+
+    def reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``t`` reduced over the ranks (op "max", "min" or "sum"). A max
+        or a min is exact in any order; a sum adds the ranks' partial
+        sums."""
+        return t if self.layout is None else self.layout.shards.all_reduce(
+            t, op)
+
+    def extremum(self, found, largest: bool):
+        """The rank's best leaf ``[value, level, row among the level's
+        leaves, index]`` (or []) reduced over the ranks, with the row as
+        the position in the tree's leaf list; None without one."""
+        if self.layout is None:
+            return found or None
+        return self.layout.extremum(found, largest)
+
+    def map_boxes(self, ids, fn) -> np.ndarray:
+        """``fn(rows, sel)`` -> NumPy values per box on the tree's boxes
+        ``ids`` (their state rows and a selector of them in ``ids``); in a
+        sharded run on the rank's own boxes among them, gathered on every
+        rank in the order of ``ids``."""
+        if self.layout is None:
+            return fn(np.asarray(ids, np.int64), slice(None))
+        return self.layout.map_boxes(ids, fn)
+
+    def whole_level(self, lvl: int, fn, *arrays):
+        """``fn(*arrays)`` on a level's multigrid arrays; in a sharded run
+        on the whole level gathered on every rank, of whose result the
+        rank keeps its rows."""
+        if self.layout is None:
+            return fn(*arrays)
+        return self.layout.whole_level(lvl, fn, *arrays)
 
     def _hooked(self, plan):
         plan.halo = self.halo if self.layout is not None else None
@@ -198,10 +251,8 @@ class MeshPlans:
         of the tree; sharded: the rank's own among them, in local
         rows)."""
         ids = np.asarray(ids, np.int64)
-        layout = self.layout
-        if layout is not None:
-            ids = ids[layout.shards.owner(ids, layout.cap) == layout.rank]
-            ids = layout.row_of[ids]
+        if self.layout is not None:
+            ids = self.layout.own_rows(ids)[1]
         return self._hooked(ProlongRestrictPlan(self.tree, ids, self.device,
                                                 lvl))
 

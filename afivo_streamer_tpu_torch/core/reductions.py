@@ -21,7 +21,6 @@ import numpy as np
 
 import torch
 
-from ..parallel.halo import all_extremum, all_reduce
 from .levels import MeshPlans
 from .rowops import cc_get_interior, fc_get_faces
 
@@ -31,27 +30,22 @@ def tree_sum_cc(cc, mesh: MeshPlans, iv: int, power: int = 1) -> float:
     level on the device, added up on the host in level order."""
     tree = mesh.tree
     nc, ndim = tree.nc, tree.ndim
-    layout = mesh.layout
-    lvls, sums = [], []
+    sums = []
     for lvl in range(1, tree.highest_lvl + 1):
         tb = mesh.tb(lvl)
-        if len(tb.leaves) == 0:
-            if layout is not None:  # every rank sums every level
-                lvls.append(lvl)
-                sums.append(cc.new_zeros(()))
+        if len(tb.leaves) == 0:  # every rank of a sharded run sums it
+            sums.append(cc.new_zeros(()))
             continue
         vals = cc_get_interior(cc, iv, tb.d.leaves, nc, ndim)
         if power != 1:
             vals = vals ** power
         if tree.coord == "cyl":
             vals = vals * tb.d.two_pi_r.to(vals.dtype)
-        lvls.append(lvl)
         sums.append(vals.sum())
     total = 0.0
-    if sums:
-        per_lvl = all_reduce(torch.stack(sums), layout, "sum")
-        for lvl, s in zip(lvls, per_lvl.cpu().tolist()):
-            total += float(np.prod(tree.lvl_dr(lvl))) * s
+    per_lvl = mesh.reduce(torch.stack(sums), "sum").cpu().tolist()
+    for lvl, s in enumerate(per_lvl, start=1):
+        total += float(np.prod(tree.lvl_dr(lvl))) * s
     return total
 
 
@@ -63,7 +57,6 @@ def leaf_extremum(mesh: MeshPlans, values, largest: bool = True):
     the first row and index, as a scan of the levels with np.argmax (or
     np.argmin) finds them. In a sharded run the row is the leaf's position
     in the tree's leaf list of its level (``leaf_box``)."""
-    layout = mesh.layout
     lvls, best, where = [], [], []
     for lvl in range(1, mesh.tree.highest_lvl + 1):
         tb = mesh.tb(lvl)
@@ -85,9 +78,7 @@ def leaf_extremum(mesh: MeshPlans, values, largest: bool = True):
         lvl, m = lvls[j]
         row, k = divmod(int(host[len(lvls) + j]), m)
         found = [float(vals[j]), lvl, row, k]
-        if layout is not None:
-            found[2] = int(mesh.tb(lvl).leaves_gpos[row])
-    found = all_extremum(found, layout, largest)
+    found = mesh.extremum(found, largest)
     return None if not found else tuple(found)
 
 

@@ -80,6 +80,10 @@ class RefInfo:
 class Tree:
     """Flat pool of boxes + per-level id lists (host side)."""
 
+    #: the partition of a sharded run's state rows (parallel/halo.Layout)
+    #: on a rank's view of the tree (parallel/halo.LocalTree); None here
+    layout = None
+
     def __init__(self, ndim: int, n_cell: int, domain_len, coarse_grid_size,
                  periodic=None, coord: str = "xyz", r_min=None):
         """Initialize the coarsest grid (af_init, ``m_af_core.f90:138-203``).

@@ -328,8 +328,8 @@ class Simulation:
         self.refiner = RefineCriterion(self.refine_cfg, self.tree, self.td,
                                        self.gas, self.init_cond,
                                        self.i_electric_fld, self.i_electron,
+                                       self.mesh,
                                        lsf_data=self.field.lsf_data)
-        self.refiner.mesh = self.mesh
         self.output = Output(cfg, reg, ndim)
 
         # ---- fluid model

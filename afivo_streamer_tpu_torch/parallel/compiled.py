@@ -27,8 +27,9 @@ import os
 import pickle
 import sys
 import tempfile
+import threading
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable
 
 import numpy as np
 import torch
@@ -254,16 +255,39 @@ def run_ranks(fn: Callable, n: int, args=(), backend: str = "gloo",
               threads: int = 1, quiet: bool = False):
     """Run ``fn(*args)`` on n spawned ranks of a process group that meets
     through a FileStore in a temporary directory; returns rank 0's result.
-    A rank that raises makes this raise (and the other ranks stop)."""
+    A rank that raises makes this raise (and the other ranks stop). Each
+    rank runs ``threads`` threads in PyTorch and in NumPy's BLAS: ranks
+    whose BLAS took every core each would spin against one another (the
+    dense level-1 inverses of solvers/coarse.py then take seconds)."""
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory() as tmp:
         store = os.path.join(tmp, "store")
         result = os.path.join(tmp, "result.pkl")
-        mp.spawn(_rank_main, args=(n, store, backend, threads, quiet,
-                                   result, fn, args),
-                 nprocs=n, join=True, start_method="spawn")
+        with _SPAWN_LOCK:
+            # the spawned interpreters read these when NumPy loads
+            saved = {k: os.environ.get(k) for k in _BLAS_THREADS}
+            os.environ.update({k: str(threads) for k in _BLAS_THREADS})
+            try:
+                ctx = mp.spawn(_rank_main, args=(n, store, backend, threads,
+                                                 quiet, result, fn, args),
+                               nprocs=n, join=False, start_method="spawn")
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        while not ctx.join():
+            pass
         with open(result, "rb") as f:
             return pickle.load(f)
+
+
+#: the variables that set the BLAS threads of a spawned rank, and the lock
+#: that keeps them to one spawn at a time (chip_smoke.py spawns from
+#: threads)
+_BLAS_THREADS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+_SPAWN_LOCK = threading.Lock()
 
 
 def _run_cli(argv):
@@ -292,145 +316,6 @@ def launch(argv, n: int, device_type: str) -> None:
     threads = max(1, (os.cpu_count() or 1) // n)
     run_ranks(_run_cli, n, (list(argv),), backend=backend, threads=threads,
               quiet=True)
-
-
-# --------------------------------------------------------------------------
-# a run with its records, sharded or not
-# --------------------------------------------------------------------------
-def record_run(argv, max_steps: int, after: Optional[Callable] = None
-               ) -> Optional[dict]:
-    """Run ``Simulation(argv)`` for ``max_steps`` steps and record what a
-    sharded run must reproduce: the mesh after setup and after every
-    refinement epoch with its boxes added and removed, dt of every
-    attempted step, the multigrid's V-cycle and FMG cycle counts of every
-    solve, the Helmholtz modes' FMG cycles at every photoionization
-    update, and at the end the whole state of the boxes in use (gathered
-    on rank 0). Per rank: its rows, own boxes and leaf cells, the kernel
-    launches, the exchanges (calls, bytes, seconds) and the same-level
-    ghost copies that read another rank's box; and what ``after(sim,
-    seconds of the run)``, called on every rank after the run, returns
-    (the state is then read after its steps). Returns the record on rank 0
-    (every rank when unsharded), None on the other ranks."""
-    import time as _time
-    from ..driver import Simulation
-    from ..ops import smoother as ks
-    from ..solvers import mg_blocks as mgb
-    from . import halo
-
-    counts = {"vcycle": 0, "fmg": 0}
-    originals = {name: getattr(mgb, name) for name in
-                 ("fas_vcycle_blocks", "fas_fmg_blocks")}
-
-    def counted(key, fn):
-        def wrapped(mg, P, R, params, *args, **kwargs):
-            if kwargs.get("top") is None and not args:
-                counts[key] += 1
-            return fn(mg, P, R, params, *args, **kwargs)
-        return wrapped
-    mgb.fas_vcycle_blocks = counted("vcycle", originals["fas_vcycle_blocks"])
-    mgb.fas_fmg_blocks = counted("fmg", originals["fas_fmg_blocks"])
-    try:
-        sim = Simulation(argv=list(argv))
-        rec = {"epochs": [[np.asarray(a).copy()
-                           for a in sim.tree.lvl_ids]], "changes": [],
-               "dts": [], "photoi": [], "solves": []}
-        adjust, substep = sim.adjust_refinement, sim._substep
-
-        def adjust_rec(*a, **k):
-            info = adjust(*a, **k)
-            rec["epochs"].append([np.asarray(x).copy()
-                                  for x in sim.tree.lvl_ids])
-            rec["changes"].append((info.n_add, info.n_rm))
-            return info
-
-        def substep_rec(cc, fc, dt, *a):
-            if a[-3] == 1:  # i_step
-                rec["dts"].append(float(dt))
-            return substep(cc, fc, dt, *a)
-        sim.adjust_refinement, sim._substep = adjust_rec, substep_rec
-        if sim.photoi.enabled and sim.photoi.method == "helmholtz":
-            set_src = sim.photoi.set_src
-
-            def set_src_rec(*a, **k):
-                cc = set_src(*a, **k)
-                rec["photoi"].append((sim.it, list(sim.photoi.fmg_cycles)))
-                return cc
-            sim.photoi.set_src = set_src_rec
-        field_compute = sim.field.compute
-
-        def compute_rec(*a, **k):
-            before = dict(counts)
-            out = field_compute(*a, **k)
-            rec["solves"].append((counts["fmg"] - before["fmg"],
-                                  counts["vcycle"] - before["vcycle"]))
-            return out
-        sim.field.compute = compute_rec
-        sim.fluid.field_compute = compute_rec
-        ks.reset_launch_counts()
-        if sim.layout is not None:
-            sim.layout.stats.update(halo.new_stats())
-        if sim.device.type == "cuda":
-            torch.cuda.synchronize(sim.device)
-            torch.cuda.reset_peak_memory_stats(sim.device)
-        t0 = _time.perf_counter()
-        sim.run(max_steps=max_steps)
-        if sim.device.type == "cuda":
-            torch.cuda.synchronize(sim.device)
-        seconds = _time.perf_counter() - t0
-    finally:
-        for name, fn in originals.items():
-            setattr(mgb, name, fn)
-    layout = sim.layout
-    per_rank = {
-        "launches": {name: fn.launches for name, fn in ks.KERNELS.items()},
-        "rows": sim.cc.shape[1], "seconds": seconds,
-        "peak_bytes": (torch.cuda.max_memory_allocated(sim.device)
-                       if sim.device.type == "cuda" else 0),
-        "leaf_cells_own": sum(len(a) for a in sim.mesh.tree.lvl_leaves)
-        * sim.tree.nc ** sim.tree.ndim}
-    if layout is not None:
-        per_rank.update(own=layout.n_own, halo=layout.n_rows - layout.n_own,
-                        cap=layout.cap, exchange=dict(layout.stats),
-                        cross=_cross_rank_copies(sim))
-    # the steps of ``after`` are not the run's: the wrappers above go on
-    # recording into ``rec``
-    out = {k: list(v) for k, v in rec.items()}
-    if after is not None:
-        per_rank["after"] = after(sim, seconds)
-    ranks = (gather_objects(per_rank, sim.shards) if layout is not None
-             else [per_rank])
-    with sim.full_view() as root:
-        if not root:
-            return None
-        ids = np.nonzero(sim.tree.in_use[:sim.tree.highest_id])[0]
-        out.update(
-            ranks=ranks, it=sim.it, time=sim.global_time,
-            dt=sim.global_dt, ids=ids, names=list(sim.registry.cc_names),
-            cc=sim.cc[:, ids].cpu().numpy(),
-            fc=sim.fc[:, :, ids].cpu().numpy(),
-            leaf_cells=(sim.layout.leaf_cells(sim.tree)
-                        if sim.layout is not None else None),
-            n_leaf_cells=sum(len(a) for a in sim.tree.lvl_leaves)
-            * sim.tree.nc ** sim.tree.ndim)
-        return out
-
-
-def _cross_rank_copies(sim) -> list:
-    """Per level, the same-level ghost copies of the rank's boxes whose
-    source box another rank owns (a halo row)."""
-    out = []
-    for lvl in range(1, sim.tree.highest_lvl + 1):
-        plan = sim.mesh.gc(lvl)
-        out.append(int(sum(np.sum(p.copy_nb >= sim.layout.n_own)
-                           for p in plan.dirs)))
-    return out
-
-
-def gather_objects(obj, shards) -> list:
-    """Every rank's picklable ``obj``, on every rank."""
-    out = [None] * shards.world
-    dist.all_gather_object(out, obj)
-    return out
 
 
 # --------------------------------------------------------------------------

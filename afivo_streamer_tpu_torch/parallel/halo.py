@@ -13,8 +13,9 @@ that its own boxes read, namely their same-level neighbors (edges and
 corners included), their parents and the parents' neighbors, their
 children and their neighbors' children. Its state ``cc [n_var, rows, S]``
 and ``fc`` hold those rows only, its own boxes first, both in box order.
-``exchange`` refreshes the halo rows of some levels and variables from
-their owners (one ``all_to_all_single``) before an operation reads them.
+``Layout.exchange`` refreshes the halo rows of some levels and variables
+from their owners (one ``all_to_all_single``) before an operation reads
+them.
 
 ``LocalTree`` presents the tree to the plan builders in local rows: its
 level lists hold the rank's own boxes and its links (neighbors, parents,
@@ -24,10 +25,12 @@ boxes. A link to a box outside the rank's rows reads ``POISON``, which no
 table can index.
 
 The multigrid's level arrays hold a level's local rows too (``lvl_rows``:
-own boxes first), and ``exchange_blocks`` refreshes their halo rows
-between the operations of a cycle (solvers/mg_blocks.py). The level-1
-solve gathers its level on every rank (``gather_level``). The collectives
-(``all_reduce``, ``all_extremum``, the gathers) are the methods of
+own boxes first), and ``Layout.exchange_blocks`` refreshes their halo
+rows between the operations of a cycle (solvers/mg_blocks.py). The
+level-1 solve gathers its level on every rank (``Layout.whole_level``).
+The numerical code reaches all of this through core/levels.MeshPlans
+(``halo``, ``halo_blocks``, ``reduce``, ``extremum``, ``map_boxes``,
+``whole_level``), which does nothing of it when unsharded; the wire is
 parallel/compiled.Shards.
 """
 
@@ -139,6 +142,19 @@ class Layout:
                 pos[owner_l == r] = np.arange(counts[r])
             self.lvl_gather.append((max(max(counts), 1), len(o),
                                     owner_l * max(max(counts), 1) + pos))
+        # per level the parents among the rank's rows (own and halo), and
+        # the position of each own leaf in the tree's leaf list (the order
+        # of the unsharded reductions)
+        held = np.zeros(max(tree.highest_id, 1), bool)
+        held[self.glob] = True
+        mine = np.zeros(max(tree.highest_id, 1), bool)
+        mine[self.own[me]] = True
+        self.lvl_parents_held = [
+            self.row_of[a[held[a]]] for a in
+            (np.asarray(x, np.int64) for x in tree.lvl_parents)]
+        self.lvl_leaves_gpos = [
+            np.nonzero(mine[np.asarray(a, np.int64)])[0]
+            for a in tree.lvl_leaves]
         self.stats = new_stats()
         self._dev: Dict = {}
 
@@ -191,6 +207,118 @@ class Layout:
                     [len(a) for a in snd], [len(a) for a in rcv])
         return self._tables(("b", lvl), make)
 
+    # ------------------------------------------------------------ exchange
+    def exchange(self, x: torch.Tensor, levels, ivs=None,
+                 fc: bool = False) -> torch.Tensor:
+        """Refresh, in place, the halo rows of the boxes at ``levels`` of
+        ``x`` from their owners: x is ``cc [n_var, rows, S]`` or, with
+        ``fc``, ``fc [n_fc, ndim, rows, Sf]`` (variables ``ivs``, all by
+        default). Every rank must call it with the same arguments."""
+        tabs = self.exchange_tables(levels)
+        if tabs is None:
+            return x
+        t0 = time.perf_counter()
+        snd, rcv, n_snd, n_rcv = tabs
+        dev = x.device
+        iv = torch.as_tensor(list(range(x.shape[0])) if ivs is None
+                             else [int(i) for i in ivs], device=dev)
+        if not fc:           # cc: [n_iv, rows, S] -> rows first
+            buf = x[iv[:, None], snd[None, :]].transpose(0, 1)
+        else:                # fc: [n_iv, ndim, rows, Sf] -> rows first
+            buf = x[iv][:, :, snd].permute(2, 0, 1, 3)
+        out = self.shards.all_to_all(buf.contiguous(), n_rcv, n_snd)
+        if not fc:
+            x[iv[:, None], rcv[None, :]] = out.transpose(0, 1)
+        else:
+            d = torch.arange(x.shape[1], device=dev)
+            x[iv[:, None, None], d[None, :, None], rcv[None, None, :]] = \
+                out.permute(1, 2, 0, 3)
+        _count(self, "", buf, t0)
+        return x
+
+    def exchange_blocks(self, X: torch.Tensor, lvl: int) -> torch.Tensor:
+        """A level's multigrid array ``X`` [rows of lvl_rows, ...] with its
+        halo rows taken from their owners (a new tensor); X itself where no
+        rank moves a box of the level."""
+        tabs = self.block_tables(lvl)
+        if tabs is None:
+            return X
+        t0 = time.perf_counter()
+        snd, rcv, n_snd, n_rcv = tabs
+        buf = X[snd]
+        out = self.shards.all_to_all(buf, n_rcv, n_snd)
+        X = X.clone()
+        X[rcv] = out
+        _count(self, "", buf, t0)
+        return X
+
+    # --------------------------------------------------------- collectives
+    def extremum(self, found: List, largest: bool):
+        """The largest (or smallest) of every rank's candidate ``[value,
+        level, row among the rank's leaves of the level, index]`` (or []),
+        ties to the first (level, position in the tree's leaf list, index)
+        as a scan in the tree's order finds them; the row of the result is
+        that position. None without a candidate."""
+        mine = [np.nan] * 4
+        if found:
+            v, lvl, row, k = found
+            mine = [v, lvl, int(self.lvl_leaves_gpos[lvl - 1][row]), k]
+        allv = self.shards.all_gather(torch.tensor(
+            mine, dtype=torch.float64)).reshape(-1, 4).numpy()
+        allv = allv[~np.isnan(allv[:, 0])]
+        if len(allv) == 0:
+            return None
+        key = -allv[:, 0] if largest else allv[:, 0]
+        j = np.lexsort((allv[:, 3], allv[:, 2], allv[:, 1], key))[0]
+        v, lvl, pos, k = allv[j]
+        return [float(v), int(lvl), int(pos), int(k)]
+
+    def own_rows(self, ids) -> tuple:
+        """(mask, rows): which of the tree's boxes ``ids`` the rank owns,
+        and their local rows."""
+        ids = np.asarray(ids, np.int64)
+        mine = self.shards.owner(ids, self.cap) == self.rank
+        return mine, self.row_of[ids[mine]]
+
+    def map_boxes(self, ids, fn) -> np.ndarray:
+        """``fn(rows, sel)`` on the rank's own boxes among ``ids`` (their
+        local rows and a mask of them in ``ids``), the NumPy results (one
+        entry per box) gathered on every rank in the order of ``ids``."""
+        ids = np.asarray(ids, np.int64)
+        owner = self.shards.owner(ids, self.cap)
+        mine, rows = self.own_rows(ids)
+        vals = np.asarray(fn(rows, mine))
+        counts = [int(np.sum(owner == r)) for r in range(self.world)]
+        pad = np.zeros((max(counts),) + vals.shape[1:], vals.dtype)
+        pad[:len(vals)] = vals
+        parts = self.shards.all_gather(torch.as_tensor(pad)).numpy()
+        out = np.zeros((len(ids),) + vals.shape[1:], vals.dtype)
+        for r in range(self.world):
+            out[owner == r] = parts[r, :counts[r]]
+        return out
+
+    def whole_level(self, lvl: int, fn, *arrays):
+        """``fn`` of the whole of level ``lvl``'s multigrid arrays, in the
+        tree's order, gathered on every rank from every rank's own rows
+        of ``arrays`` (rows ``lvl_rows``, own first); the rank's rows of
+        the result."""
+        full = fn(*(self._gather_level(X, lvl) for X in arrays))
+        pos = self._tables(("gpos", lvl), lambda: torch.as_tensor(
+            self.lvl_gpos[lvl - 1], device=full.device))
+        return full[pos]
+
+    def _gather_level(self, X: torch.Tensor, lvl: int) -> torch.Tensor:
+        t0 = time.perf_counter()
+        n_max, n_own, index = self.lvl_gather[lvl - 1]
+        pad = X.new_zeros((n_max,) + tuple(X.shape[1:]))
+        pad[:n_own] = X[:n_own]
+        full = self.shards.all_gather(pad).reshape(
+            (-1,) + tuple(X.shape[1:]))
+        idx = self._tables(("gather", lvl), lambda: torch.as_tensor(
+            index, device=X.device))
+        _count(self, "gather_", pad, t0)
+        return full[idx]
+
 
 def new_stats() -> dict:
     return {"calls": 0, "bytes": 0, "seconds": 0.0, "gather_calls": 0,
@@ -211,9 +339,8 @@ class LocalTree:
     """The tree as one rank's plan builders see it: box ids are local rows,
     the level lists hold the rank's own boxes in the tree's order, the links
     name local rows (POISON for a box the rank does not hold), and the
-    geometry is the tree's. ``lvl_parents_local`` lists the parents among
-    all local rows (own and halo) per level. ``epoch`` follows every new
-    layout; ``global_tree`` is the replicated tree."""
+    geometry is the tree's. ``epoch`` follows every new layout;
+    ``global_tree`` is the replicated tree."""
 
     _TREE_METHODS = ("lvl_dr", "box_dr", "box_r_min", "cell_coords",
                      "boxes_cell_coords", "child_offset", "has_children")
@@ -243,7 +370,6 @@ class LocalTree:
         self.layout = layout
         g = layout.glob
         self.highest_id = layout.n_rows
-        self.n_own = layout.n_own
         self.highest_lvl = t.highest_lvl
         self.lvl = t.lvl[g]
         self.ix = t.ix[g]
@@ -260,17 +386,6 @@ class LocalTree:
         self.lvl_ids = mine(t.lvl_ids)
         self.lvl_leaves = mine(t.lvl_leaves)
         self.lvl_parents = mine(t.lvl_parents)
-        local = np.zeros(max(t.highest_id, 1), bool)
-        local[g] = True
-        self.lvl_parents_local = [self._map(a[local[a]]) for a in
-                                  (np.asarray(x, np.int64)
-                                   for x in t.lvl_parents)]
-        # the position of each own leaf in the tree's leaf list of its
-        # level (the order of the unsharded reductions)
-        self.lvl_leaves_gpos = []
-        for a in t.lvl_leaves:
-            a = np.asarray(a, np.int64)
-            self.lvl_leaves_gpos.append(np.nonzero(own[a])[0])
         self.epoch += 1
 
     def neighbor_mat(self, bid: int, offset) -> int:
@@ -280,60 +395,8 @@ class LocalTree:
 
 
 # --------------------------------------------------------------------------
-# the exchange
+# moving and gathering the state
 # --------------------------------------------------------------------------
-def exchange(x: torch.Tensor, layout: Optional[Layout], levels, ivs=None,
-             fc: bool = False) -> torch.Tensor:
-    """Refresh, in place, the halo rows of the boxes at ``levels`` of
-    ``x`` from their owners: x is ``cc [n_var, rows, S]`` or, with ``fc``,
-    ``fc [n_fc, ndim, rows, Sf]`` (variables ``ivs``, all by default).
-    Every rank must call it with the same arguments; a no-op without a
-    layout."""
-    if layout is None:
-        return x
-    tabs = layout.exchange_tables(levels)
-    if tabs is None:
-        return x
-    t0 = time.perf_counter()
-    snd, rcv, n_snd, n_rcv = tabs
-    dev = x.device
-    iv = torch.as_tensor(list(range(x.shape[0])) if ivs is None
-                         else [int(i) for i in ivs], device=dev)
-    if not fc:           # cc: [n_iv, rows, S] -> rows first
-        buf = x[iv[:, None], snd[None, :]].transpose(0, 1)
-    else:                # fc: [n_iv, ndim, rows, Sf] -> rows first
-        buf = x[iv][:, :, snd].permute(2, 0, 1, 3)
-    out = layout.shards.all_to_all(buf.contiguous(), n_rcv, n_snd)
-    if not fc:
-        x[iv[:, None], rcv[None, :]] = out.transpose(0, 1)
-    else:
-        d = torch.arange(x.shape[1], device=dev)
-        x[iv[:, None, None], d[None, :, None], rcv[None, None, :]] = \
-            out.permute(1, 2, 0, 3)
-    _count(layout, "", buf, t0)
-    return x
-
-
-def exchange_blocks(X: torch.Tensor, layout: Optional[Layout],
-                    lvl: int) -> torch.Tensor:
-    """A level's multigrid array ``X`` [rows of lvl_rows, ...] with its
-    halo rows taken from their owners (a new tensor); X itself without a
-    layout or where no rank moves a box of the level."""
-    if layout is None:
-        return X
-    tabs = layout.block_tables(lvl)
-    if tabs is None:
-        return X
-    t0 = time.perf_counter()
-    snd, rcv, n_snd, n_rcv = tabs
-    buf = X[snd]
-    out = layout.shards.all_to_all(buf, n_rcv, n_snd)
-    X = X.clone()
-    X[rcv] = out
-    _count(layout, "", buf, t0)
-    return X
-
-
 def relayout(x: torch.Tensor, old: Layout, new: Layout,
              row_dim: int) -> torch.Tensor:
     """The state ``x`` (rows along ``row_dim``) moved from layout ``old``
@@ -369,61 +432,6 @@ def relayout(x: torch.Tensor, old: Layout, new: Layout,
     moved = sh.all_to_all(xr[s_idx].contiguous(), n_rcv, n_snd)
     outr[r_idx] = moved
     return out
-
-
-# --------------------------------------------------------------------------
-# the collectives
-# --------------------------------------------------------------------------
-def all_reduce(t: torch.Tensor, layout: Optional[Layout], op: str):
-    """``t`` reduced over the ranks (op: "max", "min" or "sum"); ``t``
-    itself without a layout. A max or a min is exact in any order; a sum
-    adds the ranks' partial sums."""
-    if layout is None:
-        return t
-    return layout.shards.all_reduce(t, op)
-
-
-def all_extremum(best: List, layout: Optional[Layout], largest: bool):
-    """The largest (or smallest) of every rank's candidate
-    ``[value, level, position, index]`` (or []), ties to the first
-    (level, position, index) as a scan in the tree's order finds them;
-    None without a candidate."""
-    if layout is None:
-        return best or None
-    mine = torch.tensor(best if best else [np.nan] * 4, dtype=torch.float64)
-    allv = layout.shards.all_gather(mine).reshape(-1, 4).numpy()
-    allv = allv[~np.isnan(allv[:, 0])]
-    if len(allv) == 0:
-        return None
-    key = -allv[:, 0] if largest else allv[:, 0]
-    j = np.lexsort((allv[:, 3], allv[:, 2], allv[:, 1], key))[0]
-    v, lvl, pos, k = allv[j]
-    return [float(v), int(lvl), int(pos), int(k)]
-
-
-def gather_level(X: torch.Tensor, layout: Layout, lvl: int
-                 ) -> torch.Tensor:
-    """The whole of level ``lvl``'s multigrid array, in the tree's order,
-    on every rank, from every rank's own rows of ``X`` (rows
-    ``lvl_rows``, own first)."""
-    t0 = time.perf_counter()
-    n_max, n_own, index = layout.lvl_gather[lvl - 1]
-    pad = X.new_zeros((n_max,) + tuple(X.shape[1:]))
-    pad[:n_own] = X[:n_own]
-    full = layout.shards.all_gather(pad).reshape((-1,) + tuple(X.shape[1:]))
-    idx = layout._tables(("gather", lvl), lambda: torch.as_tensor(
-        index, device=X.device))
-    _count(layout, "gather_", pad, t0)
-    return full[idx]
-
-
-def level_rows_of(full: torch.Tensor, layout: Layout, lvl: int
-                  ) -> torch.Tensor:
-    """The rank's rows (``lvl_rows``) of a whole level array in the
-    tree's order."""
-    pos = layout._tables(("gpos", lvl), lambda: torch.as_tensor(
-        layout.lvl_gpos[lvl - 1], device=full.device))
-    return full[pos]
 
 
 def gather_to_root(x: torch.Tensor, layout: Layout, row_dim: int,

@@ -32,7 +32,6 @@ import torch
 from .. import constants as uc
 from ..core import ghostcell as gc
 from ..core.reductions import tree_maxabs_cc
-from ..parallel.halo import all_reduce
 from ..core.rowops import (cc_get_interior, fc_get_faces, fc_set_faces,
                            interior)
 from ..solvers import mg_blocks as mgb
@@ -481,20 +480,17 @@ class FieldSolver:
     def compute_energy(self, cc) -> float:
         """Total field energy 0.5 eps0 E^2 dV (field_compute_energy)."""
         t = self.tree
-        layout = self.mesh.layout
         sums = []
         for lvl in range(1, t.highest_lvl + 1):
             tb = self.mesh.tb(lvl)
-            if len(tb.leaves) == 0:
-                if layout is not None:  # every rank sums every level
-                    sums.append(cc.new_zeros(()))
+            if len(tb.leaves) == 0:  # every rank of a sharded run sums it
+                sums.append(cc.new_zeros(()))
                 continue
             Ecc = cc_get_interior(cc, self.i_electric_fld, tb.d.leaves,
                                   t.nc, t.ndim)
             sums.append(torch.sum(Ecc ** 2 * tb.d.vol.to(cc.dtype)))
         total = 0.0
-        if sums:
-            # the ranks' partial sums of each level in a sharded run
-            for s in all_reduce(torch.stack(sums), layout, "sum").tolist():
-                total = total + s
+        # the ranks' partial sums of each level in a sharded run
+        for s in self.mesh.reduce(torch.stack(sums), "sum").tolist():
+            total = total + s
         return 0.5 * uc.eps0 * total

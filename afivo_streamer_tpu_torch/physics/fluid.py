@@ -45,7 +45,6 @@ from ..core import rowops as ro
 from ..core import spatial as sp
 from ..core.tree import Tree, NO_BOX, neighb_dim, neighb_low
 from ..ops.limiters import limiter_apply, LIMITER_KOREN
-from ..parallel.halo import all_reduce
 from .chemistry import IONIZATION_REACTION
 from .transport_data import (TD_MOBILITY, TD_DIFFUSION, TD_EE_MOBILITY,
                              TD_EE_DIFFUSION, TD_EE_LOSS)
@@ -281,18 +280,20 @@ class ConsistentGroup:
         self.w = [sp.device_copy({"a": a}, device).a for a in w]
 
 
-def build_consistent_plan(tree: Tree, device) -> List[ConsistentGroup]:
+def build_consistent_plan(tree: Tree, device, parents=None,
+                          n_own: int = None) -> List[ConsistentGroup]:
     """The flux-matching groups of a mesh (af_consistent_fluxes,
     ``m_af_core.f90:1257-1404``): per (coarse level, direction), the
     coarse faces next to a fine box and the 2^(ndim-1) fine faces over
-    each of them."""
+    each of them. ``parents`` (per level; default the tree's) are the
+    fine boxes' parents and ``n_own`` (default all) the rows whose coarse
+    faces are matched: in a sharded run the parents among the rank's rows
+    and its own boxes (core/levels.MeshPlans)."""
     t = tree
     nc, ndim = t.nc, t.ndim
     hnc = nc // 2
-    # a sharded run (parallel/halo.LocalTree): the coarse faces of the
-    # rank's own boxes, next to any local parent
-    parents = getattr(t, "lvl_parents_local", t.lvl_parents)
-    n_own = getattr(t, "n_own", t.highest_id)
+    parents = t.lvl_parents if parents is None else parents
+    n_own = t.highest_id if n_own is None else n_own
     by_key: Dict = {}
     for lvl in range(1, t.highest_lvl):
         for p_id in parents[lvl - 1]:
@@ -360,7 +361,9 @@ def gc2_plan(mesh, lvl: int) -> Gc2LevelPlan:
 def consistent_plan(mesh) -> List[ConsistentGroup]:
     """The flux-matching groups of the mesh, cached with it."""
     return mesh.cached("consistent", lambda: build_consistent_plan(
-        mesh.tree, mesh.device))
+        mesh.tree, mesh.device,
+        [mesh.parents_held(l) for l in range(1, mesh.n_levels + 1)],
+        mesh.n_own))
 
 
 def consistent_fluxes(fc, groups: List[ConsistentGroup], flux_fc: List[int]):
@@ -820,17 +823,14 @@ class FluidModel:
         # (m_fluid.f90:96-98), so af_advance returns the limit of the LAST
         # substep, not the minimum over substeps.
         dt_other = diag.pop("dt_other")
-        layout = self.mesh.layout
-        if layout is not None:
-            # the limits over every rank's leaves (exact: a min in any
-            # order) and the sums of the rates and of J.E (partial sums)
-            lims = all_reduce(torch.stack([dt_cfl, dt_drt, dt_chem,
-                                           dt_other]), layout, "min")
-            dt_cfl, dt_drt, dt_chem, dt_other = lims.unbind()
-            sums = all_reduce(torch.cat([diag["rates"],
-                                         diag["JdotE"].reshape(1)]),
-                              layout, "sum")
-            diag["rates"], diag["JdotE"] = sums[:-1], sums[-1]
+        # the limits over every rank's leaves of a sharded run (exact: a
+        # min in any order) and the sums of the rates and of J.E (partial
+        # sums)
+        dt_cfl, dt_drt, dt_chem, dt_other = self.mesh.reduce(torch.stack(
+            [dt_cfl, dt_drt, dt_chem, dt_other]), "min").unbind()
+        sums = self.mesh.reduce(torch.cat([diag["rates"],
+                                           diag["JdotE"].reshape(1)]), "sum")
+        diag["rates"], diag["JdotE"] = sums[:-1], sums[-1]
         dt_cfl = dt_cfl * self.dt_cfg.cfl_number
         dt_lim = torch.clamp(torch.minimum(torch.minimum(dt_cfl, dt_drt),
                                            torch.minimum(dt_chem, dt_other)),

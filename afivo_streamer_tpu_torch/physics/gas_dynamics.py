@@ -28,7 +28,6 @@ from ..core import ghostcell as gc
 from ..core import prolong_restrict as pr
 from ..core import rowops as ro
 from ..ops.limiters import limiter_apply, LIMITER_VANLEER
-from ..parallel.halo import all_reduce
 from .fluid import _lo_hi, consistent_fluxes, consistent_plan, gc2_extend, \
     gc2_plan
 
@@ -193,7 +192,7 @@ class GasDynamics:
                        fc=True)
         fc = consistent_fluxes(fc, consistent_plan(self.mesh), self.gas_fluxes)
         # the CFL limit over every rank's leaves (a max: exact)
-        inv_max_cfl = all_reduce(inv_max_cfl, self.mesh.layout, "max")
+        inv_max_cfl = self.mesh.reduce(inv_max_cfl, "max")
 
         # conservative update with the cylindrical geometric source
         for lvl in range(1, t.highest_lvl + 1):

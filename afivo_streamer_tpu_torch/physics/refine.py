@@ -93,10 +93,12 @@ class RefineSettings:
 
 class RefineCriterion:
     def __init__(self, settings: RefineSettings, tree, transport, gas,
-                 init_cond, i_electric_fld: int, i_electron: int,
+                 init_cond, i_electric_fld: int, i_electron: int, mesh,
                  lsf_data=None):
         self.rs = settings
         self.tree = tree
+        #: the state's MeshPlans (a sharded run's rows)
+        self.mesh = mesh
         self.td = transport
         self.gas = gas
         self.ic = init_cond
@@ -108,30 +110,13 @@ class RefineCriterion:
         self.lsf_data = lsf_data
         self.current_electrode_dx = settings.electrode_dx
         self.time = 0.0
-        #: the state's MeshPlans, whose layout a sharded run evaluates on
-        self.mesh = None
 
     def _alpha_dx_codes(self, cc, ids: np.ndarray,
                         max_dx: np.ndarray) -> np.ndarray:
-        """The alpha*dx codes of boxes ``ids``. In a sharded run every rank
-        evaluates its own boxes among them on its rows, and the codes are
-        gathered on every rank in the order of ``ids``."""
-        layout = None if self.mesh is None else self.mesh.layout
-        if layout is None:
-            return self._alpha_dx_rows(cc, ids, max_dx)
-        ids = np.asarray(ids, np.int64)
-        owner = layout.shards.owner(ids, layout.cap)
-        mine = owner == layout.rank
-        codes = self._alpha_dx_rows(cc, layout.row_of[ids[mine]],
-                                    max_dx[mine])
-        counts = [int(np.sum(owner == r)) for r in range(layout.world)]
-        pad = np.zeros((max(counts),) + codes.shape[1:], np.int8)
-        pad[:len(codes)] = codes
-        parts = layout.shards.all_gather(torch.as_tensor(pad)).numpy()
-        out = np.zeros((len(ids),) + codes.shape[1:], np.int8)
-        for r in range(layout.world):
-            out[owner == r] = parts[r, :counts[r]]
-        return out
+        """The alpha*dx codes of boxes ``ids`` (in a sharded run every
+        rank evaluates its own boxes, MeshPlans.map_boxes)."""
+        return self.mesh.map_boxes(
+            ids, lambda rows, sel: self._alpha_dx_rows(cc, rows, max_dx[sel]))
 
     def _alpha_dx_rows(self, cc, ids: np.ndarray,
                        max_dx: np.ndarray) -> np.ndarray:

@@ -34,7 +34,6 @@ from ..core import ghostcell as gc
 from ..core import prolong_restrict as pr
 from ..core.rowops import as_value
 from ..ops import smoother as ks
-from ..parallel import halo
 
 
 class LevelBlockPlan:
@@ -46,19 +45,16 @@ class LevelBlockPlan:
     with the cylindrical restriction weights) and the parent mask of the
     coarse level for the FAS rhs update.
 
-    The block arrays hold the state rows ``rows(lvl)`` (default: the
-    level's boxes; Multigrid.rows). In a sharded run the tables cover the
-    rank's own boxes: the restriction into its own parents, whose children
-    may be halo rows, and the prolongation into its own children
-    (``pro_*``), whose parents may be halo rows."""
+    The block arrays hold the state rows ``mesh.level_rows(lvl)``. In a
+    sharded run the tables cover the rank's own boxes: the restriction
+    into its own parents, whose children may be halo rows, and the
+    prolongation into its own children, whose parents may be halo rows."""
 
-    def __init__(self, mesh, lvl: int, rows=None):
+    def __init__(self, mesh, lvl: int):
         tree, device = mesh.tree, mesh.device
         nc, ndim = tree.nc, tree.ndim
         self.lvl, self.nc, self.ndim = lvl, nc, ndim
-        if rows is None:
-            def rows(l):
-                return mesh.tb(l).ids
+        rows = mesh.level_rows
         rows_l = rows(lvl)
         self.n = len(rows_l)
         pos_l = _posmap(tree, rows_l)
@@ -90,11 +86,11 @@ class LevelBlockPlan:
         self.corners = gc.corner_tables(plan, pos_l, S, device)
 
         # transfer tables (children at lvl, parents at lvl-1): the child of
-        # every parent for each parity in product order, the coarse cells
-        # each child restricts into, and the linear prolongation stencil
-        # of all parities at once
+        # every parent for each parity in product order and the coarse
+        # cells each child restricts into; the linear prolongation stencil
+        # of all parities at once, applied to the parents of the level's
+        # (own) boxes, and the row of each box's parity among its results
         self.parent_mask = None
-        self.pro_ch = None
         if lvl > 1:
             parents = np.asarray(tb_c.parents, np.int64)
             parities = list(itertools.product([0, 1], repeat=ndim))
@@ -107,7 +103,6 @@ class LevelBlockPlan:
             t_int = np.ravel_multi_index(
                 [a - 1 for a in np.unravel_index(tgt, (nc + 2,) * ndim)],
                 (nc,) * ndim)
-            self.par = dev(pos_c[parents])
             self.ch = dev(pos_l[children])
             self.r_tgt = dev(par_c * S + tgt)
             self.r_int = dev(par_c * nc ** ndim + t_int)
@@ -120,17 +115,19 @@ class LevelBlockPlan:
             m = np.zeros(self.n_c, bool)
             m[pos_c[parents]] = True
             self.parent_mask = dev(m, torch.bool)
-            if mesh.layout is not None:
-                # the prolongation into the rank's own children: each
-                # child's parent row and the stencil of its parity
-                own = np.asarray(mesh.tb(lvl).ids, np.int64)
-                code = sum((tree.ix[own][:, k] % 2) << (ndim - 1 - k)
-                           for k in range(ndim))
-                self.pro_ch = dev(pos_l[own])
-                self.pro_par = dev(pos_c[tree.parent[own]])
-                self.pro_corners = [
-                    (w, dev(np.stack([t.corners[k][1] for t in tabs])[code]))
-                    for k, (w, _s) in enumerate(tabs[0].corners)]
+            own = np.asarray(mesh.tb(lvl).ids, np.int64)
+            par_own, which = np.unique(tree.parent[own], return_inverse=True)
+            code = sum((tree.ix[own][:, k] % 2) << (ndim - 1 - k)
+                       for k in range(ndim))
+            sel = which * len(parities) + code
+            order = np.argsort(sel)
+            self.pro_ch = dev(pos_l[own[order]])
+            self.pro_par = dev(pos_c[par_own])
+            # None where the boxes are every child of their parents (an
+            # unsharded level, or no family split between ranks): then
+            # they take every prolongated row, in order
+            self.pro_sel = (None if len(own) == len(par_own) * len(parities)
+                            else dev(sel[order]))
 
 
 def _posmap(tree, ids) -> np.ndarray:
@@ -212,25 +209,18 @@ def prolong_add_correction(P_f, corr_c, bp: LevelBlockPlan, nc: int):
     """phi += prolong(phi_c - phi_old_c) (correct_children,
     ``m_af_multigrid.f90:624-646``) with the linear 2^ndim-point
     prolongation (af_prolong_linear); corr_c is the full coarse block
-    array incl. ghosts. In a sharded run: into the rank's own children,
-    the same sums per cell."""
+    array incl. ghosts. Every parity of each parent of the level's (own)
+    boxes is prolongated, and each box takes its own."""
     ndim = bp.ndim
-    if bp.pro_ch is not None:
-        src = corr_c.flatten(1)[bp.pro_par]
-        fine = 0.0
-        for w, sidx in bp.pro_corners:
-            fine = fine + float(w) * torch.gather(src, 1, sidx)
-        P_f = P_f.clone()
-        P_f[(bp.pro_ch,) + _interior(nc, ndim)[1:]] += fine.reshape(
-            (len(bp.pro_ch),) + (nc,) * ndim)
-        return P_f
-    src = corr_c.flatten(1)[bp.par]
+    src = corr_c.flatten(1)[bp.pro_par]
     fine = 0.0
     for w, sidx in bp.p_corners:
         fine = fine + float(w) * src[:, sidx]
+    fine = fine.reshape((-1,) + (nc,) * ndim)
+    if bp.pro_sel is not None:
+        fine = fine[bp.pro_sel]
     P_f = P_f.clone()
-    P_f[(bp.ch,) + _interior(nc, ndim)[1:]] += fine.reshape(
-        (len(bp.ch),) + (nc,) * ndim)
+    P_f[(bp.pro_ch,) + _interior(nc, ndim)[1:]] += fine
     return P_f
 
 
@@ -240,7 +230,7 @@ def prolong_add_correction(P_f, corr_c, bp: LevelBlockPlan, nc: int):
 def _exchange(mg, lvl: int, X):
     """A level's array with its halo rows from their owners (a sharded
     run; X itself otherwise)."""
-    return halo.exchange_blocks(X, mg.mesh.layout, lvl)
+    return mg.mesh.halo_blocks(X, lvl)
 
 
 def gather_levels(mg, cc):
@@ -438,13 +428,9 @@ def fas_vcycle_blocks(mg, P, R, params, top: Optional[int] = None):
 def coarse_solve(mg, P1, R1, params):
     """The level-1 solve (solvers/coarse.py); in a sharded run on the whole
     level gathered on every rank, of which each keeps its rows."""
-    layout = mg.mesh.layout
-    if layout is None:
-        return mg.coarse_solver().solve_blocks(P1, R1, mg.i_phi, params)
-    full = mg.coarse_solver().solve_blocks(
-        halo.gather_level(P1, layout, 1), halo.gather_level(R1, layout, 1),
-        mg.i_phi, params)
-    return halo.level_rows_of(full, layout, 1)
+    return mg.mesh.whole_level(
+        1, lambda P, R: mg.coarse_solver().solve_blocks(P, R, mg.i_phi,
+                                                         params), P1, R1)
 
 
 def fas_fmg_blocks(mg, P, R, params):
@@ -485,4 +471,4 @@ def max_leaf_residual_blocks(mg, P, R, params=None):
             P[l - 1], mg.cs(l, dtype), mg.tree.nc)
         m = torch.maximum(m, res[tb.d.leaves_pos].abs().max())
     # sharded: the rank's own leaves, the maximum over the ranks (exact)
-    return halo.all_reduce(m, mg.mesh.layout, "max")
+    return mg.mesh.reduce(m, "max")

@@ -163,10 +163,7 @@ class Multigrid:
     def rows(self, lvl: int) -> np.ndarray:
         """The state rows of a level's arrays: the level's boxes, or in a
         sharded run the rank's own boxes of the level then its halo."""
-        layout = self.mesh.layout
-        if layout is None:
-            return np.asarray(self.mesh.tb(lvl).ids, np.int64)
-        return layout.lvl_rows[lvl - 1]
+        return self.mesh.level_rows(lvl)
 
     def level_ids(self, lvl: int) -> torch.Tensor:
         """``rows(lvl)`` on the device."""
@@ -214,8 +211,7 @@ class Multigrid:
 
     def blocks(self, lvl: int) -> mgb.LevelBlockPlan:
         return self._get(("blk", lvl),
-                         lambda: mgb.LevelBlockPlan(self.mesh, lvl,
-                                                    self.rows),
+                         lambda: mgb.LevelBlockPlan(self.mesh, lvl),
                          (lvl - 1, lvl))
 
     def cs(self, lvl: int, dtype) -> torch.Tensor:

@@ -1113,6 +1113,93 @@ def record_field_cycles(mgb, sim, solves):
     sim.field.compute = sim.fluid.field_compute = wrapped
 
 
+def record_run(argv, max_steps, after=None):
+    """Run ``Simulation(argv)`` for ``max_steps`` steps, sharded or not,
+    and record what a sharded run must reproduce (with the helpers above):
+    the mesh after setup and after every refinement epoch with its boxes
+    added and removed, dt of every attempted step, the (FMG, V-cycle)
+    counts of every field solve, the Helmholtz modes' FMG cycles at every
+    photoionization update, and at the end the whole state of the boxes in
+    use (gathered on rank 0). Per rank: its rows, own boxes and leaf
+    cells, the kernel launches, the exchanges (calls, bytes, seconds), the
+    same-level ghost copies that read another rank's box, and what
+    ``after(sim, seconds of the run)``, called on every rank after the
+    run, returns. Returns the record on rank 0 (every rank when
+    unsharded), None on the other ranks. Runs on the CPU too (the tests
+    use it)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from afivo_streamer_tpu_torch.driver import Simulation
+    from afivo_streamer_tpu_torch.ops import smoother as ks
+    from afivo_streamer_tpu_torch.parallel import halo
+    from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
+
+    sim = Simulation(argv=list(argv))
+    mesh0 = [list(map(int, x)) for x in sim.tree.lvl_ids]
+    epochs, dts, solves, updates = [], [], [], []
+    record_epochs(sim, epochs, torch)
+    record_dts(sim, dts)
+    record_field_cycles(mgb, sim, solves)
+    if sim.photoi.enabled and sim.photoi.method == "helmholtz":
+        record_photoi(sim, ks, updates, torch)
+    ks.reset_launch_counts()
+    layout = sim.layout
+    if layout is not None:
+        layout.stats.update(halo.new_stats())
+    cuda = sim.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(sim.device)
+        torch.cuda.reset_peak_memory_stats(sim.device)
+    t0 = time.perf_counter()
+    sim.run(max_steps=max_steps)
+    if cuda:
+        torch.cuda.synchronize(sim.device)
+    seconds = time.perf_counter() - t0
+    # copies: the steps of ``after`` would extend the lists
+    out = {"epochs": [mesh0] + [e["ids"] for e in epochs],
+           "changes": [(e["add"], e["rm"]) for e in epochs],
+           "dts": [float(d) for d in dts], "solves": list(solves),
+           "photoi": [(u["it"], u["cycles"]) for u in updates]}
+    layout = sim.layout
+    per_rank = {
+        "launches": {name: fn.launches for name, fn in ks.KERNELS.items()},
+        "rows": sim.cc.shape[1], "seconds": seconds,
+        "peak_bytes": (torch.cuda.max_memory_allocated(sim.device)
+                       if cuda else 0),
+        "leaf_cells_own": sum(len(a) for a in sim.mesh.tree.lvl_leaves)
+        * sim.tree.nc ** sim.tree.ndim}
+    if layout is not None:
+        # per level, the same-level ghost copies whose source box another
+        # rank owns (a halo row)
+        cross = [int(sum(np.sum(p.copy_nb >= layout.n_own)
+                         for p in sim.mesh.gc(lvl).dirs))
+                 for lvl in range(1, sim.tree.highest_lvl + 1)]
+        per_rank.update(own=layout.n_own, halo=layout.n_rows - layout.n_own,
+                        cap=layout.cap, exchange=dict(layout.stats),
+                        cross=cross)
+    if after is not None:
+        per_rank["after"] = after(sim, seconds)
+    ranks = [per_rank]
+    if layout is not None:
+        ranks = [None] * layout.world
+        dist.all_gather_object(ranks, per_rank)
+    with sim.full_view() as root:
+        if not root:
+            return None
+        ids = np.nonzero(sim.tree.in_use[:sim.tree.highest_id])[0]
+        out.update(
+            ranks=ranks, it=sim.it, time=sim.global_time,
+            dt=sim.global_dt, ids=ids, names=list(sim.registry.cc_names),
+            cc=sim.cc[:, ids].cpu().numpy(),
+            fc=sim.fc[:, :, ids].cpu().numpy(),
+            leaf_cells=(sim.layout.leaf_cells(sim.tree)
+                        if sim.layout is not None else None),
+            n_leaf_cells=sum(len(a) for a in sim.tree.lvl_leaves)
+            * sim.tree.nc ** sim.tree.ndim)
+        return out
+
+
 def record_coarse_cycles(sim, counts):
     """Record the V-cycles of every level-1 solve of ``sim``'s field solve
     when that is the uniform coarse-grid multigrid."""
@@ -1407,6 +1494,7 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
     t = sim.tree
     cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     boxes0 = [len(x) for x in t.lvl_ids]
+    mesh0 = [list(map(int, x)) for x in t.lvl_ids]
     epochs, updates, solves, dts = [], [], [], []
     record_epochs(sim, epochs, torch)
     record_photoi(sim, ks, updates, torch)
@@ -1422,14 +1510,13 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
         # copies: the busy share's steps below would extend the lists
         record.update(
             ms_step=1e3 * (t2 - t1) / steps, solves=list(solves),
-            dts=list(dts),
+            dts=[float(d) for d in dts],
             per_step={k: round((launches[k] - setup_launches[k]) / steps, 2)
                       for k in names},
             updates=[u["cycles"] for u in updates],
             update_ms=[1e3 * u["s"] for u in updates],
             epochs=[e["ids"] for e in epochs],
-            epochs_n=[boxes0] + [[len(x) for x in e["ids"]]
-                                 for e in epochs])
+            meshes=[mesh0] + [e["ids"] for e in epochs])
     n_leaf = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     per_lvl = [len(x) for x in t.lvl_ids]
     changed = [k for k, e in enumerate(epochs) if e["add"] or e["rm"]]
@@ -1559,6 +1646,7 @@ def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
     t = sim.tree
     cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     boxes0 = [len(x) for x in t.lvl_ids]
+    mesh0 = [list(map(int, x)) for x in t.lvl_ids]
     surfaces0 = sim.surfaces.active() if sim.surfaces is not None else []
     epochs, updates, solves, dts = [], [], [], []
     record_epochs(sim, epochs, torch)
@@ -1707,6 +1795,7 @@ def phase_gas_full(torch, ks, Simulation, mgb, out_dir, smi):
     t = sim.tree
     cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
     boxes0 = [len(x) for x in t.lvl_ids]
+    mesh0 = [list(map(int, x)) for x in t.lvl_ids]
     epochs, updates, solves, dts, gas_lims = [], [], [], [], []
     record_epochs(sim, epochs, torch)
     record_photoi(sim, ks, updates, torch)
@@ -2595,7 +2684,7 @@ def _busy_of_rank(sim, seconds):
 
 
 def compare_sharded(torch, phase, u, s, steps, ndim, prefixes):
-    """Hold a sharded run's record (parallel/compiled.record_run) against
+    """Hold a sharded run's record (``record_run``) against
     the unsharded one's: the same mesh at every epoch, dts, (FMG, V-cycle)
     counts and FMG cycles per Helmholtz mode; every variable within 1e-12
     of its scale; the regression logs at rtol 1e-8, atol 1e-10; the path's
@@ -2645,10 +2734,12 @@ def _probe_after(_sim, _seconds):
 
 def start_sharded(out_dir):
     """Phase 3x, first half: start the main path sharded over 2 and 4
-    ranks that share the card (gloo), and the 3D one over 2, all together,
-    in threads that spawn their ranks; the 2-rank run's ranks then probe
-    which gloo collectives take CUDA tensors. Returns what
-    ``phase_sharded`` joins."""
+    ranks that share the card (gloo), the 3D one over 2, and each
+    unsharded (one rank: a process of its own, whose BLAS runs one thread
+    as the ranks' do, so that its dense level-1 inverses round as theirs),
+    all together, in threads that spawn their ranks; the 2-rank run's
+    ranks then probe which gloo collectives take CUDA tensors. Returns
+    what ``phase_sharded`` joins."""
     import threading
     from afivo_streamer_tpu_torch.parallel import compiled
     runs, errors = {}, []
@@ -2656,14 +2747,14 @@ def start_sharded(out_dir):
     def sharded(key, argv, n, steps, after):
         t0 = time.perf_counter()
         try:
-            runs[key] = (compiled.run_ranks(compiled.record_run, n,
+            runs[key] = (compiled.run_ranks(record_run, n,
                                             (argv, steps, after)),
                          time.perf_counter() - t0)
         except Exception as e:  # re-raised below, after every run ended
             errors.append((key, e))
     threads = []
     for cfg, ndim, extra, steps, rank_counts in SHARDED_SMALL:
-        for n in rank_counts:
+        for n in (1,) + rank_counts:
             after = _probe_after if (ndim, n) == (2, 2) else None
             argv = (amr_argv(out_dir / f"p3x_{ndim}d_{n}", ndim, "cuda",
                              extra, cfg) + shard_flags(n))
@@ -2675,20 +2766,15 @@ def start_sharded(out_dir):
 
 
 def phase_sharded(torch, out_dir, started):
-    """Phase 3x, second half: the unsharded card runs, then the sharded
-    runs ``start_sharded`` started, joined and held against them. Returns
-    the launches of every kernel summed over the sharded runs and ranks."""
-    from afivo_streamer_tpu_torch.parallel import compiled
+    """Phase 3x, second half: the runs ``start_sharded`` started, joined,
+    the sharded ones held against the unsharded ones. Returns the launches
+    of every kernel summed over the sharded runs and ranks."""
     threads, runs, errors = started
-    try:
-        ref = {ndim: compiled.record_run(
-            amr_argv(out_dir / f"p3x_{ndim}d_1", ndim, "cuda", extra, cfg),
-            steps) for cfg, ndim, extra, steps, _n in SHARDED_SMALL}
-    finally:
-        for th in threads:
-            th.join()
+    for th in threads:
+        th.join()
     if errors:
         raise RuntimeError(f"phase 3x: sharded runs failed: {errors}")
+    ref = {ndim: runs[(ndim, 1)][0] for _c, ndim, *_r in SHARDED_SMALL}
     probe = runs[(2, 2)][0]["ranks"][0]["after"]
     log(f"phase 3x: gloo with CUDA tensors, 2 ranks on one card: {probe}")
     if any(v != "ok" for v in probe.values()):
@@ -2724,8 +2810,8 @@ def phase_sharded(torch, out_dir, started):
                 f"{[{k: v for k, v in r['launches'].items() if v} for r in s['ranks']]}, "
                 f"halo exchanges (calls, bytes) "
                 f"{[(r['exchange']['calls'], r['exchange']['bytes']) for r in s['ranks']]}; "
-                f"{wall:.1f} s with the ranks' start (the three sharded runs "
-                f"started together, beside phases 3r-3w)")
+                f"{wall:.1f} s with the ranks' start (the five runs started "
+                f"together, beside phases 3r-3w)")
     return total
 
 
@@ -2740,7 +2826,7 @@ def phase_sharded_full(torch, out_dir, main_path):
     extra = AMR_FULL[2][0]
     free_earlier_runs(torch)
     t0 = time.perf_counter()
-    s = compiled.run_ranks(compiled.record_run, n, (
+    s = compiled.run_ranks(record_run, n, (
         amr_argv(out_dir / "p18", 2, "cuda", extra) + shard_flags(n), steps,
         _busy_of_rank))
     wall = time.perf_counter() - t0
@@ -2767,9 +2853,31 @@ def phase_sharded_full(torch, out_dir, main_path):
     log(f"phase 18: {s['n_leaf_cells']} leaf cells at the end over {n} ranks "
         f"({s['leaf_cells']}), {steps} steps {ms_step:.2f} ms/step on rank 0 "
         f"against phase 7's {main_path['ms_step']:.2f} ms/step unsharded "
-        f"({ms_step / main_path['ms_step']:.3f} times); the same meshes as "
-        f"phase 7: {[[len(x) for x in m] for m in s['epochs']] == main_path['epochs_n']}; "
+        f"({ms_step / main_path['ms_step']:.3f} times); "
         f"{wall:.1f} s with the ranks' start and setup")
+    # phase 7's run of the same configuration: the same meshes, dts,
+    # (FMG, V-cycle) counts and FMG cycles per mode
+    if s["epochs"] != main_path["meshes"]:
+        raise RuntimeError(
+            f"phase 18: the meshes differ from phase 7's: boxes per level "
+            f"{[[len(x) for x in m] for m in s['epochs']]} against "
+            f"{[[len(x) for x in m] for m in main_path['meshes']]}")
+    if s["solves"] != main_path["solves"] or \
+            [c for _it, c in s["photoi"]] != main_path["updates"]:
+        raise RuntimeError(
+            f"phase 18: cycle counts differ from phase 7's: solves "
+            f"{s['solves']} against {main_path['solves']}, updates "
+            f"{s['photoi']} against {main_path['updates']}")
+    if len(s["dts"]) != len(main_path["dts"]) or any(
+            abs(a / b - 1) > 1e-12 for a, b in zip(s["dts"],
+                                                    main_path["dts"])):
+        raise RuntimeError(f"phase 18: dts {s['dts']} differ from phase "
+                           f"7's {main_path['dts']}")
+    log(f"phase 18: the same meshes as phase 7 at {len(s['epochs'])} meshes, "
+        f"the same dts at {len(s['dts'])} attempted steps (bitwise equal: "
+        f"{s['dts'] == main_path['dts']}), (FMG, V-cycle) counts at "
+        f"{len(s['solves'])} field solves and FMG cycles per mode at "
+        f"{len(s['photoi'])} updates")
     import numpy as np
     if not np.isfinite(s["cc"]).all() or not np.isfinite(s["fc"]).all():
         raise RuntimeError("phase 18: non-finite state")

@@ -694,11 +694,12 @@ def test_two_ranks_on_the_card_match_the_unsharded_run(cuda, tmp_path):
     within 1e-12 of its scale, and K1-K3 launched on each rank."""
     import numpy as np
     from afivo_streamer_tpu_torch.parallel import compiled
+    from chip_smoke import record_run
     base = [str(DATA / "air_cyl_amr_slice.cfg"), "-ndim=2",
             "-photoi%per_steps=2", "-field_rise_time=3e-13",
             "-output%dt=1e-13", "-device=cuda"]
-    u = compiled.record_run(base + [f"-output%name={tmp_path}/u"], 8)
-    s = compiled.run_ranks(compiled.record_run, 2, (
+    u = record_run(base + [f"-output%name={tmp_path}/u"], 8)
+    s = compiled.run_ranks(record_run, 2, (
         base + [f"-output%name={tmp_path}/s", "-compiled%enabled=T",
                 "-compiled%shards=2"], 8))
     assert len(s["epochs"]) == len(u["epochs"])

@@ -4,7 +4,7 @@ spawned by parallel/compiled.run_ranks meet through a FileStore in a
 temporary directory, one thread each.
 
 (a) The planar 1D slice with live refinement (air_1d_slice.cfg, 144 cells
-    on 5 levels) over 4 ranks (parallel/compiled.record_run) and over 2
+    on 5 levels) over 4 ranks (chip_smoke.record_run) and over 2
     ranks through the command line: the same mesh at setup and after every
     refinement epoch (at least two of them change it), the same dts, and
     the logs at rtol 1e-8, atol 1e-10 (tests/test_multichip.py:101-131)
@@ -46,6 +46,7 @@ import torch
 from afivo_streamer_tpu_torch.driver import Simulation as TSim
 from afivo_streamer_tpu_torch.io.compare import compare_outputs
 from afivo_streamer_tpu_torch.parallel import compiled
+from chip_smoke import record_run
 
 torch.set_num_threads(1)
 
@@ -101,7 +102,7 @@ def _rank_jobs(jobs):
     out = {}
     for name, kind, argv, steps in jobs:
         if kind == "run":
-            out[name] = compiled.record_run(argv, steps)
+            out[name] = record_run(argv, steps)
         elif kind == "step":
             out[name] = compiled._dryrun_rank(*argv)
         else:
@@ -121,8 +122,10 @@ def runs(tmp_path_factory):
     from afivo_streamer_tpu.driver import Simulation as JSim
     tmp = tmp_path_factory.mktemp("sharded")
     dev = ["-device=cpu"]
-    unsharded = {"cyl": compiled.record_run(
-        CYL + dev + [f"-output%name={tmp / 'u_cyl'}"], CYL_STEPS)}
+    # in a process of its own, whose BLAS runs one thread as the ranks'
+    # do, so that its dense level-1 inverses round as theirs
+    unsharded = {"cyl": compiled.run_ranks(record_run, 1, (
+        CYL + dev + [f"-output%name={tmp / 'u_cyl'}"], CYL_STEPS))}
     s4 = dev + shard(4)
     jobs = [("cyl", "run", CYL + s4 + [f"-output%name={tmp / 's_cyl'}"],
              CYL_STEPS),
@@ -142,10 +145,10 @@ def runs(tmp_path_factory):
         compiled.run_ranks(_rank_jobs, 4, (jobs,))))
     spawn.start()
     try:
-        unsharded["1d"] = compiled.record_run(
+        unsharded["1d"] = record_run(
             ONE_D + dev + [f"-output%name={tmp / 'u_1d'}"], ONE_D_STEPS)
         for name, (argv, steps) in BRANCHES.items():
-            unsharded[name] = compiled.record_run(
+            unsharded[name] = record_run(
                 argv + dev + [f"-output%name={tmp / ('u_' + name)}"], steps)
         JSim(argv=[a for a in CYL if a != "-datfile%write=t"]
              + ["-silo_write=f", f"-output%name={tmp / 'j_cyl'}"]
@@ -190,6 +193,9 @@ def test_cyl_main_path_over_four_ranks(runs):
     assert len(u["photoi"]) >= CYL_STEPS // 2 + 1
     assert_same_run(u, s)
     assert s["n_leaf_cells"] == sum(s["leaf_cells"])
+    # both runs' BLAS run one thread: the same bits
+    for x in ("cc", "fc"):
+        np.testing.assert_array_equal(s[x], u[x])
 
 
 def test_cyl_files_equal_unsharded_and_jax(runs):
@@ -270,7 +276,7 @@ def test_checkpoints_restart_across_sharded_unsharded_and_jax(runs,
            for k in range(6)]
     assert its == [0, 4, 5, 6, 7, 8]
     ckpt = f"-restart_from_file={tmp / 's_cyl_000002.dat.npz'}"
-    t = compiled.record_run(CYL + ["-device=cpu", ckpt,
+    t = record_run(CYL + ["-device=cpu", ckpt,
                                    f"-output%name={tmp_path / 't'}"],
                             CYL_STEPS)
     for got in (t, s["restart"]):
