@@ -16,12 +16,8 @@ gas dynamics, the fluid model's variants (the electron energy equation,
 the source factor and the plasma region), every user hook with the
 programs in programs/, the analysis routines, and the writers that are on
 by default: the regression and text logs, the grid files and the
-chemistry files. Every state tensor is float64 by default.
+chemistry files. The state is float64, or float32 under
+``-compiled%enabled=T -compiled%dtype=float32`` (parallel/compiled.py).
 """
 
-import torch
-
 __version__ = "0.1.0"
-
-#: dtype of the simulation state
-DEFAULT_DTYPE = torch.float64

@@ -31,3 +31,16 @@ Townsend_to_SI = 1e-21
 #: Marker for undefined values (reference src/m_types.f90)
 undefined_real = -1e100
 huge_real = 1e100
+
+
+def tiny(dtype) -> float:
+    """The reference's 1e-100 guard in ``dtype`` (a torch dtype): 1e-30 in
+    float32, whose exponent range holds neither 1e-100 nor 1e100, as on the
+    JAX package's traced path (fluid.py:54-62)."""
+    return 1e-100 if dtype.itemsize == 8 else 1e-30
+
+
+def huge(dtype) -> float:
+    """The reference's 1e100 "no limit" sentinel in ``dtype``: 1e30 in
+    float32."""
+    return huge_real if dtype.itemsize == 8 else 1e30

@@ -74,7 +74,7 @@ class GcLevelPlan:
 
     halo = None
 
-    def __init__(self, tree: Tree, lvl: int, device):
+    def __init__(self, tree: Tree, lvl: int, device, dtype=torch.float64):
         ndim, nc = tree.ndim, tree.nc
         self.ndim, self.nc, self.lvl = ndim, nc, lvl
         self.dr = tree.lvl_dr(lvl)
@@ -168,7 +168,7 @@ class GcLevelPlan:
                 p.rb_c = [np.asarray(c, np.int32) for c in rb_c]
                 p.rb_tmp = np.asarray(tmp, np.int32)
                 p.rb_pcopy = np.asarray(pcopy, np.int32)
-            p.d = sp.device_copy(p, device)
+            p.d = sp.device_copy(p, device, dtype)
             self.dirs.append(p)
 
         # ------------------------------------------- edge and corner groups

@@ -41,7 +41,7 @@ class LevelTables:
     level's id list; cell volumes and cylindrical radial flux factors of
     the leaves (af_cyl_volume_cc / af_cyl_flux_factors)."""
 
-    def __init__(self, tree: Tree, lvl: int, device):
+    def __init__(self, tree: Tree, lvl: int, device, dtype=torch.float64):
         ndim, nc = tree.ndim, tree.nc
         self.lvl = lvl
         self.ids = np.asarray(tree.lvl_ids[lvl - 1], np.int32)
@@ -71,7 +71,7 @@ class LevelTables:
             self.vol = np.full((n, nc ** ndim), float(np.prod(dr)))
             self.rfac_lo = None
             self.rfac_hi = None
-        self.d = sp.device_copy(self, device)
+        self.d = sp.device_copy(self, device, dtype)
 
 
 def level_fingerprint(tree: Tree, lvl: int) -> bytes:
@@ -99,9 +99,12 @@ class MeshPlans:
     since it was built. ``epoch`` follows the tree's topology version;
     ``build_seconds`` counts the host time spent building objects."""
 
-    def __init__(self, tree: Tree, device, full: "MeshPlans" = None):
+    def __init__(self, tree: Tree, device, full: "MeshPlans" = None,
+                 dtype=torch.float64):
         self.tree = tree
         self.device = torch.device(device)
+        #: dtype of the state and of the plans' float tables
+        self.dtype = dtype
         #: the MeshPlans of the whole tree (self when unsharded)
         self.full = self if full is None else full
         self.epoch = -1
@@ -120,6 +123,13 @@ class MeshPlans:
         self.epoch = self.tree.epoch
         self._cache = {k: v for k, v in self._cache.items()
                        if v[0] == self.fingerprint(v[1])}
+
+    def set_dtype(self, dtype) -> None:
+        """Build the float tables in ``dtype`` from now on: every cached
+        object is dropped, and the next use rebuilds it."""
+        if dtype != self.dtype:
+            self.dtype = dtype
+            self._cache = {}
 
     def fingerprint(self, lvls: Iterable[int]) -> tuple:
         return tuple(self._fp.get(l) for l in lvls)
@@ -225,12 +235,13 @@ class MeshPlans:
 
     def tb(self, lvl: int) -> LevelTables:
         return self.cached(("tb", lvl),
-                           lambda: LevelTables(self.tree, lvl, self.device),
+                           lambda: LevelTables(self.tree, lvl, self.device,
+                                                     self.dtype),
                            (lvl,))
 
     def gc(self, lvl: int) -> GcLevelPlan:
         return self.cached(("gc", lvl), lambda: self._hooked(
-            GcLevelPlan(self.tree, lvl, self.device)), (lvl,))
+            GcLevelPlan(self.tree, lvl, self.device, self.dtype)), (lvl,))
 
     def pr(self, lvl: int):
         """Restriction plan of the children at ``lvl`` (None at level 1);
@@ -243,7 +254,8 @@ class MeshPlans:
             children = self.tree.children[
                 np.asarray(self.tree.lvl_parents[lvl - 2], np.int64)].ravel()
         return self.cached(("pr", lvl), lambda: self._hooked(
-            ProlongRestrictPlan(self.tree, children, self.device, lvl)),
+            ProlongRestrictPlan(self.tree, children, self.device, lvl,
+                                self.dtype)),
             (lvl,))
 
     def prolong_plan(self, lvl: int, ids) -> ProlongRestrictPlan:
@@ -254,7 +266,7 @@ class MeshPlans:
         if self.layout is not None:
             ids = self.layout.own_rows(ids)[1]
         return self._hooked(ProlongRestrictPlan(self.tree, ids, self.device,
-                                                lvl))
+                                                lvl, self.dtype))
 
     def pr_all(self):
         return [self.pr(l) for l in range(1, self.n_levels + 1)]

@@ -108,7 +108,8 @@ class ProlongRestrictPlan:
 
     halo = None
 
-    def __init__(self, tree: Tree, child_ids, device, lvl: int = 0):
+    def __init__(self, tree: Tree, child_ids, device, lvl: int = 0,
+                 dtype=torch.float64):
         ndim, nc = tree.ndim, tree.nc
         self.ndim, self.nc, self.lvl = ndim, nc, lvl
         self.coord = tree.coord
@@ -132,9 +133,9 @@ class ProlongRestrictPlan:
             r_c = r0[:, None] + (tgt_nd[..., 0] - 0.5) * drp[:, None]
             tmp = 0.25 * drp[:, None] / r_c
             self.cyl_w = np.stack([1.0 - tmp, 1.0 + tmp], axis=-1)
-        self.d = sp.device_copy(self, device)
+        self.d = sp.device_copy(self, device, dtype)
         # host inputs of the prolongation tables (not copied above)
-        self.device = device
+        self.device, self.dtype = device, dtype
         self._prolong = None
         self._parity = tree.ix[self.ch] % 2
         self._r0_par = tree.box_r_min(self.par)[:, 0]
@@ -169,7 +170,7 @@ class ProlongRestrictPlan:
             c1 = per_child(lambda t: t.c1_nd[:, 0])
             drp = self._dr_par[:, None]
             t["cyl_corr"] = -0.25 * drp / (r0 + (c1 - 0.5) * drp)
-        out = sp.device_copy(t, self.device)
+        out = sp.device_copy(t, self.device, self.dtype)
         out.corners = [(w, torch.as_tensor(per_child(
             lambda t, k=k: t.corners[k][1]), dtype=torch.int64,
             device=self.device)) for k, (w, _s) in enumerate(tabs[0].corners)]

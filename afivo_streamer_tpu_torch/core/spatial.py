@@ -105,23 +105,24 @@ def corner_list(ndim: int, nc: int):
     return out
 
 
-def device_copy(obj, device) -> SimpleNamespace:
+def device_copy(obj, device, dtype=torch.float64) -> SimpleNamespace:
     """Device copies of the NumPy array attributes of ``obj`` (a plan object
     or a dict): integer tables become int64 index tensors, float tables
-    float64 tensors. Lists of arrays are copied element-wise; other
+    tensors of ``dtype`` (the state's; built in float64 on the host and
+    cast at the end). Lists of arrays are copied element-wise; other
     attributes are skipped."""
     items = obj.items() if isinstance(obj, dict) else vars(obj).items()
     out = SimpleNamespace()
     for k, v in items:
         if isinstance(v, np.ndarray) and v.dtype != object:
-            setattr(out, k, _tensor(v, device))
+            setattr(out, k, _tensor(v, device, dtype))
         elif (isinstance(v, list) and v
               and all(isinstance(a, np.ndarray) for a in v)):
-            setattr(out, k, [_tensor(a, device) for a in v])
+            setattr(out, k, [_tensor(a, device, dtype) for a in v])
     return out
 
 
-def _tensor(a: np.ndarray, device) -> torch.Tensor:
+def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
     if a.dtype.kind in "iub":
         return torch.as_tensor(a, dtype=torch.int64, device=device)
-    return torch.as_tensor(a, dtype=torch.float64, device=device)
+    return torch.as_tensor(a, dtype=dtype, device=device)

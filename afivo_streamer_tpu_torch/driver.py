@@ -66,7 +66,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import DEFAULT_DTYPE
 from . import constants as uc
 from .core import ghostcell as gc
 from .core import prolong_restrict as pr
@@ -132,7 +131,6 @@ class Simulation:
         self.ndim = ndim
         self.device = resolve_device(cfg.add_get(
             "device", "cuda", "Device of the simulation state (cuda, cpu)"))
-        self.dtype = DEFAULT_DTYPE
 
         # ---- module initialization (initialize_modules order)
         self.model = Model(cfg)
@@ -147,6 +145,10 @@ class Simulation:
         # the compiled engine's options; N > 1 shards run over the ranks of
         # a process group of size N
         self.compiled = CompiledSettings(cfg)
+        #: dtype of the state: float64 for the setup or a restart, as the
+        #: JAX package's host path runs them; run() then switches to the
+        #: compiled engine's compiled%dtype (_enter_state_dtype)
+        self.dtype = torch.float64
         n_shards = self.compiled.n_shards
         self.shards = (Shards(n_shards, self.device.type) if n_shards > 1
                        else None)
@@ -156,6 +158,10 @@ class Simulation:
         self.is_root = self.shards is None or self.shards.rank == 0
         table_settings = TableDataSettings(cfg)
         self.gas = Gas(cfg)
+        if self.gas.dynamics and self.compiled.state_dtype == torch.float32:
+            # the Euler equations of the gas are not ported to float32
+            raise NotImplementedError(
+                "physics/gas_dynamics.py under compiled%dtype=float32")
         if self.user.gas_density is not None and not self.gas.dynamics:
             # the gas density given by a user function (m_gas.f90:146-148)
             self.gas.constant_density = False
@@ -418,6 +424,22 @@ class Simulation:
                 raise NotImplementedError(
                     f"{module} under compiled%shards")
 
+    def _enter_state_dtype(self):
+        """The compiled engine's state dtype from the first step on (JAX
+        driver.py:1188-1200, where run() moves the state to the device in
+        compiled%dtype): the state is cast, and the mesh's plans drop their
+        cached objects, which the run rebuilds with float tables in that
+        dtype. The setup and a restart run in float64: a float32 initial
+        field solve stalls at its rounding floor on fine meshes (about
+        ulp(phi) / dx^2), above the bound of its stagnation test."""
+        dtype = self.compiled.state_dtype
+        if dtype == self.dtype:
+            return
+        self.dtype = dtype
+        self.cc, self.fc = self.cc.to(dtype), self.fc.to(dtype)
+        self.mesh.set_dtype(dtype)
+        self.mesh.full.set_dtype(dtype)
+
     def _rows(self, ids):
         """(tree, rows) to address boxes ``ids`` of the tree in the state:
         the tree and the ids, or in a sharded run the LocalTree and the
@@ -504,19 +526,25 @@ class Simulation:
 
     @contextlib.contextmanager
     def full_view(self):
-        """In a sharded run, the whole state gathered on rank 0 with the
-        whole tree's MeshPlans, for the writers: yields True on the rank
-        that holds it (every rank when unsharded)."""
+        """The state as the writers see it: in float64 (a float32 state is
+        cast, as the JAX package moves it to the host, driver.py:1202-1207)
+        and, in a sharded run, gathered on rank 0 with the whole tree's
+        MeshPlans. Yields True on the rank that holds it (every rank when
+        unsharded)."""
         if self.layout is None:
+            cc, fc, mesh = self.cc, self.fc, self.mesh
+        else:
+            cc = halo.gather_to_root(self.cc, self.layout, 1, self._cap)
+            fc = halo.gather_to_root(self.fc, self.layout, 2, self._cap)
+            mesh = self.mesh.full
+            if not self.is_root:
+                yield False
+                return
+        if self.layout is None and cc.dtype == torch.float64:
             yield True
             return
-        cc = halo.gather_to_root(self.cc, self.layout, 1, self._cap)
-        fc = halo.gather_to_root(self.fc, self.layout, 2, self._cap)
-        if not self.is_root:
-            yield False
-            return
         saved = self.cc, self.fc, self.mesh
-        self.cc, self.fc, self.mesh = cc, fc, self.mesh.full
+        self.cc, self.fc, self.mesh = cc.double(), fc.double(), mesh
         try:
             yield True
         finally:
@@ -886,6 +914,7 @@ class Simulation:
     def run(self, end_time: Optional[float] = None,
             max_steps: Optional[int] = None):
         """The main time loop (streamer.f90:177-415)."""
+        self._enter_state_dtype()
         st = self.st
         end_time = end_time if end_time is not None else st.end_time
         n_states = self.dt_cfg.num_steps
@@ -982,7 +1011,8 @@ class Simulation:
             # global rate accounting
             if self.chem.n_reactions:
                 self.global_rates = (self.global_rates
-                                     + diag["rates"].cpu().numpy() * dt)
+                                     + diag["rates"].to(torch.float64)
+                                     .cpu().numpy() * dt)
             jdote = float(diag["JdotE"])
             self.global_JdotE += jdote * dt
 
@@ -1019,7 +1049,8 @@ class Simulation:
                     self.user.new_pulse_conditions(self)
             self.global_dt = dt
             self.global_time = time
-            self.dt_limits = diag["dt_limits"].cpu().numpy()
+            # float64 on the host (JAX driver.py:1957)
+            self.dt_limits = diag["dt_limits"].to(torch.float64).cpu().numpy()
 
             if self.global_dt < self.dt_cfg.dt_min:
                 if self.is_root:

@@ -22,10 +22,12 @@ In 3D (csrc/smoother_3d.cu):
 * K5 ``fill_3d``: the six face ghosts from the same linear form (edges
   and corners kept).
 
-Each wrapper launches the hand-written CUDA kernel for a CUDA tensor, and
-takes the plain PyTorch version beside it only for a tensor that lies on
-the CPU. Every wrapper counts its kernel launches in its ``launches``
-attribute.
+Each wrapper validates its inputs' shapes and dtypes on every device
+(``_check``), then launches the hand-written CUDA kernel for a CUDA
+tensor, and takes the plain PyTorch version beside it only for a tensor
+that lies on the CPU. Every wrapper counts its kernel launches in its
+``launches`` attribute, and by dtype (float32 or float64, the kernel's
+instantiation) in ``launches_by_dtype``.
 
 In 1D the JAX package smooths with array operations and has no kernel, so
 ``sweep_1d`` and ``fill_1d`` are tensor operations on any device and count
@@ -132,9 +134,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check(phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
-    """Validate device, dtype, shape and contiguity before a launch."""
-    ndim = phi3.dim() - 1
+def _check(ndim, phi3, R=None, mask=None, A=None, g=None, W=None,
+           cs=None):
+    """Validate device, dtype, shape and contiguity of a kernel's inputs,
+    on every device: a mixed dtype that the CPU would promote fails on
+    the card."""
+    if phi3.dim() != ndim + 1:
+        raise ValueError(f"phi3 must have {ndim + 1} dims, got "
+                         f"{tuple(phi3.shape)}")
     if ndim not in (2, 3) or len(set(phi3.shape[1:])) != 1:
         raise ValueError(f"phi3 must be [n, C, C(, C)], got "
                          f"{tuple(phi3.shape)}")
@@ -167,19 +174,12 @@ def _check(phi3, R=None, mask=None, A=None, g=None, W=None, cs=None):
     return n, nc
 
 
-def _launch(mode, ndim, phi3, R=None, mask=None, A=None, g=None, W=None,
-            cs=None):
-    """The kernel of ``mode`` on the blocks phi3; None for no block (a
-    level on which a rank of a sharded run holds no box), which launches
-    nothing."""
+def _launch(mode, ndim, n, nc, phi3, R=None, mask=None, A=None, g=None,
+            W=None, cs=None):
+    """The kernel of ``mode`` on the n blocks phi3 (inputs checked by
+    ``_check``)."""
     if phi3.device.type != "cuda":
         raise ValueError(f"no smoother kernel for device {phi3.device}")
-    if phi3.dim() != ndim + 1:
-        raise ValueError(f"phi3 must have {ndim + 1} dims, got "
-                         f"{tuple(phi3.shape)}")
-    n, nc = _check(phi3, R, mask, A, g, W, cs)
-    if n == 0:
-        return None
     vectors = {"phi3": phi3, "R": R, "mask": mask, "cs": cs}
     for name in _VECTOR_INPUTS.get((ndim, mode), ()):
         if vectors[name].data_ptr() % 16:
@@ -360,73 +360,55 @@ def fill_1d(phi3, A, g, W):
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
+def _run(fn, mode: int, ndim: int, plain, phi3, **inputs):
+    """Wrapper ``fn``: check the inputs, then the plain version for a CPU
+    tensor, else the kernel of ``mode``, counted. A level on which a rank
+    of a sharded run holds no block launches nothing."""
+    n, nc = _check(ndim, phi3, **inputs)
+    if phi3.device.type == "cpu":
+        return plain(phi3, **inputs)
+    if n == 0:
+        return phi3.clone()
+    out = _launch(mode, ndim, n, nc, phi3, **inputs)
+    fn.launches += 1
+    fn.launches_by_dtype[phi3.dtype] += 1
+    return out
+
+
 def sweep_2d(phi3, R, mask, g, cs):
     """K2: one red-black half sweep on the blocks' current ghosts."""
-    if phi3.device.type == "cpu":
-        return sweep_2d_plain(phi3, R, mask, g, cs)
-    out = _launch(_MODE_SWEEP, 2, phi3, R=R, mask=mask, g=g, cs=cs)
-    if out is None:
-        return phi3.clone()
-    sweep_2d.launches += 1
-    return out
+    return _run(sweep_2d, _MODE_SWEEP, 2, sweep_2d_plain, phi3, R=R,
+                mask=mask, g=g, cs=cs)
 
 
 def fill_2d(phi3, A, g, W):
     """K3: side-ghost exchange of every block."""
-    if phi3.device.type == "cpu":
-        return fill_2d_plain(phi3, A, g, W)
-    out = _launch(_MODE_FILL, 2, phi3, A=A, g=g, W=W)
-    if out is None:
-        return phi3.clone()
-    fill_2d.launches += 1
-    return out
+    return _run(fill_2d, _MODE_FILL, 2, fill_2d_plain, phi3, A=A, g=g, W=W)
 
 
 def fill_2d_swap(phi3, A, g, W):
     """K3-swap: side-ghost exchange of every block with the parity-swap
     terms of the extrapolating refinement-boundary ghosts."""
-    if phi3.device.type == "cpu":
-        return fill_2d_swap_plain(phi3, A, g, W)
-    out = _launch(_MODE_FILL_SWAP, 2, phi3, A=A, g=g, W=W)
-    if out is None:
-        return phi3.clone()
-    fill_2d_swap.launches += 1
-    return out
+    return _run(fill_2d_swap, _MODE_FILL_SWAP, 2, fill_2d_swap_plain, phi3,
+                A=A, g=g, W=W)
 
 
 def fill_sweep_2d(phi3, R, mask, A, g, W, cs):
     """K1: side-ghost exchange, then a red-black half sweep on the filled
     blocks."""
-    if phi3.device.type == "cpu":
-        return fill_sweep_2d_plain(phi3, R, mask, A, g, W, cs)
-    out = _launch(_MODE_FILL_SWEEP, 2, phi3, R=R, mask=mask, A=A, g=g, W=W,
-                  cs=cs)
-    if out is None:
-        return phi3.clone()
-    fill_sweep_2d.launches += 1
-    return out
+    return _run(fill_sweep_2d, _MODE_FILL_SWEEP, 2, fill_sweep_2d_plain,
+                phi3, R=R, mask=mask, A=A, g=g, W=W, cs=cs)
 
 
 def sweep_3d(phi3, R, mask, g, cs):
     """K4: one 3D red-black half sweep on the blocks' current ghosts."""
-    if phi3.device.type == "cpu":
-        return sweep_3d_plain(phi3, R, mask, g, cs)
-    out = _launch(_MODE_SWEEP, 3, phi3, R=R, mask=mask, g=g, cs=cs)
-    if out is None:
-        return phi3.clone()
-    sweep_3d.launches += 1
-    return out
+    return _run(sweep_3d, _MODE_SWEEP, 3, sweep_3d_plain, phi3, R=R,
+                mask=mask, g=g, cs=cs)
 
 
 def fill_3d(phi3, A, g, W):
     """K5: face-ghost exchange of every 3D block."""
-    if phi3.device.type == "cpu":
-        return fill_3d_plain(phi3, A, g, W)
-    out = _launch(_MODE_FILL, 3, phi3, A=A, g=g, W=W)
-    if out is None:
-        return phi3.clone()
-    fill_3d.launches += 1
-    return out
+    return _run(fill_3d, _MODE_FILL, 3, fill_3d_plain, phi3, A=A, g=g, W=W)
 
 
 KERNELS = {"fill_sweep_2d": fill_sweep_2d, "sweep_2d": sweep_2d,
@@ -440,6 +422,7 @@ PLAIN = {"fill_sweep_2d": fill_sweep_2d_plain, "sweep_2d": sweep_2d_plain,
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        fn.launches_by_dtype = {torch.float32: 0, torch.float64: 0}
 
 
 reset_launch_counts()

@@ -6,7 +6,12 @@ the inner loop of ``-compiled%enabled=T`` through jitted device units; this
 package runs every step on the device already, so ``compiled%enabled``
 runs the ordinary path. ``compiled%fused``, ``compiled%prepad`` and
 ``compiled%warm_next_level`` steer XLA compilation and are read without
-effect. ``compiled%dtype=float32`` is not ported.
+effect. ``compiled%dtype=float32`` holds the state and every device array
+of the step in float32 (JAX driver.py:1188-1207): the setup (or a
+restart's reading) runs in float64, the first step of ``run`` casts the
+state, and from then on the simulation's ``dtype`` is float32, constants
+are built in float64 and cast to the operand's dtype, and the host
+machinery (writers, checkpoints) sees float64.
 
 ``-compiled%shards=N`` (N > 1; rounded down to a power of two, as the JAX
 package rounds its mesh) runs the simulation over N ranks of a
@@ -56,8 +61,7 @@ class CompiledSettings:
             "step runs on the device in this package)")
         self.dtype = cfg.add_get(
             "compiled%dtype", "float64",
-            "Device dtype of the compiled step (float64; float32 is not "
-            "ported)")
+            "Device dtype of the compiled step (float64 or float32)")
         self.fused = cfg.add_get(
             "compiled%fused", True,
             "Fuse each time step into one XLA dispatch (no effect here)")
@@ -73,9 +77,16 @@ class CompiledSettings:
         self.warm_next_level = cfg.add_get(
             "compiled%warm_next_level", "auto",
             "Pre-compile the next level's XLA executable (no effect here)")
-        if self.enabled and self.dtype != "float64":
-            raise NotImplementedError(
-                f"parallel/compiled.py: compiled%dtype={self.dtype}")
+
+    @property
+    def state_dtype(self) -> torch.dtype:
+        """dtype of the simulation state: float32 under
+        ``-compiled%enabled=T -compiled%dtype=float32``, else float64
+        (compiled%dtype has no effect without the compiled engine, and any
+        other value is float64, JAX driver.py:306-314, 1192)."""
+        if self.enabled and self.dtype == "float32":
+            return torch.float32
+        return torch.float64
 
     @property
     def n_shards(self) -> int:

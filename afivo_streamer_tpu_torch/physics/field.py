@@ -426,15 +426,15 @@ class FieldSolver:
             cshape = (len(sel),) + (nc,) * ndim
             dev = self.mesh.device
 
-            def f64(a, shape):
-                return torch.as_tensor(a.reshape(shape), dtype=torch.float64,
-                                       device=dev)
+            def real(a, shape):
+                return torch.as_tensor(a.reshape(shape),
+                                       dtype=self.mesh.dtype, device=dev)
             return {"boxes": torch.as_tensor(data["ids"][sel],
                                              dtype=torch.int64, device=dev),
-                    "dd": f64(data["dd"][sel], cshape + (2 * ndim,)),
+                    "dd": real(data["dd"][sel], cshape + (2 * ndim,)),
                     "outside": torch.as_tensor(
                         data["lsf_cc"][sel].reshape(cshape) >= 0, device=dev),
-                    "bc_coeff": f64(data["bc_coeff"][sel], cshape)}
+                    "bc_coeff": real(data["bc_coeff"][sel], cshape)}
         return self.mesh.cached(("lsf_grad", self.lsf_data, lvl), make,
                                 (lvl,))
 
@@ -463,9 +463,9 @@ class FieldSolver:
                 m_lo = (dd[..., 2 * d] < 1) & tab["outside"]
                 m_hi = (dd[..., 2 * d + 1] < 1) & tab["outside"]
                 v_lo = inv_dr * (phi - bc_val) / torch.clamp(
-                    dd[..., 2 * d], min=1e-100)
+                    dd[..., 2 * d], min=uc.tiny(cc.dtype))
                 v_hi = inv_dr * (bc_val - phi) / torch.clamp(
-                    dd[..., 2 * d + 1], min=1e-100)
+                    dd[..., 2 * d + 1], min=uc.tiny(cc.dtype))
                 lo = (slice(None),) + tuple(
                     slice(0, nc) if k == d else slice(None)
                     for k in range(ndim))

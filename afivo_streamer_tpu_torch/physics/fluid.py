@@ -52,11 +52,6 @@ from .transport_data import (TD_MOBILITY, TD_DIFFUSION, TD_EE_MOBILITY,
 #: energy fluxes are 5/3 times the electron flux (m_fluid.f90:122)
 FIVE_THIRD = 5.0 / 3.0
 
-#: the reference's 1e-100 guard and 1e100 "no limit" sentinel
-#: (fluid.py:54-62 of the JAX package; float64 holds both)
-TINY = 1e-100
-HUGE = 1e100
-
 
 # --------------------------------------------------------------------------
 # 2-ghost extended-array plan (af_gc2_box)
@@ -66,7 +61,7 @@ class Gc2LevelPlan:
     for the leaves of one level. Reference coordinates -1..nc+2 map to
     extended indices 0..nc+3 (shift +1)."""
 
-    def __init__(self, tree: Tree, lvl: int, device):
+    def __init__(self, tree: Tree, lvl: int, device, dtype=torch.float64):
         ndim, nc = tree.ndim, tree.nc
         self.ndim, self.nc, self.lvl = ndim, nc, lvl
         hnc = nc // 2
@@ -192,13 +187,13 @@ class Gc2LevelPlan:
                         [v[:, k] for k in range(ndim)],
                         [nc + 4] * ndim).astype(np.int32)
                 info["rb_targets"] = {
-                    s: sp.device_copy({"t": t}, device).t
+                    s: sp.device_copy({"t": t}, device, dtype).t
                     for s, t in targets.items()}
                 # sign tuple position k -> actual dim
                 info["rb_sign_dims"] = [dim] + tdims
-            info["d"] = sp.device_copy(info, device)
+            info["d"] = sp.device_copy(info, device, dtype)
             self.dirs.append(info)
-        self.d = sp.device_copy(self, device)
+        self.d = sp.device_copy(self, device, dtype)
 
 
 def gc2_extend(cc, plan: Gc2LevelPlan, ivs, bc_fn, params,
@@ -272,16 +267,18 @@ class ConsistentGroup:
     boxes ``nbs`` take the weighted mean of fine faces ``src`` of their
     neighbors' children ``chs``."""
 
-    def __init__(self, d, dim, nbs, chs, tgt, src, w, device):
+    def __init__(self, d, dim, nbs, chs, tgt, src, w, device,
+                 dtype=torch.float64):
         self.d, self.dim = d, dim
         t = sp.device_copy({"nbs": nbs, "chs": chs, "tgt": tgt}, device)
         self.nbs, self.chs, self.tgt = t.nbs, t.chs, t.tgt
         self.src = [sp.device_copy({"a": a}, device).a for a in src]
-        self.w = [sp.device_copy({"a": a}, device).a for a in w]
+        self.w = [sp.device_copy({"a": a}, device, dtype).a for a in w]
 
 
 def build_consistent_plan(tree: Tree, device, parents=None,
-                          n_own: int = None) -> List[ConsistentGroup]:
+                          n_own: int = None,
+                          dtype=torch.float64) -> List[ConsistentGroup]:
     """The flux-matching groups of a mesh (af_consistent_fluxes,
     ``m_af_core.f90:1257-1404``): per (coarse level, direction), the
     coarse faces next to a fine box and the 2^(ndim-1) fine faces over
@@ -348,14 +345,14 @@ def build_consistent_plan(tree: Tree, device, parents=None,
                     weights[si][pi] = ((1.0 - tmp) if bits[0] == 0
                                        else (1.0 + tmp))
         plan.append(ConsistentGroup(d, dim, nbs, chs, tgt_idx, src_idx,
-                                    weights, device))
+                                    weights, device, dtype))
     return plan
 
 
 def gc2_plan(mesh, lvl: int) -> Gc2LevelPlan:
     """The 2-ghost plan of a level, cached with the mesh."""
     return mesh.cached(("gc2", lvl), lambda: Gc2LevelPlan(
-        mesh.tree, lvl, mesh.device), (lvl,))
+        mesh.tree, lvl, mesh.device, mesh.dtype), (lvl,))
 
 
 def consistent_plan(mesh) -> List[ConsistentGroup]:
@@ -363,7 +360,7 @@ def consistent_plan(mesh) -> List[ConsistentGroup]:
     return mesh.cached("consistent", lambda: build_consistent_plan(
         mesh.tree, mesh.device,
         [mesh.parents_held(l) for l in range(1, mesh.n_levels + 1)],
-        mesh.n_own))
+        mesh.n_own, mesh.dtype))
 
 
 def consistent_fluxes(fc, groups: List[ConsistentGroup], flux_fc: List[int]):
@@ -462,7 +459,7 @@ class FluidModel:
                               use_geometry=True)
 
         inv_max_cfl = torch.zeros((), **dev)
-        max_sigma = torch.full((), TINY, **dev)
+        max_sigma = torch.full((), uc.tiny(cc.dtype), **dev)
         N_inv = self.gas.inverse_number_density
         sign_t = self.mesh.cached(
             ("flux_sign", cc.dtype),
@@ -578,7 +575,7 @@ class FluidModel:
         self.mesh.halo(fc, range(2, t.highest_lvl + 1), idx.flux_fc,
                        fc=True)
         fc = consistent_fluxes(fc, consistent_plan(self.mesh), idx.flux_fc)
-        dt_cfl = 1.0 / torch.clamp(inv_max_cfl, min=TINY)
+        dt_cfl = 1.0 / torch.clamp(inv_max_cfl, min=uc.tiny(cc.dtype))
         dt_drt = uc.eps0 / (uc.elem_charge * max_sigma)
         return cc, fc, dt_cfl, dt_drt
 
@@ -592,8 +589,8 @@ class FluidModel:
         idx = self.idx
         nc, ndim = t.nc, t.ndim
         dev = dict(dtype=cc.dtype, device=cc.device)
-        dt_chem = torch.full((), HUGE, **dev)
-        dt_other = torch.full((), HUGE, **dev)
+        dt_chem = torch.full((), uc.huge(cc.dtype), **dev)
+        dt_other = torch.full((), uc.huge(cc.dtype), **dev)
         has_ee = idx.i_electron_energy >= 0
         total_rates = torch.zeros(self.chem.n_reactions, **dev)
         total_JdotE = torch.zeros((), **dev)
@@ -684,11 +681,11 @@ class FluidModel:
             dr_flat = derivs.reshape(dflat.shape)
             if self.dt_cfg.chemistry_nmin > 0:
                 tmp = ((dflat + self.dt_cfg.chemistry_nmin)
-                       / torch.clamp(dr_flat.abs(), min=TINY))
+                       / torch.clamp(dr_flat.abs(), min=uc.tiny(cc.dtype)))
                 dt_chem = torch.minimum(dt_chem, tmp.min())
             elif self.dt_cfg.chemistry_limit_loss:
-                tmp = (torch.clamp(dflat, min=TINY)
-                       / torch.clamp(-dr_flat, min=TINY))
+                tmp = (torch.clamp(dflat, min=uc.tiny(cc.dtype))
+                       / torch.clamp(-dr_flat, min=uc.tiny(cc.dtype)))
                 dt_chem = torch.minimum(dt_chem, tmp.min())
 
             if last_step:
@@ -731,8 +728,9 @@ class FluidModel:
                 restr = torch.where(
                     tmp > 0.0,
                     tmp / torch.clamp(
-                        self.td.ee_tbl.get_col(TD_EE_LOSS, tmp), min=TINY),
-                    HUGE)
+                        self.td.ee_tbl.get_col(TD_EE_LOSS, tmp),
+                        min=uc.tiny(cc.dtype)),
+                    uc.huge(cc.dtype))
                 dt_other = torch.minimum(dt_other, restr)
 
             # apply source terms (plasma species only; the gas species are

@@ -238,8 +238,9 @@ class Photoionization:
         rows, ghost cells included."""
         t = self.tree
         cc[self.i_photo, self.mesh.all_ids()] = 0.0
+        # the floor is the state's (JAX photoi.py:280-283)
         max_rhs = max(tree_maxabs_cc(cc, self.mesh, self.i_rhs),
-                      math.sqrt(np.finfo(np.float64).eps))
+                      math.sqrt(torch.finfo(cc.dtype).eps))
         leaves = self.mesh.cached("all_leaves", lambda: torch.as_tensor(
             np.concatenate([self.mesh.tb(l).leaves
                             for l in range(1, t.highest_lvl + 1)]),

@@ -39,13 +39,14 @@ _MAX_DENSE = 32768  # beyond this a dense inverse is unreasonable
 
 
 def make_coarse_solver(tree: Tree, sides_bc: Callable, lam: float, device,
-                       level1_op=None):
+                       level1_op=None, dtype=torch.float64):
     """The level-1 solver (JAX ``make_coarse_solver``): the dense inverse up
     to 32,768 unknowns or with a per-cell operator, else the uniform-grid
-    multigrid."""
+    multigrid. Its device tables are built in float64 and cast to
+    ``dtype``, the state's (JAX coarse.py:231, 494)."""
     if int(np.prod(tree.coarse_grid_size)) > _MAX_DENSE and level1_op is None:
-        return UniformCoarseMG(tree, sides_bc, lam, device)
-    return CoarseSolver(tree, sides_bc, lam, device, level1_op)
+        return UniformCoarseMG(tree, sides_bc, lam, device, dtype)
+    return CoarseSolver(tree, sides_bc, lam, device, level1_op, dtype)
 
 
 def _rows_map(tree: Tree, shape) -> np.ndarray:
@@ -64,7 +65,7 @@ def _rows_map(tree: Tree, shape) -> np.ndarray:
 
 class CoarseSolver:
     def __init__(self, tree: Tree, sides_bc: Callable, lam: float, device,
-                 level1_op=None):
+                 level1_op=None, dtype=torch.float64):
         self.tree = tree
         self.sides_bc = sides_bc
         ndim, nc = tree.ndim, tree.nc
@@ -178,13 +179,12 @@ class CoarseSolver:
 
         self.A_inv = np.linalg.inv(A)
         self.d = sp.device_copy(
-            {"A_inv": self.A_inv, "rows_map": rows_map}, device)
+            {"A_inv": self.A_inv, "rows_map": rows_map}, device, dtype)
         self.d.lsf_rhs = (None if lsf_rhs is None else torch.as_tensor(
-            lsf_rhs, dtype=torch.float64, device=device))
+            lsf_rhs, dtype=dtype, device=device))
         self.d.bc_rows = [torch.as_tensor(r, dtype=torch.int64, device=device)
                           for r in self.bc_rows]
-        self.d.bc_coeff = [torch.as_tensor(c, dtype=torch.float64,
-                                           device=device)
+        self.d.bc_coeff = [torch.as_tensor(c, dtype=dtype, device=device)
                            for c in self.bc_coeff]
 
     def solve_blocks(self, P1, R1, i_phi: int, params):
@@ -243,11 +243,12 @@ class UniformCoarseMG:
     #: stop coarsening at or below this many unknowns and solve densely
     MIN_DENSE = 2048
 
-    def __init__(self, tree: Tree, sides_bc: Callable, lam: float, device):
+    def __init__(self, tree: Tree, sides_bc: Callable, lam: float, device,
+                 dtype=torch.float64):
         self.tree = tree
         self.sides_bc = sides_bc
         self.lam = lam
-        self.device = device
+        self.device, self.dtype = device, dtype
         ndim, nc = tree.ndim, tree.nc
         self.ndim = ndim
         self.shape = tuple(int(x) for x in tree.coarse_grid_size)
@@ -315,8 +316,9 @@ class UniformCoarseMG:
         self._masks = {}
         self._rows = self._dev(_rows_map(tree, self.shape), torch.int64)
 
-    def _dev(self, a, dtype=torch.float64):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+    def _dev(self, a, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(a),
+                               dtype=self.dtype if dtype is None else dtype,
                                device=self.device)
 
     def _coef(self, c):
@@ -489,6 +491,12 @@ class UniformCoarseMG:
         rhs_scale = float(rhs.abs().max())
         for it in range(self.MAX_VCYCLES):
             u = self._vcycle(u, rhs, 0, bvals)
+            if rhs.dtype == torch.float32:
+                # float32 does not reach the 1e-10 residual: 4 V-cycles,
+                # as the JAX package's traced path runs (coarse.py:560-564)
+                if it >= 3:
+                    break
+                continue
             res = float((rhs - self._apply(u, 0, bvals)).abs().max())
             if res <= self.TOL * max(rhs_scale, 1e-300):
                 break

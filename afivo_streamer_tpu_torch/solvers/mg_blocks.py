@@ -111,7 +111,7 @@ class LevelBlockPlan:
                 (w, dev(np.concatenate([t.corners[k][1] for t in tabs])))
                 for k, (w, _s) in enumerate(tabs[0].corners)]
             self.cyl_w = (None if prp.cyl_w is None
-                          else dev(prp.cyl_w[order], torch.float64))
+                          else dev(prp.cyl_w[order], mesh.dtype))
             m = np.zeros(self.n_c, bool)
             m[pos_c[parents]] = True
             self.parent_mask = dev(m, torch.bool)

@@ -240,7 +240,8 @@ class Multigrid:
         per_cell = self.eps_data is not None or self.lsf_data is not None
         return self._get(("coarse",), lambda: make_coarse_solver(
             self.mesh.full.tree, self.sides_bc, self.lam, self.mesh.device,
-            level1_op=self.op(1) if per_cell else None), ())
+            level1_op=self.op(1) if per_cell else None,
+            dtype=self.mesh.dtype), ())
 
     # --------------------------------------------------------- cycles
     def fill_ghosts_phi(self, cc, params):
@@ -268,7 +269,7 @@ class Multigrid:
                           len(t.lvl_ids[l - 1]), axis=0)
                 for l in range(1, self.n_levels + 1)])
             return (self.mesh.all_ids(),
-                    torch.as_tensor(inv_dr, dtype=torch.float64,
+                    torch.as_tensor(inv_dr, dtype=self.mesh.dtype,
                                     device=self.mesh.device))
         return self._get(("ids_inv_dr",), make)
 

@@ -204,11 +204,36 @@ failure exits non-zero):
    each rank's leaf cells, rows, K1-K3 launches per step, halo exchanges
    and level gathers per step (calls, bytes, host ms), peak device memory
    and the device busy share of two more steps. It runs last.
-Phases 9 to 15 and 17 run after phase 3x and before phase 4: after the
-long profiler traces of phases 6 to 8 the host has been seen to run slower
-for the rest of the process. Phases 3e, 3h and the cylindrical run of 3u
-take 4 steps, and phase 3x's sharded runs start before phase 3r and end
-after phase 3w, so that the script stays well within its time.
+3y. the compiled engine's float32 state (-compiled%enabled=T
+   -compiled%dtype=float32; the setup runs in float64, as the JAX
+   package's host path runs it, and the first step casts the state) at the
+   committed sizes: air_cyl_amr_slice.cfg and air_3d_amr_slice.cfg with
+   refinement frozen, photoionization every 2 steps, 4 steps each, on the
+   card against the CPU (every variable within 1e-4 of its scale, rhs on
+   the leaves) and against the card's float64 run (the regression log's
+   observables within 1e-3), every launch of the run float32; then the
+   cylindrical slice with live refinement in float32 and in float64 on the
+   card, whether the meshes are the same (reported);
+19. the main path at full size in float32: phase 7's flags and the
+   float32 state, 6 steps, right after phase 7: ms per step against phase
+   7's, seconds per epoch, ms per photoionization update, FMG and V-cycle
+   counts, K1-K3 float32 launches per step, peak memory and memory in use
+   against phase 7's, the busy share; it fails unless every launch of the
+   run is float32, the state float32 and the regression log's observables
+   after the run within 1e-2 of phase 7's (the JAX package's limit for its
+   live-refinement float32 run, tests/test_tpu_hardware.py:110-135); the
+   meshes are reported. Then (2b) K1, K2 and K3 in float32 on the finest
+   and the largest level of the Helmholtz mode with the largest lambda,
+   held against their plain versions (tolerance 2e-5) and timed.
+The cuda-vs-cpu phases 3 to 3y run right after phase 2 in four worker
+processes (WORKER_GROUPS: this script with ``--worker K``, WORKER_THREADS
+threads each), together and beside phase 3x's ranks; each worker's log
+is printed when it ends. Every measurement (phases 2 and 4 to 19) runs
+alone on the card. Phases 9 to 15 and 17 run after phase 3x and before
+phase 4: after the long profiler traces of phases 6 to 8 the host has been
+seen to run slower for the rest of the process. Phases 3e, 3h and the
+cylindrical run of 3u take 4 steps, so that the script stays well within
+its time.
 
 The launch counts are set to 0 just before each full-size run and read
 just after it. The line before the last is a JSON object with one entry
@@ -216,8 +241,8 @@ per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
 ``launches_by_phase`` holds every full-size run's, those of phases 9 and
-11 to 18 among them, and phase 3x's; a sharded phase's count is summed
-over its runs and ranks);
+11 to 19 among them (phase 19's are float32 launches), and phase 3x's; a
+sharded phase's count is summed over its runs and ranks);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -225,6 +250,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -346,6 +372,18 @@ EE_FULL_STEPS = 6
 #: the 1D slice at a user's size (phase 10): flags and steps
 ONED_FULL = (["-refine_max_dx=1e-6", "-refine_min_dx=1e-6"], 10)
 DT_LIMIT_NAMES = ("cfl", "drt", "chem", "energy loss")
+#: the compiled engine's float32 state (phases 3y and 19)
+F32_FLAGS = ["-compiled%enabled=T", "-compiled%dtype=float32"]
+#: phase 3y: steps of each run, and its limits: the card against the CPU
+#: in float32 (each variable's deviation over its scale), the card's
+#: float32 run against its float64 run (the regression log's observables)
+F32_SMALL_STEPS = 4
+F32_CPU_TOL, F32_F64_RTOL = 1e-4, 1e-3
+#: phase 19: the regression log's observables against phase 7's (the JAX
+#: package's limit for its live-refinement float32 run against float64,
+#: tests/test_tpu_hardware.py:110-135), and phase 7's peak memory of PR 13
+F32_MAIN_RTOL = 1e-2
+P7_PEAK_GB = 0.338
 SOURCE = {2: "afivo_streamer_tpu_torch/csrc/smoother.cu",
           3: "afivo_streamer_tpu_torch/csrc/smoother_3d.cu"}
 REPLACES = {"fill_sweep_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:397",
@@ -408,7 +446,9 @@ NO_LIBRARY_CALL = {
             "weights"}
 
 
-T_START = time.perf_counter()
+#: a worker's log counts from its parent's start (perf_counter reads the
+#: system's monotonic clock, the same in every process)
+T_START = float(os.environ.get("CHIP_SMOKE_T0", time.perf_counter()))
 
 
 def log(msg):
@@ -487,11 +527,9 @@ def device_us(torch, fns, reps=20, tries=10):
         fn()
     torch.cuda.synchronize()
     reps = max(reps, len(fns))
-    cuda = torch.autograd.DeviceType.CUDA
     for attempt in range(tries):
         pads = PAD_SPINS << min(attempt, 6)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(pads):
                 torch.cuda._sleep(1000)
             for i in range(reps):
@@ -499,18 +537,30 @@ def device_us(torch, fns, reps=20, tries=10):
             for _ in range(pads):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        dev = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == cuda and e.count > 0
-               and "spin_kernel" not in e.key]
-        per_call = [max(1, round(e.count / reps)) for e in dev]
-        seen = sum(e.count for e in dev)
+        dev = [(key, n, us) for key, (n, us) in device_events(torch, prof)
+               if "spin_kernel" not in key]
+        per_call = [max(1, round(n / reps)) for _key, n, _us in dev]
+        seen = sum(n for _key, n, _us in dev)
         if dev and seen >= 0.75 * reps * sum(per_call):
-            return sum(e.self_device_time_total / e.count * k
-                       for e, k in zip(dev, per_call))
+            return sum(us / n * k for (_key, n, us), k in zip(dev, per_call))
         log(f"device time: the trace of {reps} calls holds "
-            f"{[(e.key[:50], e.count) for e in dev]}; tracing again")
+            f"{[(key[:50], n) for key, n, _us in dev]}; tracing again")
         time.sleep(0.2)
     raise RuntimeError("torch.profiler dropped device events in every try")
+
+
+def device_events(torch, prof):
+    """(kernel name, (events, microseconds)) of the device events of a
+    trace, read from the profiler's raw events: key_averages builds the
+    tree of every event first, which took 31 s for a trace of two steps of
+    the main path on the card."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            n, us = out.get(e.name(), (0, 0.0))
+            out[e.name()] = (n + 1, us + 1e-3 * e.duration_ns())
+    return out.items()
 
 
 def enqueue_us(torch, fn, reps=200):
@@ -1164,6 +1214,8 @@ def record_run(argv, max_steps, after=None):
     layout = sim.layout
     per_rank = {
         "launches": {name: fn.launches for name, fn in ks.KERNELS.items()},
+        "launches_f32": {name: fn.launches_by_dtype[torch.float32]
+                         for name, fn in ks.KERNELS.items()},
         "rows": sim.cc.shape[1], "seconds": seconds,
         "peak_bytes": (torch.cuda.max_memory_allocated(sim.device)
                        if cuda else 0),
@@ -1190,6 +1242,7 @@ def record_run(argv, max_steps, after=None):
         ids = np.nonzero(sim.tree.in_use[:sim.tree.highest_id])[0]
         out.update(
             ranks=ranks, it=sim.it, time=sim.global_time,
+            dtype=str(sim.dtype).replace("torch.", ""),
             dt=sim.global_dt, ids=ids, names=list(sim.registry.cc_names),
             cc=sim.cc[:, ids].cpu().numpy(),
             fc=sim.fc[:, :, ids].cpu().numpy(),
@@ -1462,7 +1515,7 @@ def check_energy_model(torch, sim, limits, phase, nonnegative=False):
 
 def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
                    phase=None, cfg=None, table=TABLE, steps=None,
-                   record=None):
+                   record=None, against=None):
     """Phase 7 (the main path: cylindrical) and 8 (3D): the slice with live
     refinement and photoionization at the card's size; returns the launch
     counts of the run's kernels, and fills ``record`` (when given) with ms
@@ -1471,11 +1524,17 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
     dt at every attempted step. Then phase 2b: the run's kernels on the
     finest level of the Helmholtz mode with the largest lambda. Phase 9:
     the same run of ``cfg`` (the cylindrical slice under ee53) with the
-    checks of the energy model, without phase 2b and the busy share."""
-    variant = phase is not None
+    checks of the energy model, without phase 2b and the busy share.
+    Phase 19: phase 7 with the float32 state (F32_FLAGS), held against
+    phase 7's record ``against`` (check_float32_main_path), with phase 2b
+    in float32. ``record`` also gets a last row of the regression log: the
+    state after the run."""
+    variant = phase not in (None, "19")
     phase = phase or ("7" if ndim == 2 else "8")
     cfg = cfg or AMR_CFG[ndim]
     extra, full_steps, min_cells = AMR_FULL[ndim]
+    if phase == "19":
+        extra = extra + F32_FLAGS
     steps = steps or full_steps
     names = PATH_KERNELS[ndim]
     free_earlier_runs(torch)
@@ -1490,6 +1549,8 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
     if sim.model.has_energy_equation:
         record_dt_limits(sim, limits)
     setup_launches = {k: ks.KERNELS[k].launches for k in names}
+    setup_by_dtype = {k: dict(fn.launches_by_dtype)
+                      for k, fn in ks.KERNELS.items()}
     setup_build = sim.mesh.build_seconds
     t = sim.tree
     cells0 = sum(len(l) for l in t.lvl_leaves) * t.nc ** ndim
@@ -1505,10 +1566,20 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {k: ks.KERNELS[k].launches for k in names}
+    # the run's launches by dtype (the setup runs in float64)
+    by_dtype = {k: {d: c - setup_by_dtype[k][d]
+                    for d, c in fn.launches_by_dtype.items()}
+                for k, fn in ks.KERNELS.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if record is not None:
+        # the state after the run as a last row of the regression log
+        with sim.full_view():
+            sim.output.regression_log(sim, sim.out_cnt + 1)
         # copies: the busy share's steps below would extend the lists
         record.update(
+            rtest=f"{sim.output.name}_rtest.log", peak_gb=peak_gb,
+            in_use_gb=torch.cuda.memory_allocated() / 1e9,
+            dtype=str(sim.cc.dtype), by_dtype=by_dtype,
             ms_step=1e3 * (t2 - t1) / steps, solves=list(solves),
             dts=[float(d) for d in dts],
             per_step={k: round((launches[k] - setup_launches[k]) / steps, 2)
@@ -1573,6 +1644,8 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
         check_energy_model(torch, sim, limits, phase)
     if variant:
         return launches
+    if phase == "19":
+        check_float32_main_path(torch, sim, record, against)
 
     # V-cycle times on the final state: the field solve, and the Helmholtz
     # mode with the largest lambda on the photoionization source (set_src
@@ -1593,7 +1666,7 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
         f"{vc_h_ms:.3f} ms per V-cycle and {fmg_h_ms:.3f} ms per FMG cycle "
         f"of Helmholtz mode {mode + 1} (lambda = "
         f"{sim.photoi.lambdas[mode]:.6g} 1/m; {t.highest_lvl} levels, "
-        f"float64)")
+        f"{str(sim.cc.dtype).split('.')[1]})")
     largest = max(range(1, t.highest_lvl + 1),
                   key=lambda l: len(t.lvl_ids[l - 1]))
     for lvl in sorted({t.highest_lvl, largest}, reverse=True):
@@ -1606,6 +1679,160 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
     log(f"phase {phase}: device busy share: "
         f"{busy_share(torch, sim, ms_step)}")
     return launches
+
+
+def check_float32_main_path(torch, sim, rec, p7):
+    """Phase 19's gate: every smoother launch of the run float32 (K1-K3
+    launched; the setup runs in float64, as the JAX package's host path
+    runs it), the state float32, the regression log's observables after
+    the run within F32_MAIN_RTOL of phase 7's; and its report against
+    phase 7's: ms per step, peak memory, the meshes, the cycle counts."""
+    import numpy as np
+    f64 = {k: c[torch.float64] for k, c in rec["by_dtype"].items()
+           if c[torch.float64]}
+    f32 = {k: c[torch.float32] for k, c in rec["by_dtype"].items()}
+    a = np.loadtxt(p7["rtest"], skiprows=1, ndmin=2)
+    b = np.loadtxt(rec["rtest"], skiprows=1, ndmin=2)
+    rel = (np.abs(b[:, 1:] - a[:, 1:])
+           / np.maximum(np.abs(a[:, 1:]), 1e-300)).max() if \
+        a.shape == b.shape else float("inf")
+    same_meshes = rec["meshes"] == p7["meshes"]
+    log(f"phase 19: float32 against phase 7 (float64) in this call: "
+        f"{rec['ms_step']:.2f} against {p7['ms_step']:.2f} ms per step "
+        f"({rec['ms_step'] / p7['ms_step']:.3f} times); peak memory "
+        f"{rec['peak_gb']:.3f} GB against {p7['peak_gb']:.3f} GB (PR 13: "
+        f"{P7_PEAK_GB} GB; both from before the setup, which runs in "
+        f"float64), memory in use after the run {rec['in_use_gb']:.3f} GB "
+        f"against {p7['in_use_gb']:.3f} GB; launches by dtype float32 "
+        f"{f32}, float64 "
+        f"{f64 or 'none'}; K1-K3 float32 per step of the run "
+        f"{rec['per_step']} against phase 7's {p7['per_step']}; (FMG, "
+        f"V-cycle) counts of the field solves {rec['solves']} against "
+        f"{p7['solves']}; FMG cycles per mode at the updates "
+        f"{rec['updates']} against {p7['updates']}; the same meshes as "
+        f"phase 7 at {len(p7['meshes'])} meshes: {same_meshes} (reported, "
+        f"not required: live refinement may flip a marginal flag); the "
+        f"regression log's observables (time, dt, sums, maxima) at setup "
+        f"and after the run, worst relative deviation {rel:.3e} (limit "
+        f"{F32_MAIN_RTOL:.0e})")
+    if f64 or not all(f32[k] > 0 for k in PATH_KERNELS[2]):
+        raise RuntimeError(f"phase 19: a float64 launch or a kernel not "
+                           f"launched in float32: {rec['by_dtype']}")
+    if sim.cc.dtype != torch.float32 or sim.fc.dtype != torch.float32:
+        raise RuntimeError(f"phase 19: the state is {sim.cc.dtype}")
+    if not rel <= F32_MAIN_RTOL:
+        raise RuntimeError(f"phase 19: the observables deviate from phase "
+                           f"7's by {rel:.3e}: {a} {b}")
+
+
+def phase_float32_small(torch, ks, Simulation, out_dir):
+    """Phase 3y: the compiled engine's float32 state at the committed sizes
+    (air_cyl_amr_slice.cfg, 16,960 cells; air_3d_amr_slice.cfg, 219,136
+    cells), refinement frozen after setup, photoionization every 2 steps,
+    an output every 0.1 ps, F32_SMALL_STEPS steps: the card's float32 run
+    against the CPU's (every variable but the scratch one within
+    F32_CPU_TOL of its scale, rhs on the leaves: its rows of the other
+    boxes hold the FAS coarse-grid right-hand sides, whose float32
+    rounding follows phi / dx^2 there, not the charge density; the same
+    meshes) and against the card's
+    float64 run (the regression log's observables within F32_F64_RTOL);
+    every smoother launch of the card's float32 run float32, K1-K3 (K4-K5)
+    among them (the setup, in float64 as the JAX package's host path runs
+    it, is not counted). Then the cylindrical slice with live refinement in float32
+    and in float64 on the card: whether the meshes after every epoch are
+    the same (reported)."""
+    import numpy as np
+    phase = "3y"
+    flags = ["-photoi%per_steps=2", "-output%dt=1e-13"]
+    for ndim in (2, 3):
+        runs = {}
+        for key, dev, extra in (("cuda32", "cuda", F32_FLAGS),
+                                ("cpu32", "cpu", F32_FLAGS),
+                                ("cuda64", "cuda", [])):
+            t0 = time.perf_counter()
+            sim = Simulation(argv=amr_argv(
+                out_dir / f"p3y_{ndim}d_{key}", ndim, dev,
+                flags + ["-refine_per_steps=1000000"] + extra))
+            # the run's launches (the setup runs in float64)
+            ks.reset_launch_counts()
+            sim.run(max_steps=F32_SMALL_STEPS)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[key] = (sim, time.perf_counter() - t0,
+                         {k: dict(fn.launches_by_dtype)
+                          for k, fn in ks.KERNELS.items()})
+        a, b, c = (runs[k][0] for k in ("cpu32", "cuda32", "cuda64"))
+        by_dtype = runs["cuda32"][2]
+        f32 = {k: v[torch.float32] for k, v in by_dtype.items()
+               if v[torch.float32]}
+        f64 = {k: v[torch.float64] for k, v in by_dtype.items()
+               if v[torch.float64]}
+        if f64 or not all(f32.get(k, 0) > 0 for k in PATH_KERNELS[ndim]):
+            raise RuntimeError(f"phase 3y: float64 launches or a kernel not "
+                               f"launched in float32: {by_dtype}")
+        if not (b.cc.dtype == b.fc.dtype == a.cc.dtype == torch.float32):
+            raise RuntimeError(f"phase 3y: the state is {b.cc.dtype}")
+        meshes = [[list(map(int, x)) for x in s.tree.lvl_ids]
+                  for s in (a, b, c)]
+        if not meshes[0] == meshes[1] == meshes[2]:
+            raise RuntimeError("phase 3y: the meshes differ")
+        n = a.tree.highest_id
+        use = torch.as_tensor(a.tree.in_use[:n])
+        leaves = torch.zeros(n, dtype=torch.bool)
+        for ids in a.tree.lvl_leaves:
+            leaves[torch.as_tensor(np.asarray(ids, np.int64))] = True
+        worst, worst_name = 0.0, ""
+        for iv, name in enumerate(a.registry.cc_names):
+            if iv == a.i_tmp:
+                continue
+            rows = leaves if iv == a.i_rhs else use
+            ref = a.cc[iv, :n][rows].double()
+            got = b.cc[iv, :n].cpu()[rows].double()
+            scale = float(ref.abs().max())
+            rel = float((got - ref).abs().max()) / (scale if scale > 0
+                                                    else 1.0)
+            if rel > worst:
+                worst, worst_name = rel, name
+        l32, l64 = (np.loadtxt(out_dir / f"p3y_{ndim}d_{k}_rtest.log",
+                               skiprows=1, ndmin=2)
+                    for k in ("cuda32", "cuda64"))
+        obs = (np.abs(l32[:, 3:] - l64[:, 3:])
+               / np.maximum(np.abs(l64[:, 3:]), 1e-300)).max() \
+            if l32.shape == l64.shape else float("inf")
+        n_leaf = sum(len(l) for l in a.tree.lvl_leaves) * a.tree.nc ** ndim
+        log(f"phase 3y: {AMR_CFG[ndim].name} {' '.join(flags)} frozen, "
+            f"float32, {F32_SMALL_STEPS} steps, {n_leaf} leaf cells: the "
+            f"same meshes in the card's float32, the CPU's float32 and the "
+            f"card's float64 runs; cuda vs cpu in float32: worst scaled "
+            f"deviation {worst:.3e} ({worst_name}; limit {F32_CPU_TOL:.0e})"
+            f"; cuda float32 vs cuda float64: the regression log's "
+            f"observables at {len(l64)} outputs, worst relative deviation "
+            f"{obs:.3e} (limit {F32_F64_RTOL:.0e}); dt {b.global_dt:.6e} "
+            f"against {c.global_dt:.6e}; launches of the float32 card run "
+            f"{f32} (float64: none); seconds cuda32 {runs['cuda32'][1]:.2f}, "
+            f"cpu32 {runs['cpu32'][1]:.2f}, cuda64 {runs['cuda64'][1]:.2f}")
+        if worst > F32_CPU_TOL:
+            raise RuntimeError(f"phase 3y: cuda vs cpu in float32 {worst} "
+                               f"{worst_name}")
+        if not obs <= F32_F64_RTOL:
+            raise RuntimeError(f"phase 3y: float32 vs float64 {obs}: {l32} "
+                               f"{l64}")
+        del runs, a, b, c
+        free_earlier_runs(torch)
+    epochs = {}
+    for key, extra in (("live32", F32_FLAGS), ("live64", [])):
+        sim = Simulation(argv=amr_argv(out_dir / f"p3y_{key}", 2, "cuda",
+                                       flags + extra))
+        epochs[key] = [[list(map(int, x)) for x in sim.tree.lvl_ids]]
+        found = []
+        record_epochs(sim, found, torch)
+        sim.run(max_steps=F32_SMALL_STEPS)
+        epochs[key] += [x["ids"] for x in found]
+    same = [x == y for x, y in zip(epochs["live32"], epochs["live64"])]
+    log(f"phase 3y: {AMR_CFG[2].name} with live refinement, {F32_SMALL_STEPS}"
+        f" steps on the card: the float32 run's meshes after setup and each "
+        f"of {len(same) - 1} epochs equal the float64 run's: {same}")
+    free_earlier_runs(torch)
 
 
 def phase_electrode_full(torch, ks, Simulation, mgb, out_dir, phase, smi):
@@ -2613,15 +2840,12 @@ def busy_share(torch, sim, ms_per_step):
     measured' if the trace has no device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim.run(max_steps=sim.it + 2)  # run() counts its closing check
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if getattr(e, "device_type", None) == cuda)
+    dev_us = sum(us for _key, (_n, us) in device_events(torch, prof))
     if dev_us <= 0:
         return "not measured"
     dev_ms = dev_us * 1e-3 / 2
@@ -2811,7 +3035,7 @@ def phase_sharded(torch, out_dir, started):
                 f"halo exchanges (calls, bytes) "
                 f"{[(r['exchange']['calls'], r['exchange']['bytes']) for r in s['ranks']]}; "
                 f"{wall:.1f} s with the ranks' start (the five runs started "
-                f"together, beside phases 3r-3w)")
+                f"together, beside the workers of phases 3-3y)")
     return total
 
 
@@ -2949,6 +3173,119 @@ def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim, smi):
     return launches
 
 
+def small_phases():
+    """The cuda-vs-cpu phases (3 to 3y but 3x) by name, each a callable of
+    (torch, ks, Simulation, mgb, out_dir); a name with several runs runs
+    them in turn."""
+    def runs(table, must=None):
+        def run(torch, ks, Simulation, mgb, out_dir):
+            for phase, cfg, ndim, tab, extra, steps, *rest in table:
+                phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim,
+                                      phase, cfg, tab, extra, steps,
+                                      must or (rest[0] if rest else ()))
+        return run
+
+    def select(table, phase):
+        return [row for row in table if row[0] == phase]
+    tasks = {
+        "3": lambda torch, ks, S, mgb, out: phase_cpu_vs_cuda(
+            torch, S, out, 2),
+        "3b": lambda torch, ks, S, mgb, out: phase_cpu_vs_cuda(
+            torch, S, out, 3),
+        "3c": lambda torch, ks, S, mgb, out: phase_dielectric_cpu_vs_cuda(
+            torch, ks, S, out),
+        "3d": lambda torch, ks, S, mgb, out: phase_amr_cpu_vs_cuda(
+            torch, ks, S, out, 2),
+        "3e": lambda torch, ks, S, mgb, out: phase_amr_cpu_vs_cuda(
+            torch, ks, S, out, 3),
+        "3i": lambda torch, ks, S, mgb, out: phase_energy_physics(
+            torch, S, out),
+        "3q": lambda torch, ks, S, mgb, out: phase_imex(torch, ks),
+        "3t": phase_programs_cpu_vs_cuda,
+        "3v": lambda torch, ks, S, mgb, out: phase_restart(torch, S, out),
+        "3w": lambda torch, ks, S, mgb, out: phase_writers_cpu_vs_cuda(
+            torch, S, out),
+        "3y": lambda torch, ks, S, mgb, out: phase_float32_small(
+            torch, ks, S, out)}
+    for table, must in ((VARIANTS_SMALL, None), (ELECTRODES_SMALL, None),
+                        (BRANCHES_SMALL, None), (GAS_SMALL, PATH_KERNELS[2]),
+                        (MC_SMALL, None)):
+        for phase in dict.fromkeys(row[0] for row in table):
+            tasks[phase] = runs(select(table, phase), must)
+    return tasks
+
+
+#: the cuda-vs-cpu phases in WORKER groups, each group one process that
+#: runs its phases in turn; the groups run together, beside phase 3x's
+#: ranks, each with WORKER_THREADS threads in PyTorch and in the BLAS
+WORKER_GROUPS = (("3e", "3", "3b", "3c", "3d", "3f", "3g", "3h", "3i",
+                  "3v"),
+                 ("3l", "3n", "3j", "3k", "3m", "3o", "3p"),
+                 ("3r", "3s", "3t", "3u", "3q"),
+                 ("3y", "3w"))
+WORKER_THREADS = 2
+
+
+def worker_main(group):
+    """A child process: the cuda-vs-cpu phases of WORKER_GROUPS[group];
+    any failure raises (the process exits non-zero)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.set_num_threads(WORKER_THREADS)
+    sys.path.insert(0, str(ROOT))
+    from afivo_streamer_tpu_torch.ops import smoother as ks
+    from afivo_streamer_tpu_torch.driver import Simulation
+    from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
+    tasks = small_phases()
+    out_dir = ROOT / "out" / "chip_smoke"
+    for phase in WORKER_GROUPS[group]:
+        tasks[phase](torch, ks, Simulation, mgb, out_dir)
+        free_earlier_runs(torch)
+    return 0
+
+
+def start_workers(out_dir):
+    """Start one process per group of WORKER_GROUPS, each writing its log
+    to a file of ``out_dir``; returns what join_workers joins."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CHIP_SMOKE_T0=repr(T_START))
+    env.update({k: str(WORKER_THREADS) for k in (
+        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
+    procs = []
+    for k in range(len(WORKER_GROUPS)):
+        path = out_dir / f"worker_{k}.log"
+        with open(path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--worker",
+                 str(k)], stdout=f, stderr=subprocess.STDOUT, env=env,
+                cwd=ROOT)
+        procs.append((proc, path))
+    return procs
+
+
+def stop_workers(procs):
+    for proc, _path in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def join_workers(procs):
+    """Wait for every worker and print its log; raise if one failed."""
+    failed = []
+    for k, (proc, path) in enumerate(procs):
+        rc = proc.wait()
+        print(path.read_text(), end="", flush=True)
+        if rc:
+            failed.append((WORKER_GROUPS[k], rc))
+    if failed:
+        raise RuntimeError(f"cuda-vs-cpu phases failed (phases, exit code): "
+                           f"{failed}")
+    log(f"phases 3-3y: {len(procs)} workers ended")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2986,32 +3323,14 @@ def main():
     phase_kernels_level_set(torch, ks, smi)
     phase_kernels_eps(torch, ks, smi)
     out_dir = ROOT / "out" / "chip_smoke"
-    for ndim in (2, 3):
-        phase_cpu_vs_cuda(torch, Simulation, out_dir, ndim)
-    phase_dielectric_cpu_vs_cuda(torch, ks, Simulation, out_dir)
-    for ndim in (2, 3):
-        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim)
-    for phase, cfg, ndim, table, extra, steps in VARIANTS_SMALL:
-        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
-                              cfg, table, extra, steps)
-    phase_energy_physics(torch, Simulation, out_dir)
-    for phase, cfg, ndim, table, extra, steps in ELECTRODES_SMALL:
-        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
-                              cfg, table, extra, steps)
-    for phase, cfg, ndim, table, extra, steps, must in BRANCHES_SMALL:
-        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
-                              cfg, table, extra, steps, must)
-    phase_imex(torch, ks)
+    # the cuda-vs-cpu phases in worker processes beside phase 3x's ranks;
+    # the measurements below run alone
     started = start_sharded(out_dir)
-    for phase, cfg, ndim, table, extra, steps in GAS_SMALL:
-        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
-                              cfg, table, extra, steps, PATH_KERNELS[2])
-    phase_programs_cpu_vs_cuda(torch, ks, Simulation, mgb, out_dir)
-    for phase, cfg, ndim, table, extra, steps, must in MC_SMALL:
-        phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase,
-                              cfg, table, extra, steps, must)
-    phase_restart(torch, Simulation, out_dir)
-    phase_writers_cpu_vs_cuda(torch, Simulation, out_dir)
+    workers = start_workers(out_dir)
+    try:
+        join_workers(workers)
+    finally:
+        stop_workers(workers)
     sharded = phase_sharded(torch, out_dir, started)
     # phases 9 to 15 run before the long profiler traces of phases 6 to 8,
     # after which the host has been seen to run slower for the rest of the
@@ -3039,6 +3358,8 @@ def main():
             torch, ks, Simulation, mgb, out_dir, ndim, smi,
             record=main_path if ndim == 2 else None)
     writers_against_main_path(writers, main_path)
+    by_phase["19"] = phase_amr_full(torch, ks, Simulation, mgb, out_dir, 2,
+                                    smi, "19", record={}, against=main_path)
     by_phase["3x"] = sharded
     by_phase["18"] = phase_sharded_full(torch, out_dir, main_path)
     log(f"phase 17: ms per Monte-Carlo update "
@@ -3075,4 +3396,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker_main(int(sys.argv[2])))
     sys.exit(main())

@@ -42,7 +42,9 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 * Monte-Carlo photoionization on the cylindrical slice and on the
   cylindrical dielectric (the surfaces' photon fluxes), the particle
   deposits and gather, and a restart on the card from a checkpoint the CPU
-  wrote, each against the CPU.
+  wrote, each against the CPU;
+* the compiled engine's float32 state on the cylindrical and the 3D slice
+  against the CPU's float32 run, every launch float32.
 """
 
 import re
@@ -715,3 +717,46 @@ def test_two_ranks_on_the_card_match_the_unsharded_run(cuda, tmp_path):
     for rank in s["ranks"]:
         for k in ("fill_sweep_2d", "sweep_2d", "fill_2d"):
             assert rank["launches"][k] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg, ndim", [("air_cyl_amr_slice.cfg", 2),
+                                       ("air_3d_amr_slice.cfg", 3)],
+                         ids=["cyl", "3d"])
+def test_float32_state_on_the_card_matches_cpu(cfg, ndim, cuda, tmp_path):
+    """-compiled%enabled=T -compiled%dtype=float32, refinement frozen, 2
+    steps with a photoionization update: the card's float32 run against
+    the CPU's, every variable but the scratch one within 1e-4 of its
+    scale (rhs on the leaves: its other rows hold the FAS coarse-grid
+    right-hand sides, whose float32 rounding follows phi / dx^2), the
+    state float32, and every smoother launch float32 (K1-K3 in 2D, K4-K5
+    in 3D)."""
+    from afivo_streamer_tpu_torch.driver import Simulation
+    base = [str(DATA / cfg), f"-ndim={ndim}", "-photoi%per_steps=2",
+            "-refine_per_steps=1000000", "-compiled%enabled=T",
+            "-compiled%dtype=float32"]
+    sims = []
+    for dev in ("cpu", "cuda"):
+        sim = Simulation(argv=base + [f"-output%name={tmp_path}/{dev}",
+                                      f"-device={dev}"])
+        ks.reset_launch_counts()  # the setup runs in float64
+        sim.run(max_steps=2)
+        sims.append(sim)
+    a, b = sims
+    assert b.cc.dtype == b.fc.dtype == torch.float32
+    names = (("fill_sweep_2d", "sweep_2d", "fill_2d") if ndim == 2
+             else ("sweep_3d", "fill_3d"))
+    for name, fn in ks.KERNELS.items():
+        assert fn.launches_by_dtype[torch.float64] == 0, name
+        assert (fn.launches_by_dtype[torch.float32] > 0) == (name in names)
+    n = a.tree.highest_id
+    leaves = torch.as_tensor(
+        [int(i) for ids in a.tree.lvl_leaves for i in ids])
+    for iv, name in enumerate(a.registry.cc_names):
+        if name == "tmp":
+            continue
+        rows = leaves if name == "rhs" else slice(0, n)
+        ref = a.cc[iv, rows].double()
+        torch.testing.assert_close(b.cc[iv, rows].cpu().double(), ref,
+                                   rtol=0.0,
+                                   atol=1e-4 * float(ref.abs().max()))

@@ -110,8 +110,8 @@ def test_device_cuda_without_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("extra, module", [
-    (["-compiled%enabled=t", "-compiled%dtype=float32"],
-     "parallel/compiled.py"),
+    (["-compiled%enabled=t", "-compiled%dtype=float32", "-gas%dynamics=t"],
+     "physics/gas_dynamics.py under compiled%dtype=float32"),
     (["-use_dielectric=t", "-coarse_grid_size=256 256",
       "-dielectric_type=bottom", "-cylindrical=f", "-user%module="
       f"{DATA.parent / 'programs' / 'dielectric_2d.py'}"], "per-cell"),
@@ -239,13 +239,14 @@ HOOK_MODULES = {
     ("air_cyl_slice.cfg", ["-user%module=GENERIC_HOOK"]),
     ("air_cyl_slice.cfg", ["-user%module=POTENTIAL_BC_HOOK"]),
     ("air_cyl_slice.cfg", ["-compiled%enabled=t"]),
+    ("air_cyl_slice.cfg", ["-compiled%enabled=t", "-compiled%dtype=float32"]),
 ] + [("air_cyl_slice.cfg", ELECTRODE + [f"-field_electrode_type={kind}"])
      for kind in ELECTRODE_TYPES],
     ids=["1d", "1d-ee53", "cyl-ee-alias", "new-style-table", "source-factor",
          "plasma-region", "electrode-dx-without-electrode", "dielectric-1d",
          "dielectric-3d", "coarse-grid-65536", "gas-dynamics",
          "gas-dynamics-slow-heating", "gas-density-user", "generic-hook",
-         "potential-bc-hook", "compiled-enabled"]
+         "potential-bc-hook", "compiled-enabled", "compiled-float32"]
     + [f"electrode-{kind}" for kind in ELECTRODE_TYPES])
 def test_ported_configuration_builds(tmp_path, cfg, extra):
     for key, hook in HOOK_MODULES.items():
@@ -257,6 +258,11 @@ def test_ported_configuration_builds(tmp_path, cfg, extra):
                            f"-input_data%file={DATA / 'td_air_synthetic.txt'}",
                            f"-output%name={tmp_path}/run", "-device=cpu",
                            "-refine_max_dx=5e-4", *extra])
+    # the setup runs in float64; run() switches to compiled%dtype
+    assert sim.cc.dtype == sim.fc.dtype == torch.float64
+    assert sim.compiled.state_dtype == (
+        torch.float32 if "-compiled%dtype=float32" in extra
+        else torch.float64)
     assert sim.model.has_energy_equation == any("model%type" in a
                                                 for a in extra)
     assert (sim.fluid.mask_provider is not None) == (

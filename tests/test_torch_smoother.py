@@ -7,8 +7,9 @@ non-symmetric inputs (n = 6 boxes, nc = 8, and for K1 and K5 also n = 5
 at nc = 4 and 16, and K1 with a random mask; in 3D random face weights and
 constants per face, so an axis swap fails; all 8 ghost-weight columns
 nonzero, so K3 must ignore the parity-swap columns 3-4 and K3-swap must
-use them), float64, rtol 1e-13. The CUDA kernels are held against the
-plain versions in tests/test_torch_cuda.py.
+use them), float64, rtol 1e-13. The wrappers check their inputs' dtypes
+and shapes on the CPU as on the card. The CUDA kernels are held against
+the plain versions in tests/test_torch_cuda.py.
 """
 
 import re
@@ -179,6 +180,36 @@ def test_wrapper_counts_only_kernel_launches():
     for name, fn in ks.KERNELS.items():
         torch_call(fn, x[ndim_of(name)])
     assert all(fn.launches == 0 for fn in ks.KERNELS.values())
+
+
+def float32_inputs(name):
+    """Float32 inputs of kernel ``name`` (g int32, mask float32 as the
+    card takes them)."""
+    x = random_inputs(seed=SEEDS[name], ndim=ndim_of(name))
+    return {k: v if k in ("g", "mask") else v.astype(np.float32)
+            for k, v in x.items()}
+
+
+@pytest.mark.parametrize("name", list(SEEDS))
+def test_plain_path_refuses_a_mixed_dtype(name):
+    """The wrappers check their inputs on the CPU as on the card: a
+    float64 stencil cs (a sweep) or ghost weights W (a fill) beside float32
+    blocks raises, where the plain version would promote to float64; the
+    float32 inputs alone run and stay float32."""
+    x = float32_inputs(name)
+    assert torch_call(ks.KERNELS[name], x).dtype == torch.float32
+    key = "cs" if name in ("sweep_2d", "sweep_3d", "fill_sweep_2d") else "W"
+    x[key] = x[key].astype(np.float64)
+    with pytest.raises(ValueError, match=f"{key} must be torch.float32"):
+        torch_call(ks.KERNELS[name], x)
+
+
+def test_plain_path_refuses_a_wrong_shape():
+    """A shape check of the card's, on the CPU: A with a face too few."""
+    x = random_inputs(seed=3)
+    x["A"] = x["A"][:, :3]
+    with pytest.raises(ValueError, match="A must be"):
+        torch_call(ks.fill_2d, x)
 
 
 def test_fill_2d_swap_is_the_host_extrapolating_ghost():
