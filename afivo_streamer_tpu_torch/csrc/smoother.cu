@@ -36,10 +36,33 @@
 // largest input (6*64 values against 100 of phi at nc = 8), then R and
 // phi. The arithmetic is a dozen flops per cell.
 //
-// K2 (sweep_2d_kernel) is one thread per output cell of [n, C, C]:
-// consecutive threads touch consecutive addresses of phi3, cs, R and out,
-// so every load and store is coalesced, and the own block's row of g is
-// re-read by the threads of one box from L1. It runs at ~0.7 of its bound.
+// K2 moves 21.3 MB at n = 4096, nc = 8 in float64 (a 6.3 us bound), 3/4
+// of it R and cs, and half of that in float32. One thread per output cell
+// paid a 64-bit division by a run-time C^2 and a dependent chain (g, then
+// the block value) in every thread, kept 36 of 100 threads copying a ghost
+// and half the interior ones copying too, and read cs and R in scalars; in
+// float32 it issued as much per cell for half the bytes (0.69 of the bound
+// in float64, 0.47-0.49 in float32). sweep_2d_kernel stages a run of k
+// consecutive boxes per block: the run's blocks (own row b on every level
+// the V-cycle builds), R and cs are three contiguous ranges, so one thread
+// starts three bulk copies (TMA) on one mbarrier that expects their sum,
+// before any g is read; a box whose own row is another is copied again by
+// its threads after the wait. Each thread takes two adjacent interior
+// cells of a row (nc^2 / 2 threads per box, one warp at nc = 8), reads
+// its mask pair and the box's own row while the copies fly, computes both
+// new values from the staged blocks into registers before a block barrier
+// and writes them back; the run's blocks, contiguous in out, go out in
+// 16-byte vectors. k = ceil(n / 528), so n = 4096 is one wave of four
+// blocks per SM (k = 8; 712 boxes: k = 2). Measured against one variant
+// at a time (chip_smoke.measure, cold L2, on one H100): one bulk copy
+// out instead of the vector stores ran 5 % slower at n = 4096 in float64
+// and 3 % in float32; four cells per thread in float32 ran as fast at n =
+// 4096 and 4 % slower at 712 boxes; a fixed k of 1, 2, 4 or 16 ran within
+// 5 % of k = 8 at n = 4096 (k = 16 10-16 % slower at 712 boxes). A
+// persistent block that fetches its next run while it computes is not
+// built: at n = 4096 every run is in flight at once already. What is left
+// between K2 and its bound is the ~1.8 us that any short launch here
+// costs besides its bytes (K3 pays the same).
 //
 // The fill (modes 1 and 3) must move only 7 MB at n = 4096, nc = 8 in
 // float64 (a 2.1 us bound; the function needs none of the input's side
@@ -82,7 +105,8 @@
 // second instance takes any even nc at run time (lanes loop over the
 // ghosts, the cell pairs and the block). C is even, so each block is a
 // whole number of 16-byte vectors and starts on a 16-byte boundary when
-// phi3 does; the wrapper checks phi3 (and for K1 R, cs and mask) for it.
+// phi3 does; the wrapper checks phi3 (and for K1 and K2 R, cs and mask)
+// for it.
 // What is left between K1 and its bound is the fill's fixed cost per
 // launch and the sectors it touches but does not need (the side ghosts
 // copied with the block, and a 32-byte sector per value of a y-side
@@ -90,6 +114,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
@@ -100,42 +125,6 @@ constexpr int kModeFill = 1;
 constexpr int kModeFillSweep = 2;
 constexpr int kModeFillSwap = 3;
 constexpr unsigned kFullWarp = 0xffffffffu;
-
-// K2: one thread per output cell.
-template <typename T>
-__global__ void sweep_2d_kernel(const T* __restrict__ phi3,
-                                const T* __restrict__ R,
-                                const float* __restrict__ mask,
-                                const int* __restrict__ g,
-                                const T* __restrict__ cs,
-                                T* __restrict__ out, int n, int nc) {
-  const int C = nc + 2;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)n * C * C) return;
-  const long long b = idx / (C * C);
-  const int rem = (int)(idx - b * C * C);
-  const int r = rem / C;
-  const int c = rem - r * C;
-  const T* B = phi3 + (long long)g[b * 5] * C * C;
-  const T B0 = B[rem];
-  const bool interior = r >= 1 && r <= nc && c >= 1 && c <= nc;
-  if (!interior) {
-    out[idx] = B0;
-    return;
-  }
-  const int k = (r - 1) * nc + (c - 1);
-  if (!(mask[k] > 0.0f)) {
-    out[idx] = B0;
-    return;
-  }
-  const int s = nc * nc;
-  const T* cb = cs + b * 6 * s;
-  const T lphi = cb[5 * s + k] * B0 + cb[1 * s + k] * (B[rem - C] - B0) +
-                 cb[2 * s + k] * (B[rem + C] - B0) +
-                 cb[3 * s + k] * (B[rem - 1] - B0) +
-                 cb[4 * s + k] * (B[rem + 1] - B0);
-  out[idx] = B0 + (R[b * s + k] - lphi) / cb[k];
-}
 
 // 16 bytes of T: the unit of the fill's block copy.
 template <typename T>
@@ -325,7 +314,7 @@ __global__ void __launch_bounds__(kFillWarps * 32)
   store_block(out + b * CC, s, lane, CC);
 }
 
-// Two adjacent values of T: a lane's cell pair in K1's sweep.
+// Two adjacent values of T: a thread's cell pair in the sweeps of K1 and K2.
 template <typename T>
 struct Vec2;
 template <>
@@ -458,6 +447,153 @@ __global__ void __launch_bounds__(kFillWarps * 32)
   store_block(out + b * CC, s, lane, CC);
 }
 
+// K2's staging: the mbarrier and bulk-copy (TMA) instructions, as
+// smoother_3d.cu's K5 uses them (each library is keyed by the hash of its
+// own source, so they are repeated here, not shared through a header).
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// A barrier of one arrival.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The one arrival on bar, which then expects `bytes`: the sum of the bulk
+// copies that complete its phase.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// The bulk copy of `bytes` (a multiple of 16, both ends on 16 bytes) from
+// src to dst in shared memory, completing that many of bar's bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// K2's largest block: the run of boxes times the nc^2 / 2 threads of a box.
+constexpr int kSweepThreads = 512;
+// K2's target number of blocks: four on each of the H100's 132 SMs, all
+// resident at once (one wave) at n = 4096.
+constexpr int kSweepBlocks = 4 * 132;
+
+// K2: a run of `run` consecutive boxes per block, staged whole in shared
+// memory by three bulk copies (the run's blocks, R and cs, each a
+// contiguous range) on one mbarrier; nc^2 / 2 threads per box, each with
+// a pair of adjacent interior cells of a row (nc is even); the run's new
+// blocks go out in 16-byte vectors. NC > 0 is a compile-time nc, NC == 0
+// takes nc_rt.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kSweepThreads)
+    sweep_2d_kernel(const T* __restrict__ phi3, const T* __restrict__ R,
+                    const float* __restrict__ mask, const int* __restrict__ g,
+                    const T* __restrict__ cs, T* __restrict__ out, int n,
+                    int nc_rt, int run) {
+  using P = typename Vec2<T>::type;
+  using V = typename Vec16<T>::type;
+  constexpr int kPerVec = (int)(sizeof(V) / sizeof(T));
+  const int nc = NC > 0 ? NC : nc_rt;
+  const int C = nc + 2;
+  const int CC = C * C;
+  const int S = nc * nc;
+  const int tid = threadIdx.x;
+  const long long b0 = (long long)blockIdx.x * run;
+  const int kk = (int)min((long long)run, n - b0);  // the run's boxes
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint64_t bar;
+  T* blk = reinterpret_cast<T*>(smem);  // [run, C, C]
+  T* rs = blk + run * CC;               // [run, nc, nc]
+  T* css = rs + run * S;                // [run, 6, nc, nc]
+
+  // Every level the V-cycle builds has own row b (ops/smoother
+  // SmootherTables), so the run's blocks are rows [b0, b0 + kk) of phi3
+  // and their copy starts before g is read; it is redone below for a box
+  // whose own row is another. A tail run expects only what it copies.
+  if (tid == 0) {
+    mbar_init(&bar);
+    const unsigned block_bytes = (unsigned)(kk * CC * sizeof(T));
+    const unsigned r_bytes = (unsigned)(kk * S * sizeof(T));
+    mbar_expect(&bar, block_bytes + 7 * r_bytes);
+    bulk_load(blk, phi3 + b0 * CC, block_bytes, &bar);
+    bulk_load(rs, R + b0 * S, r_bytes, &bar);
+    bulk_load(css, cs + b0 * 6 * S, 6 * r_bytes, &bar);
+  }
+  // this thread's box j and pair p (interior cells 2p and 2p + 1, row
+  // major); g's own row and the mask load while the copies are in flight
+  const int per = NC > 0 ? NC * NC / 2 : S / 2;  // threads per box
+  const int j = tid / per;
+  const int p = tid - j * per;
+  const bool active = j < kk;
+  const long long b = b0 + j;
+  const long long own = active ? (long long)g[b * 5] : b;
+  const float2 m = __ldg(reinterpret_cast<const float2*>(mask) + p);
+  int r, c;
+  div_nc<NC>(2 * p, nc, r, c);
+  // a block barrier, after which every thread sees the mbarrier initialised
+  const bool moved = __syncthreads_or(own != b);
+  mbar_wait(&bar, 0);
+  if (moved) {  // the same for the whole block
+    if (own != b) {
+      V* dst = reinterpret_cast<V*>(blk + j * CC);
+      const V* src = reinterpret_cast<const V*>(phi3 + own * CC);
+      for (int i = p; i < CC / kPerVec; i += per) dst[i] = src[i];
+    }
+    __syncthreads();
+  }
+
+  // every updated value from the staged blocks before any goes back into
+  // them: the mask is an input, so no cell is assumed left alone
+  T* x = blk + j * CC + (r + 1) * C + c + 1;
+  P nw;
+  if (active) {
+    const P rv = reinterpret_cast<const P*>(rs + j * S)[p];
+    P cv[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      cv[k] = reinterpret_cast<const P*>(css + (j * 6 + k) * S)[p];
+    nw.x = update_cell(x, C, rv.x, m.x, cv[0].x, cv[1].x, cv[2].x, cv[3].x,
+                       cv[4].x, cv[5].x);
+    nw.y = update_cell(x + 1, C, rv.y, m.y, cv[0].y, cv[1].y, cv[2].y,
+                       cv[3].y, cv[4].y, cv[5].y);
+  }
+  __syncthreads();
+  if (active) {
+    x[0] = nw.x;
+    x[1] = nw.y;
+  }
+  __syncthreads();
+  const V* sv = reinterpret_cast<const V*>(blk);
+  V* dst = reinterpret_cast<V*>(out + b0 * CC);
+  const int nv = kk * CC / kPerVec;
+#pragma unroll 4
+  for (int i = tid; i < nv; i += blockDim.x) dst[i] = sv[i];
+}
+
 // Boxes (warps) per block of a warp-per-box kernel whose box takes
 // box_bytes of shared memory.
 inline int warps_for(size_t box_bytes) {
@@ -520,6 +656,39 @@ int launch_fill(const T* phi3, const T* A, const int* g, const T* W, T* out,
   return (int)cudaGetLastError();
 }
 
+// Launch K2: nc even, phi3, R, cs, mask and out on 16-byte boundaries (C
+// and nc are even, so every range a block copies is a multiple of 16 bytes
+// and starts on 16 bytes), a box's block, R and cs and the mbarrier within
+// 48 KB of shared memory and its threads within kSweepThreads (nc <= 26 in
+// float64, 32 in float32). The run of boxes per block is sized from n, so
+// that n = 4096 is one wave of kSweepBlocks blocks.
+template <typename T>
+int launch_sweep(const T* phi3, const T* R, const float* mask, const int* g,
+                 const T* cs, T* out, int n, int nc, cudaStream_t stream) {
+  const int per = nc * nc / 2;  // threads per box
+  const size_t box_bytes =
+      ((size_t)(nc + 2) * (nc + 2) + 7 * (size_t)nc * nc) * sizeof(T);
+  const size_t smem_max = kMaxFillSmem - sizeof(uint64_t);
+  if (nc < 2 || nc % 2 != 0 || box_bytes > smem_max || per > kSweepThreads)
+    return (int)cudaErrorInvalidValue;
+  if (!(aligned16(phi3) && aligned16(out) && aligned16(R) && aligned16(cs) &&
+        aligned16(mask)))
+    return (int)cudaErrorMisalignedAddress;
+  const int run = std::max(
+      1, std::min({(n + kSweepBlocks - 1) / kSweepBlocks,
+                   (int)(smem_max / box_bytes), kSweepThreads / per}));
+  const unsigned blocks = (unsigned)((n + run - 1) / run);
+  const size_t smem = run * box_bytes;
+  if (nc == 8) {
+    sweep_2d_kernel<T, 8><<<blocks, run * per, smem, stream>>>(
+        phi3, R, mask, g, cs, out, n, nc, run);
+  } else {
+    sweep_2d_kernel<T, 0><<<blocks, run * per, smem, stream>>>(
+        phi3, R, mask, g, cs, out, n, nc, run);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(int mode, const void* phi3, const void* R, const void* mask,
            const void* A, const void* g, const void* W, const void* cs,
@@ -533,21 +702,15 @@ int launch(int mode, const void* phi3, const void* R, const void* mask,
   const T* c = static_cast<const T*>(cs);
   T* o = static_cast<T*>(out);
   if (mode == kModeSweep) {
-    const long long total = (long long)n * (nc + 2) * (nc + 2);
-    const int threads = 256;
-    const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-    sweep_2d_kernel<T>
-        <<<blocks, threads, 0, stream>>>(p, r, m, gi, c, o, n, nc);
+    return launch_sweep<T>(p, r, m, gi, c, o, n, nc, stream);
   } else if (mode == kModeFillSweep) {
     return launch_fill_sweep<T>(p, r, m, a, gi, w, c, o, n, nc, stream);
   } else if (mode == kModeFill) {
     return launch_fill<T, false>(p, a, gi, w, o, n, nc, stream);
   } else if (mode == kModeFillSwap) {
     return launch_fill<T, true>(p, a, gi, w, o, n, nc, stream);
-  } else {
-    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

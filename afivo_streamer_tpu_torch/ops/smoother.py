@@ -61,10 +61,11 @@ KERNEL_SOURCES = {"afs_smoother_2d": _PKG / "csrc" / "smoother.cu",
 BUILD_DIR = _PKG / "build"
 
 _MODE_SWEEP, _MODE_FILL, _MODE_FILL_SWEEP, _MODE_FILL_SWAP = 0, 1, 2, 3
-#: the inputs each warp-per-box or block-per-box kernel reads in vectors
-#: of up to 16 bytes, by (ndim, mode)
+#: the inputs each kernel that stages boxes in shared memory reads in
+#: vectors of up to 16 bytes or in bulk copies, by (ndim, mode)
 _VECTOR_INPUTS = {(2, _MODE_FILL): ("phi3",), (2, _MODE_FILL_SWAP): ("phi3",),
                   (2, _MODE_FILL_SWEEP): ("phi3", "R", "mask", "cs"),
+                  (2, _MODE_SWEEP): ("phi3", "R", "mask", "cs"),
                   (3, _MODE_FILL): ("phi3",)}
 
 

@@ -6,10 +6,10 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 
 * each CUDA smoother kernel (K1-K3 and K3-swap in 2D, K4-K5 in 3D)
   against its plain PyTorch version on the same inputs, float64 and
-  float32; the kernels that stage a box in shared memory (K1, K3,
+  float32; the kernels that stage boxes in shared memory (K1, K2, K3,
   K3-swap, K5) besides at n in {1, 3, 33, 4096} and nc in {2, 4, 8, 16},
-  with neighbor rows that are the box's own, K1 with a mask that is no
-  checkerboard, and their refusal of a misaligned input;
+  with neighbor rows that are the box's own, K1 and K2 with a mask that
+  is no checkerboard, and their refusal of a misaligned input;
 * K1-K5 on every level of a Helmholtz multigrid (the photoionization
   boundary set, the smallest and the largest Bourdon-3 lambda) with that
   level's own stencil, ghost weights, ghost constants and blocks, and on
@@ -129,10 +129,11 @@ def fill_inputs(name, n, nc, dtype, device, self_rows=0.25, seed=11,
     (all 8 columns nonzero), a neighbor table with permuted own rows (or
     with ``own="identity"`` the box's index, as on every level the V-cycle
     builds) and a share ``self_rows`` of neighbor rows that point at the
-    box's own row, and for K1 the sweep's R, cs and checkerboard mask."""
+    box's own row, and for K1 and K2 the sweep's R, cs and checkerboard
+    mask."""
     ndim = ndim_of(name)
     x = inputs(n, nc, dtype, "cpu", seed=seed, ndim=ndim,
-               sweep=name == "fill_sweep_2d")
+               sweep="sweep" in name)
     gen = torch.Generator().manual_seed(seed + 1)
     g = x["g"]
     nd = 2 * ndim
@@ -143,11 +144,13 @@ def fill_inputs(name, n, nc, dtype, device, self_rows=0.25, seed=11,
     return {k: v.to(device) for k, v in x.items()}
 
 
-#: the kernels that stage each box in shared memory, and their float32
+#: the kernels that stage boxes in shared memory, and their float32
 #: tolerance (a fused multiply-add rounds once where the plain version
-#: rounds twice; K1's sweep divides as well)
+#: rounds twice; the sweeps divide as well)
 STAGED = {"fill_2d": 1e-5, "fill_2d_swap": 1e-5, "fill_3d": 1e-5,
-          "fill_sweep_2d": 2e-5}
+          "fill_sweep_2d": 2e-5, "sweep_2d": 2e-5}
+#: the staged kernels that read R, cs and the mask besides phi3
+SWEEPS = ("fill_sweep_2d", "sweep_2d")
 
 
 @pytest.mark.gpu
@@ -157,12 +160,12 @@ STAGED = {"fill_2d": 1e-5, "fill_2d_swap": 1e-5, "fill_3d": 1e-5,
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name", list(STAGED))
 def test_cuda_fill_matches_plain(name, dtype, n, nc, own, cuda):
-    """The kernels that stage a box in shared memory (nc = 8 compiled in,
-    other nc at run time; in 2D n leaves the last block of four boxes part
-    empty; own rows permuted, so the copy started before g is redone, or
-    the box's index) against their plain versions: a new output, the
-    input unchanged, one launch. Tolerance: float64 1e-12, float32
-    STAGED."""
+    """The kernels that stage boxes in shared memory (nc = 8 compiled in,
+    other nc at run time; in 2D n leaves the last block of a few boxes
+    part empty; own rows permuted, so the copy started before g is
+    redone, or the box's index) against their plain versions: a new
+    output, the input unchanged, one launch. Tolerance: float64 1e-12,
+    float32 STAGED."""
     x = fill_inputs(name, n, nc, dtype, cuda, own=own)
     before = x["phi3"].clone()
     want = call(ks.PLAIN[name], x, name)
@@ -179,20 +182,21 @@ def test_cuda_fill_matches_plain(name, dtype, n, nc, own, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("nc", [4, 8, 16])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_cuda_fill_sweep_with_random_mask(dtype, nc, cuda):
-    """K1 with a mask that is no checkerboard (neighbors of an updated
-    cell updated too): every new value comes from the filled block before
-    any is written back, as in the plain version."""
-    x = fill_inputs("fill_sweep_2d", 257, nc, dtype, cuda)
+@pytest.mark.parametrize("name", SWEEPS)
+def test_cuda_fill_sweep_with_random_mask(name, dtype, nc, cuda):
+    """K1 and K2 with a mask that is no checkerboard (neighbors of an
+    updated cell updated too): every new value comes from the staged block
+    before any is written back, as in the plain version."""
+    x = fill_inputs(name, 257, nc, dtype, cuda)
     gen = torch.Generator().manual_seed(nc)
     mask = (torch.rand((nc, nc), generator=gen) < 0.5).to(torch.float32)
     idx = torch.arange(nc)
     parity = (idx[:, None] + idx[None, :]) % 2
     assert not any(torch.equal(mask, (parity == p).float()) for p in (0, 1))
     x["mask"] = mask.to(cuda)
-    want = call(ks.PLAIN["fill_sweep_2d"], x, "fill_sweep_2d")
-    got = call(ks.KERNELS["fill_sweep_2d"], x, "fill_sweep_2d")
-    tol = 1e-12 if dtype == torch.float64 else STAGED["fill_sweep_2d"]
+    want = call(ks.PLAIN[name], x, name)
+    got = call(ks.KERNELS[name], x, name)
+    tol = 1e-12 if dtype == torch.float64 else STAGED[name]
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
@@ -210,9 +214,9 @@ def test_cuda_fill_with_only_self_rows(name, cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_cuda_fill_refuses_misaligned_blocks(dtype, cuda):
-    """The staged kernels read phi3 (K1 also R, cs and the mask) in
-    vectors: a view that starts one element into its storage is refused
-    before any launch."""
+    """The staged kernels read phi3 (K1 and K2 also R, cs and the mask)
+    in vectors or bulk copies: a view that starts one element into its
+    storage is refused before any launch."""
     def misaligned(t):
         flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
         view = flat[1:].view_as(t)
@@ -221,7 +225,7 @@ def test_cuda_fill_refuses_misaligned_blocks(dtype, cuda):
     counts = {name: ks.KERNELS[name].launches for name in STAGED}
     for name in STAGED:
         x = fill_inputs(name, 8, 8, dtype, cuda)
-        for key in (("phi3", "R", "cs", "mask") if name == "fill_sweep_2d"
+        for key in (("phi3", "R", "cs", "mask") if name in SWEEPS
                     else ("phi3",)):
             y = dict(x, **{key: misaligned(x[key])})
             with pytest.raises(ValueError, match="16-byte"):
