@@ -111,12 +111,30 @@
 // launch and the sectors it touches but does not need (the side ghosts
 // copied with the block, and a 32-byte sector per value of a y-side
 // slab, which is a column of the neighbor block).
+//
+// Box sizes. A block may take 48 KB of dynamic shared memory as it is, and
+// up to the device's opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin,
+// 232,448 bytes on the H100) once its kernel instance is opted in
+// (allow_smem: one cudaFuncSetAttribute per instance and device, the first
+// time a launch needs more than 48 KB). Where a box's staging fits 48 KB
+// (in float64 K2 to nc = 26, K1 to 54, K3 to 76; nc = 8 among them) the
+// launches are those above, unchanged. Above that: K1 and K3 stage one box
+// per block (one warp) past 48 KB; K2 takes sweep_2d_big_kernel, which
+// stages the box's block alone (at n = 4096 in float64 it reads 0.88-0.89
+// of its bound at nc = 34 and 64, where sweep_2d_kernel opted in to stage
+// a box of nc = 28-32 read 0.79-0.80; kernel_ab.py, one H100). The largest nc
+// on the H100: K1 118 (float64) and 168 (float32), K2, K3 and K3-swap 168
+// and 238; a larger nc returns cudaErrorInvalidValue, which the wrapper
+// raises.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -293,7 +311,61 @@ __device__ __forceinline__ void store_block(T* __restrict__ out, const T* s,
 }
 
 constexpr int kFillWarps = 4;
-constexpr size_t kMaxFillSmem = 48 * 1024;
+// the dynamic shared memory a block takes without opting in
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxDevices = 64;
+
+// The dynamic shared memory a block of the current device may take once
+// its kernel is opted in (232,448 bytes on the H100), read once per device.
+inline size_t smem_optin() {
+  static std::atomic<int> limit[kMaxDevices];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return kDefaultSmem;
+  int v = limit[dev].load();
+  if (v == 0) {
+    if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess ||
+        v <= 0)
+      v = (int)kDefaultSmem;
+    limit[dev].store(v);
+  }
+  return (size_t)v;
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory beside its static
+// shared memory (at most `static_bytes`): nothing to do within 48 KB;
+// above, one cudaFuncSetAttribute per kernel instance and device, to the
+// whole opt-in limit less the kernel's static shared memory as the
+// compiler laid it out, so that no later launch pays for it.
+// cudaErrorInvalidValue where the limit is too small.
+inline int allow_smem(const void* kernel, size_t bytes, size_t static_bytes) {
+  if (bytes + static_bytes <= kDefaultSmem) return 0;
+  const size_t limit = smem_optin();
+  int dev = 0;
+  cudaGetDevice(&dev);
+  struct OptedIn {
+    const void* kernel;
+    int dev;
+    size_t static_bytes;
+  };
+  static std::mutex mu;
+  static std::vector<OptedIn> done;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& e : done)
+    if (e.kernel == kernel && e.dev == dev)
+      return bytes + e.static_bytes > limit ? (int)cudaErrorInvalidValue : 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(limit - attr.sharedSizeBytes));
+  if (err != cudaSuccess) return (int)err;
+  done.push_back({kernel, dev, attr.sharedSizeBytes});
+  if (bytes + attr.sharedSizeBytes > limit) return (int)cudaErrorInvalidValue;
+  return 0;
+}
 
 // K3 (SWAP false) and K3-swap (SWAP true): one warp per box, a few boxes
 // per block; NC > 0 is a compile-time nc, NC == 0 takes nc_rt.
@@ -594,12 +666,65 @@ __global__ void __launch_bounds__(kSweepThreads)
   for (int i = tid; i < nv; i += blockDim.x) dst[i] = sv[i];
 }
 
+// K2's threads per block where one box's threads or staging do not fit
+// sweep_2d_kernel.
+constexpr int kBigThreads = 256;
+
+// K2 for a large nc: one block per box stages the box's block alone (in
+// 16-byte vectors from its own row) and its threads loop over the cell
+// pairs, each reading R, the six cs planes and the mask at its pair from
+// global memory (one vector each, coalesced across the threads) and
+// writing its two new values straight to out; the ghost frame goes out
+// from the staged block. Nothing is written back into shared memory, so
+// every update reads the staged values, as the plain version does.
+template <typename T>
+__global__ void __launch_bounds__(kBigThreads)
+    sweep_2d_big_kernel(const T* __restrict__ phi3, const T* __restrict__ R,
+                        const float* __restrict__ mask,
+                        const int* __restrict__ g, const T* __restrict__ cs,
+                        T* __restrict__ out, int nc) {
+  using V = typename Vec16<T>::type;
+  constexpr int kPerVec = (int)(sizeof(V) / sizeof(T));
+  const int C = nc + 2;
+  const int CC = C * C;
+  const int S = nc * nc;
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.x;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* s = reinterpret_cast<T*>(smem);
+  const long long own = g[b * 5];
+  const V* src = reinterpret_cast<const V*>(phi3 + own * CC);
+  V* sv = reinterpret_cast<V*>(s);
+  for (int i = tid; i < CC / kPerVec; i += blockDim.x) sv[i] = src[i];
+  __syncthreads();
+  T* o = out + b * CC;
+  PairIn<T> in;
+  for (int p = tid; p < S / 2; p += blockDim.x) {
+    load_pair<T>(in, R, mask, cs, b, p, S);
+    const int r = (2 * p) / nc;
+    const int c = 2 * p - r * nc;
+    const int k = (r + 1) * C + c + 1;
+    o[k] = update_cell(s + k, C, in.r.x, in.m.x, in.c[0].x, in.c[1].x,
+                       in.c[2].x, in.c[3].x, in.c[4].x, in.c[5].x);
+    o[k + 1] = update_cell(s + k + 1, C, in.r.y, in.m.y, in.c[0].y,
+                           in.c[1].y, in.c[2].y, in.c[3].y, in.c[4].y,
+                           in.c[5].y);
+  }
+  // the frame: rows 0 and C - 1 whole, then columns 0 and C - 1 between
+  for (int i = tid; i < 4 * C - 4; i += blockDim.x) {
+    const int k = i < 2 * C ? (i < C ? i : (C - 1) * C + i - C)
+                            : (1 + ((i - 2 * C) >> 1)) * C +
+                                  ((i & 1) ? C - 1 : 0);
+    o[k] = s[k];
+  }
+}
+
 // Boxes (warps) per block of a warp-per-box kernel whose box takes
-// box_bytes of shared memory.
+// box_bytes of shared memory: as many as fit 48 KB, up to kFillWarps, and
+// one where a box needs more.
 inline int warps_for(size_t box_bytes) {
-  return kMaxFillSmem / box_bytes < (size_t)kFillWarps
-             ? (int)(kMaxFillSmem / box_bytes)
-             : kFillWarps;
+  return (int)std::max<size_t>(
+      1, std::min<size_t>(kDefaultSmem / box_bytes, kFillWarps));
 }
 
 inline bool aligned16(const void* p) {
@@ -614,66 +739,69 @@ int launch_fill_sweep(const T* phi3, const T* R, const float* mask,
                       T* out, int n, int nc, cudaStream_t stream) {
   const size_t box_bytes =
       ((size_t)(nc + 2) * (nc + 2) + (size_t)nc * nc) * sizeof(T);
-  if (nc < 2 || nc % 2 != 0 || box_bytes > kMaxFillSmem)
-    return (int)cudaErrorInvalidValue;
+  if (nc < 2 || nc % 2 != 0) return (int)cudaErrorInvalidValue;
   if (!(aligned16(phi3) && aligned16(out) && aligned16(R) && aligned16(cs) &&
         aligned16(mask)))
     return (int)cudaErrorMisalignedAddress;
   const int warps = warps_for(box_bytes);
   const unsigned blocks = (unsigned)((n + warps - 1) / warps);
   const size_t smem = warps * box_bytes;
-  if (nc == 8) {
-    fill_sweep_2d_kernel<T, 8><<<blocks, warps * 32, smem, stream>>>(
-        phi3, R, mask, A, g, W, cs, out, n, nc);
-  } else {
-    fill_sweep_2d_kernel<T, 0><<<blocks, warps * 32, smem, stream>>>(
-        phi3, R, mask, A, g, W, cs, out, n, nc);
-  }
+  auto kernel = nc == 8 ? fill_sweep_2d_kernel<T, 8>
+                        : fill_sweep_2d_kernel<T, 0>;
+  if (int err = allow_smem((const void*)kernel, smem, 0)) return err;
+  kernel<<<blocks, warps * 32, smem, stream>>>(phi3, R, mask, A, g, W, cs,
+                                               out, n, nc);
   return (int)cudaGetLastError();
 }
 
 // Launch K3 or K3-swap: nc even (a block is then a whole number of 16-byte
 // vectors), phi3 and out on 16-byte boundaries, one block of a box within
-// 48 KB of shared memory (nc <= 76 in float64).
+// the opt-in limit of shared memory (nc <= 168 in float64).
 template <typename T, bool SWAP>
 int launch_fill(const T* phi3, const T* A, const int* g, const T* W, T* out,
                 int n, int nc, cudaStream_t stream) {
   const size_t box_bytes = (size_t)(nc + 2) * (nc + 2) * sizeof(T);
-  if (nc < 2 || nc % 2 != 0 || box_bytes > kMaxFillSmem)
-    return (int)cudaErrorInvalidValue;
+  if (nc < 2 || nc % 2 != 0) return (int)cudaErrorInvalidValue;
   if (!(aligned16(phi3) && aligned16(out)))
     return (int)cudaErrorMisalignedAddress;
   const int warps = warps_for(box_bytes);
   const unsigned blocks = (unsigned)((n + warps - 1) / warps);
   const size_t smem = warps * box_bytes;
-  if (nc == 8) {
-    fill_2d_kernel<T, 8, SWAP>
-        <<<blocks, warps * 32, smem, stream>>>(phi3, A, g, W, out, n, nc);
-  } else {
-    fill_2d_kernel<T, 0, SWAP>
-        <<<blocks, warps * 32, smem, stream>>>(phi3, A, g, W, out, n, nc);
-  }
+  auto kernel = nc == 8 ? fill_2d_kernel<T, 8, SWAP>
+                        : fill_2d_kernel<T, 0, SWAP>;
+  if (int err = allow_smem((const void*)kernel, smem, 0)) return err;
+  kernel<<<blocks, warps * 32, smem, stream>>>(phi3, A, g, W, out, n, nc);
   return (int)cudaGetLastError();
 }
 
 // Launch K2: nc even, phi3, R, cs, mask and out on 16-byte boundaries (C
 // and nc are even, so every range a block copies is a multiple of 16 bytes
-// and starts on 16 bytes), a box's block, R and cs and the mbarrier within
-// 48 KB of shared memory and its threads within kSweepThreads (nc <= 26 in
-// float64, 32 in float32). The run of boxes per block is sized from n, so
-// that n = 4096 is one wave of kSweepBlocks blocks.
+// and starts on 16 bytes). Where a box's threads fit kSweepThreads and its
+// block, R, cs and the mbarrier fit 48 KB of shared memory (nc <= 26 in
+// float64, 32 in float32), sweep_2d_kernel, with the run of boxes per
+// block sized from n, so that n = 4096 is one wave of kSweepBlocks blocks;
+// else sweep_2d_big_kernel, whose box's block fits the opt-in limit (nc <=
+// 168 in float64, 238 in float32).
 template <typename T>
 int launch_sweep(const T* phi3, const T* R, const float* mask, const int* g,
                  const T* cs, T* out, int n, int nc, cudaStream_t stream) {
-  const int per = nc * nc / 2;  // threads per box
-  const size_t box_bytes =
-      ((size_t)(nc + 2) * (nc + 2) + 7 * (size_t)nc * nc) * sizeof(T);
-  const size_t smem_max = kMaxFillSmem - sizeof(uint64_t);
-  if (nc < 2 || nc % 2 != 0 || box_bytes > smem_max || per > kSweepThreads)
-    return (int)cudaErrorInvalidValue;
+  if (nc < 2 || nc % 2 != 0) return (int)cudaErrorInvalidValue;
   if (!(aligned16(phi3) && aligned16(out) && aligned16(R) && aligned16(cs) &&
         aligned16(mask)))
     return (int)cudaErrorMisalignedAddress;
+  const int per = nc * nc / 2;  // threads per box
+  const size_t block_bytes = (size_t)(nc + 2) * (nc + 2) * sizeof(T);
+  const size_t box_bytes = block_bytes + 7 * (size_t)nc * nc * sizeof(T);
+  // the mbarrier, with the 16-byte alignment of what follows it
+  const size_t bar_bytes = 16;
+  if (per > kSweepThreads || box_bytes + bar_bytes > kDefaultSmem) {
+    auto kernel = sweep_2d_big_kernel<T>;
+    if (int err = allow_smem((const void*)kernel, block_bytes, 0)) return err;
+    kernel<<<n, kBigThreads, block_bytes, stream>>>(phi3, R, mask, g, cs,
+                                                   out, nc);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem_max = kDefaultSmem - bar_bytes;
   const int run = std::max(
       1, std::min({(n + kSweepBlocks - 1) / kSweepBlocks,
                    (int)(smem_max / box_bytes), kSweepThreads / per}));

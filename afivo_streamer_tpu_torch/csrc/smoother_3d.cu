@@ -62,13 +62,25 @@
 // second instance takes any even nc at run time (threads loop over the 6
 // nc^2 ghosts). C is even, so a block is a whole number of 16-byte units
 // and starts on a 16-byte boundary when phi3 does (the wrapper checks
-// it); one block must fit 48 KB of shared memory (nc <= 16 in float64).
+// it); one block must fit a block's shared memory (see Box sizes below).
 // What is left between it and its bound is traffic the function does not
 // need: the copy reads the face ghosts with their rows, and a z-face slab
 // value costs a 32-byte sector, ~26 KB of sectors per box in float64
 // against the 16.2 KB counted. One warp per box (12 ghosts per thread) or
 // 64 threads per box ran 2-5 % slower than 128.
-
+//
+// Box sizes. fill_3d_kernel stages a whole box in at most 48 KB of shared
+// memory, so it runs nc <= 16 in float64 and 20 in float32 (nc = 8 among
+// them, unchanged). A larger box takes fill_3d_direct_kernel, which stages
+// nothing: one block per box whose threads loop over the box's cells, each
+// cell a copy of the own block or a face ghost computed from its f1, f2
+// and slab values in global memory, as K5 was before it staged boxes.
+// Staging past 48 KB (opting in up to 227 KB, nc <= 28 in float64 and 36
+// in float32) was measured and dropped: at n = 4096 (kernel_ab.py, one
+// H100) it ran 1.4-2.8 times slower than the direct kernel in float64 (nc
+// 18-28) and 1.1-3.0 times in float32 (nc 22-36), a block of 128 threads
+// holding up to a whole SM's shared memory. K4 stages nothing either, so
+// both run any nc whose block indexes in 32 bits (C^3 < 2^31).
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -80,7 +92,8 @@ constexpr int kModeSweep = 0;
 constexpr int kModeFill = 1;
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr int kFillThreads = 128;
-constexpr size_t kMaxSmem = 48 * 1024;
+// the dynamic shared memory a block takes without opting in
+constexpr size_t kDefaultSmem = 48 * 1024;
 
 template <typename T>
 __global__ void sweep_3d_kernel(const T* __restrict__ phi3,
@@ -360,19 +373,72 @@ __global__ void __launch_bounds__(kFillThreads)
   for (int i = tid; i < nv; i += kFillThreads) dst[i] = sv[i];
 }
 
+// K5 for a box that does not fit a block's shared memory: one block of
+// kFillThreads threads per box, which loop over the box's C^3 cells. A
+// face ghost (one coordinate 0 or nc + 1, the two others interior) is
+// W0*slab + W1*f1 + W2*f2 + A from global memory, in the operation order
+// of put_face; every other cell is the own block's. The stores of
+// consecutive threads are consecutive, and so are most loads.
+template <typename T>
+__global__ void __launch_bounds__(kFillThreads)
+    fill_3d_direct_kernel(const T* __restrict__ phi3, const T* __restrict__ A,
+                          const int* __restrict__ g, const T* __restrict__ W,
+                          T* __restrict__ out, int nc) {
+  const int C = nc + 2;
+  const int CC = C * C;
+  const long long C3 = (long long)CC * C;
+  const long long b = blockIdx.x;
+  const long long own = g[b * 7];
+  const T* B = phi3 + own * C3;
+  T* o = out + b * C3;
+  for (int k = threadIdx.x; k < CC * C; k += kFillThreads) {
+    const int x = k / CC;
+    const int y = k / C - x * C;
+    const int z = k - (k / C) * C;
+    const bool gx = x == 0 || x == C - 1;
+    const bool gy = y == 0 || y == C - 1;
+    const bool gz = z == 0 || z == C - 1;
+    if ((int)gx + (int)gy + (int)gz != 1) {  // interior, edge or corner
+      o[k] = B[k];
+      continue;
+    }
+    // the face: its axis, side, the stride along the axis, the ghost's
+    // coordinate along it and its two transverse cells
+    const int axis = gx ? 0 : gy ? 1 : 2;
+    const int along = axis == 0 ? x : axis == 1 ? y : z;
+    const int stride = axis == 0 ? CC : axis == 1 ? C : 1;
+    const bool low = along == 0;
+    const int d = 2 * axis + (low ? 0 : 1);
+    const int t0 = (axis == 0 ? y : x) - 1;
+    const int t1 = (axis == 2 ? y : z) - 1;
+    const T* w = W + (b * 6 + d) * 8;
+    const T a = A[(b * 6 + d) * nc * nc + t0 * nc + t1];
+    const int step = low ? stride : -stride;
+    const int base = k - along * stride;  // the cell at row 0 of the axis
+    const long long nrow = g[b * 7 + 1 + d];
+    const T slab = phi3[nrow * C3 + base + (low ? nc : 1) * stride];
+    o[k] = w[0] * slab + w[1] * B[k + step] + w[2] * B[k + 2 * step] + a;
+  }
+}
+
 // Launch K5: nc even (a block is then a whole number of 16-byte units),
-// phi3 and out on 16-byte boundaries, one block of a box and the barrier
-// within 48 KB of shared memory.
+// phi3 and out on 16-byte boundaries. fill_3d_kernel where a box and the
+// barrier (with the 16-byte alignment of what follows it) fit 48 KB of
+// shared memory, else fill_3d_direct_kernel.
 template <typename T>
 int launch_fill(const T* phi3, const T* A, const int* g, const T* W, T* out,
                 int n, int nc, cudaStream_t stream) {
   const size_t box_bytes = (size_t)(nc + 2) * (nc + 2) * (nc + 2) * sizeof(T);
-  if (nc < 2 || nc % 2 != 0 || box_bytes + sizeof(uint64_t) > kMaxSmem)
+  if (nc < 2 || nc % 2 != 0 || (size_t)(nc + 2) * (nc + 2) * (nc + 2) >=
+                                   ((size_t)1 << 31))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(phi3) | reinterpret_cast<uintptr_t>(out)) %
           16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  if (nc == 8) {
+  if (box_bytes + 16 > kDefaultSmem) {
+    fill_3d_direct_kernel<T>
+        <<<n, kFillThreads, 0, stream>>>(phi3, A, g, W, out, nc);
+  } else if (nc == 8) {
     fill_3d_kernel<T, 8>
         <<<n, kFillThreads, box_bytes, stream>>>(phi3, A, g, W, out, nc);
   } else {

@@ -52,9 +52,11 @@ process group (parallel/halo.py): the state holds the rank's own boxes
 and their halo, the tree and the plans are replicated, the refinement
 flags are gathered so that every rank takes the same decision, the rows
 move to their new owners after every epoch that changes the mesh, and
-rank 0 gathers the state and writes every file. The branches whose state
-lives outside the box rows (dielectric surfaces, Monte-Carlo photons),
-electrodes and user modules raise NotImplementedError there.
+rank 0 gathers the state and writes every file. Every branch runs there:
+the surfaces keep their state in the gas-side box's rows
+(solvers/surface.py), every rank makes the same Monte-Carlo photons and
+deposits those in its own boxes, and a user hook sees the rank's own
+boxes as rows of its state (_hook_view).
 """
 
 from __future__ import annotations
@@ -286,6 +288,7 @@ class Simulation:
                                  charged_cc, ch_q)
         if self.st.use_dielectric:
             self.field.mg.eps_data = self._eps_level_data
+            self.field.mg.eps_level1 = self._eps_level1
         # user hooks into the field solver (m_field.f90:216-219, 515-519)
         if self.user.potential_bc is not None:
             self.field.user_potential_bc = self.user.potential_bc
@@ -364,9 +367,6 @@ class Simulation:
                                      reg, charged_cc, ch_q)
         self.surfaces = None
         self.dielectric = None
-        if self.shards is not None:
-            self._refuse_unsharded()
-
         # ---- storage (grown with the mesh, _sync_capacity)
         batch = BoxBatch(self.tree, reg.n_cc, reg.n_fc,
                          capacity(self.tree.highest_id)
@@ -409,21 +409,6 @@ class Simulation:
             self.setup_initial_conditions()
 
     # ------------------------------------------------------------ helpers
-    def _refuse_unsharded(self):
-        """NotImplementedError for the branches that do not run sharded,
-        naming the module that holds their state."""
-        st = self.st
-        for on, module in (
-                (st.use_dielectric, "solvers/surface.py"),
-                (st.use_electrode, "solvers/lsf.py"),
-                (self.photoi.enabled and self.photoi.method != "helmholtz",
-                 "physics/photoi_mc.py"),
-                (self.cfg.get("user%module") != "UNDEFINED",
-                 "physics/user_methods.py")):
-            if on:
-                raise NotImplementedError(
-                    f"{module} under compiled%shards")
-
     def _enter_state_dtype(self):
         """The compiled engine's state dtype from the first step on (JAX
         driver.py:1188-1200, where run() moves the state to the device in
@@ -440,6 +425,37 @@ class Simulation:
         self.mesh.set_dtype(dtype)
         self.mesh.full.set_dtype(dtype)
 
+    @contextlib.contextmanager
+    def _hook_view(self):
+        """The simulation as a user hook sees it: in a sharded run ``tree``
+        is the rank's LocalTree, whose box ids are the rows of the rank's
+        state (a hook that takes box ids gets the rank's own boxes among
+        them, in those rows), so that a hook written for one process
+        addresses its own boxes; the whole tree again after the hook.
+        Nothing changes when unsharded."""
+        if self.layout is None:
+            yield
+            return
+        tree, self.tree = self.tree, self.local_tree
+        try:
+            yield
+        finally:
+            self.tree = tree
+
+    def _user_flags(self, ids) -> np.ndarray:
+        """The user's refinement flags of boxes ``ids`` of the tree,
+        ``refine(sim, cc, ids)``; in a sharded run every rank flags its own
+        boxes (MeshPlans.map_boxes), gathered on every rank."""
+        shape = (0,) + (self.tree.nc,) * self.ndim
+
+        def flags(rows, _sel):
+            if len(rows) == 0:
+                return np.zeros(shape, np.int64)
+            with self._hook_view():
+                return np.asarray(self.user.refine(self, self.cc, rows),
+                                  np.int64)
+        return self.mesh.map_boxes(ids, flags)
+
     def _rows(self, ids):
         """(tree, rows) to address boxes ``ids`` of the tree in the state:
         the tree and the ids, or in a sharded run the LocalTree and the
@@ -452,8 +468,30 @@ class Simulation:
 
     def _eps_level_data(self, lvl: int) -> np.ndarray:
         """Permittivity blocks of a level on the host (the variable-eps
-        multigrid operator)."""
-        return self.cc[self.i_eps, self.mesh.tb(lvl).d.ids].cpu().numpy()
+        multigrid operator), of the rows its level arrays hold
+        (MeshPlans.level_rows: in a sharded run the rank's own boxes, then
+        its halo, which _refresh_eps_halo keeps current)."""
+        rows = torch.as_tensor(self.mesh.level_rows(lvl), dtype=torch.int64,
+                               device=self.device)
+        return self.cc[self.i_eps, rows].cpu().numpy()
+
+    def _eps_level1(self) -> np.ndarray:
+        """Permittivity blocks of the whole of level 1 in the tree's order
+        on every rank of a sharded run (the dense coarse solve's
+        operator)."""
+        return self.mesh.map_boxes(
+            self.tree.lvl_ids[0], lambda rows, _sel: self.cc[
+                self.i_eps, torch.as_tensor(rows, device=self.device)]
+            .cpu().numpy())
+
+    def _refresh_eps_halo(self):
+        """In a sharded run, the permittivity of the halo rows on every
+        level from their owners: only the setup and the prolongation into
+        new boxes write it, and the multigrid's level operators read it on
+        halo rows without an exchange of their own."""
+        if self.i_eps >= 0:
+            self.mesh.halo(self.cc, range(1, self.tree.highest_lvl + 1),
+                           [self.i_eps])
 
     def _level_mask(self, lvl: int):
         """Cells of a level's leaves the fluid update may change
@@ -560,11 +598,17 @@ class Simulation:
         self.cc = self.init_cond.apply(self.cc, tree, rows)
         self._init_gas_state(ids)
         if self.user.initial_conditions is not None:
-            self.user.initial_conditions(self, np.asarray(ids, np.int64))
+            ids = np.asarray(ids, np.int64)
+            if self.layout is not None:
+                ids = self.layout.own_rows(ids)[1]
+            if len(ids):
+                with self._hook_view():
+                    self.user.initial_conditions(self, ids)
         elif self.st.use_dielectric:
             raise ValueError(
                 "use_dielectric requires user initial conditions")
         self._zero_inside_electrode(ids)
+        self._refresh_eps_halo()
 
     # ---------------------------------------------------------------- gas
     def _fill_user_gas_density(self, ids):
@@ -574,11 +618,15 @@ class Simulation:
         if self.gasdyn is not None or self.user.gas_density is None \
                 or len(ids) == 0:
             return
-        ids = np.asarray(ids, np.int64)
-        dens = np.asarray(self.user.gas_density(self, self._cell_coords(ids)))
+        tree, rows = self._rows(ids)
+        if len(rows) == 0:
+            return
+        coords = tree.boxes_cell_coords(rows).reshape(len(rows), -1,
+                                                      self.ndim)
+        dens = np.asarray(self.user.gas_density(self, coords))
         self.cc[self.i_gas_dens, torch.as_tensor(
-            ids, device=self.device)] = torch.as_tensor(
-                dens.reshape(len(ids), -1), dtype=self.dtype,
+            rows, device=self.device)] = torch.as_tensor(
+                dens.reshape(len(rows), -1), dtype=self.dtype,
                 device=self.device)
 
     def _init_gas_state(self, ids):
@@ -630,23 +678,19 @@ class Simulation:
         self.dt_gas_lim = self._advance_gas(dt, self.global_time, params)
         self.cc = self.coupling.update_gas_density(self.cc, self._gc_simple)
 
-    def _cell_coords(self, ids) -> np.ndarray:
-        """Cell centres of boxes ``ids``, ghost layer included:
-        [n, (nc+2)^ndim, ndim]."""
-        return self.tree.boxes_cell_coords(ids).reshape(
-            len(ids), -1, self.ndim)
-
     # ---------------------------------------------------------- electrode
     def _fill_lsf(self, ids):
         """Evaluate the level-set function on boxes (funcval variable,
         set_lsf_box in m_field.f90): all cells incl. one ghost layer."""
         if self.field.lsf_data is None or len(ids) == 0:
             return
-        ids = np.asarray(ids, np.int64)
+        tree, rows = self._rows(ids)
+        if len(rows) == 0:
+            return
         lsf = self.field.lsf_data.lsf(
-            self._cell_coords(ids).reshape(-1, self.ndim))
-        self.cc[self.i_lsf, torch.as_tensor(ids, device=self.device)] = \
-            torch.as_tensor(lsf.reshape(len(ids), -1), dtype=self.dtype,
+            tree.boxes_cell_coords(rows).reshape(-1, self.ndim))
+        self.cc[self.i_lsf, torch.as_tensor(rows, device=self.device)] = \
+            torch.as_tensor(lsf.reshape(len(rows), -1), dtype=self.dtype,
                             device=self.device)
 
     def _zero_inside_electrode(self, ids):
@@ -654,7 +698,7 @@ class Simulation:
         m_init_cond.f90:283-287)."""
         if self.i_lsf < 0 or len(ids) == 0:
             return
-        ids = torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+        ids = torch.as_tensor(self._rows(ids)[1], device=self.device)
         inside = self.cc[self.i_lsf, ids] <= 0.0
         for iv in self.all_densities:
             self.cc[iv, ids] = torch.where(inside, 0.0, self.cc[iv, ids])
@@ -667,7 +711,8 @@ class Simulation:
         no such box."""
         def make():
             data = self.field.lsf_data.level_data(lvl)
-            sel = np.nonzero(data["has_bnd"])[0]
+            # the level's own boxes (a sharded run's halo comes after)
+            sel = np.nonzero(data["has_bnd"][:data["n_own"]])[0]
             if len(sel) == 0:
                 return None
             nc, ndim = self.tree.nc, self.ndim
@@ -751,9 +796,15 @@ class Simulation:
         """The surfaces on the permittivity jumps (surface_initialize) and
         the dielectric physics on them."""
         n_states = self.dt_cfg.num_steps
-        eps = self.cc[self.i_eps, :self.tree.highest_id].cpu().numpy()
+        # the median permittivity of every box (each rank its own)
+        ids = np.nonzero(self.tree.in_use[:self.tree.highest_id])[0]
+        eps = np.zeros((self.tree.highest_id, 1))
+        eps[ids, 0] = self.mesh.map_boxes(ids, lambda rows, _sel: np.median(
+            self.cc[self.i_eps, torch.as_tensor(rows, device=self.device)]
+            .cpu().numpy(), axis=1))
         self.surfaces = Surfaces(self.tree, eps, self.i_surf_photon,
-                                 self.i_surf_sigma, n_states + 1)
+                                 self.i_surf_sigma, n_states + 1,
+                                 mesh_fn=lambda: self.mesh)
         # full charges of the flux species and the positive-ion fluxes
         ngas = self.chem.n_gas_species
         charges = [self.chem.species_charge[ngas + self.species_cc.index(iv)]
@@ -779,7 +830,7 @@ class Simulation:
             # the user's criterion replaces the default one, called with
             # the documented signature refine(sim, cc, ids)
             def flags_fn(ids):
-                return self.user.refine(self, self.cc, ids)
+                return self._user_flags(ids)
         else:
             def flags_fn(ids):
                 return self.refiner.cell_flags(self.cc, ids)
@@ -787,9 +838,12 @@ class Simulation:
             flags_fn, ref_buffer=self.refine_cfg.buffer_width, ref_links=links)
         if info.n_add == 0 and info.n_rm == 0:
             return info
+        gathered = (self.surfaces.gather_state(self.cc)
+                    if self.surfaces is not None else None)
         self._sync_capacity()
         if self.surfaces is not None:
-            self.cc = self.surfaces.update_after_refinement(self.cc, info)
+            self.cc = self.surfaces.update_after_refinement(self.cc, info,
+                                                            gathered)
         params = {"voltage": self.field.current_voltage}
         methods = self.registry.methods
         for lvl in sorted(info.added_per_lvl):
@@ -802,6 +856,7 @@ class Simulation:
             for iv in self.registry.auto_vars:
                 gc.fill_ghosts_lvl(self.cc, gplan, [iv], methods[iv]["rb"],
                                    methods[iv]["bc"], params)
+        self._refresh_eps_halo()
         return info
 
     def _set_power_density(self):
@@ -943,7 +998,8 @@ class Simulation:
 
             # per-iteration user hook (streamer.f90:181-183)
             if self.user.generic is not None:
-                self.user.generic(self, time)
+                with self._hook_view():
+                    self.user.generic(self, time)
 
             # pulse-train bookkeeping (streamer.f90:216-234)
             time_until_next_pulse = (self.field.field_pulse_period
@@ -1046,7 +1102,8 @@ class Simulation:
                 # start a new pulse with a small time step
                 dt = self.dt_cfg.dt_min
                 if self.user.new_pulse_conditions is not None:
-                    self.user.new_pulse_conditions(self)
+                    with self._hook_view():
+                        self.user.new_pulse_conditions(self)
             self.global_dt = dt
             self.global_time = time
             # float64 on the host (JAX driver.py:1957)

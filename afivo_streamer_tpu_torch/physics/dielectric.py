@@ -180,9 +180,11 @@ class Dielectric:
             self._deposit_photons(acc, xyz_abs, far, weight,
                                   self.gamma_se_ph_le, skip=absorbed)
         if active and acc.any():
+            # every rank computes every surface's share (the photons are
+            # the same on every rank of a sharded run) and keeps its own
             sf = self.surf
-            rows = torch.as_tensor([s.id_out for s in active],
-                                   device=cc.device)
+            mine, rows = sf.own_rows([s.id_out for s in active])
+            rows = torch.as_tensor(rows, device=cc.device)
             cc[sf.i_photon, rows, :sf.face_cells] += torch.as_tensor(
-                acc, dtype=cc.dtype, device=cc.device)
+                acc[mine], dtype=cc.dtype, device=cc.device)
         return cc, absorbed

@@ -420,7 +420,8 @@ class FieldSolver:
             nc, ndim = self.tree.nc, self.tree.ndim
             is_leaf = np.zeros(len(tb.ids), bool)
             is_leaf[tb.leaves_pos] = True
-            sel = np.nonzero(data["has_bnd"] & is_leaf)[0]
+            # the level's own boxes come first (a sharded run's halo after)
+            sel = np.nonzero(data["has_bnd"][:data["n_own"]] & is_leaf)[0]
             if len(sel) == 0:
                 return None
             cshape = (len(sel),) + (nc,) * ndim

@@ -33,7 +33,6 @@ import torch
 from .. import constants as uc
 from ..core import ghostcell as gc
 from ..core import prolong_restrict as pr
-from ..core import reductions as red
 from ..core import rowops as ro
 from ..core import spatial as sp
 from ..utils.lookup_table import LookupTable
@@ -118,7 +117,9 @@ class PhotoiMC:
 
     def __init__(self, cfg, mesh, gas, settings, rng_seed: int = 0):
         self.mesh = mesh
-        self.tree = mesh.tree
+        #: the whole tree: in a sharded run every rank makes, flies and
+        #: locates every photon, and deposits those in its own boxes
+        self.tree = mesh.full.tree
         self.gas = gas
         #: physics/dielectric.Dielectric, wired by the driver with
         #: dielectrics; it intercepts the photons that cross a surface
@@ -169,7 +170,7 @@ class PhotoiMC:
             keys = np.ravel_multi_index(tuple(t.ix[ids].T), tuple(nb))
             order = np.argsort(keys, kind="stable")
             return keys[order], ids[order]
-        return self.mesh.cached(("mc_keys", lvl), make, (lvl,))
+        return self.mesh.full.cached(("mc_keys", lvl), make, (lvl,))
 
     def locate(self, pos: np.ndarray, lvl_target):
         """af_get_loc for many points: (box id, flat cell index in the
@@ -241,7 +242,33 @@ class PhotoiMC:
             return sp.device_copy(dict(
                 vol=np.prod(dr_all, axis=1), dr0=dr_all[:, 0],
                 r0=t.r_base[0] + t.ix[:n, 0] * t.nc * dr_all[:, 0]), device)
-        return self.mesh.cached("mc_boxes", make)
+        return self.mesh.full.cached("mc_boxes", make)
+
+    def _leaf_rates(self, cc, i_src, lvls):
+        """The source rates of every leaf's interior cells per level of
+        ``lvls`` (in the tree's leaf order, on the state's device) and
+        their volume integral, as red.tree_sum_cc adds it up. In a sharded
+        run the rates come from every rank (MeshPlans.map_boxes) and every
+        rank sums all of them as one process would, so that every rank
+        draws the same photons."""
+        t, mesh = self.tree, self.mesh
+        nc, ndim = t.nc, t.ndim
+        dev = cc.device
+        if mesh.layout is None:
+            vals = [ro.cc_get_interior(cc, i_src, mesh.tb(l).d.leaves, nc,
+                                       ndim) for l in lvls]
+        else:
+            vals = [torch.as_tensor(mesh.map_boxes(
+                t.lvl_leaves[l - 1], lambda rows, _sel: ro.cc_get_interior(
+                    cc, i_src, torch.as_tensor(rows, device=dev), nc, ndim)
+                .cpu().numpy()), device=dev) for l in lvls]
+        sums = [(v * mesh.full.tb(l).d.two_pi_r.to(v.dtype)
+                 if t.coord == "cyl" else v).sum() for l, v in zip(lvls, vals)]
+        total = 0.0
+        for l, s in zip(lvls, torch.stack(sums).cpu().tolist() if sums
+                        else []):
+            total += float(np.prod(t.lvl_dr(l))) * s
+        return vals, total
 
     def _clear_photo(self, cc, i_photo):
         cc[i_photo, self.mesh.all_ids()] = 0.0
@@ -263,7 +290,9 @@ class PhotoiMC:
             # clear the surfaces' photon fluxes (m_photoi_mc.f90:415)
             cc = self.dielectric.reset_photons(cc)
 
-        sum_rate = red.tree_sum_cc(cc, mesh, i_src)
+        lvls = [l for l in range(1, t.highest_lvl + 1)
+                if len(t.lvl_leaves[l - 1])]
+        vals, sum_rate = self._leaf_rates(cc, i_src, lvls)
         small = 1e-100
         if dt is not None and self.physical_photons:
             n_produced = dt * sum_rate / self.min_weight
@@ -276,11 +305,7 @@ class PhotoiMC:
 
         # ---- photons per leaf cell (phmc_generate_photons); the rates of
         # all leaves come to the host in one copy
-        lvls = [l for l in range(1, t.highest_lvl + 1)
-                if len(t.lvl_leaves[l - 1])]
-        rates = torch.cat([ro.cc_get_interior(cc, i_src, mesh.tb(l).d.leaves,
-                                              nc, ndim) for l in lvls])
-        rates = rates.to(torch.float64).cpu().numpy()
+        rates = torch.cat(vals).to(torch.float64).cpu().numpy()
         src_list, start = [], 0
         for lvl in lvls:
             leaves = np.asarray(t.lvl_leaves[lvl - 1])
@@ -370,12 +395,18 @@ class PhotoiMC:
         t0 = self._mark("generate", t0, device)
         ids, cells = self.locate(abs_pos, lvl_target)
         ok = ids >= 0
+        self.n_deposited = int(np.sum(ok))
+        if mesh.layout is not None:
+            # the photons in this rank's boxes
+            ok[ok] = mesh.layout.own_rows(ids[ok])[0]
         idsk = ids[ok].astype(np.int32)
         cellsk = cells[ok].astype(np.int32)
-        self.n_deposited = len(idsk)
+        rows = (idsk if mesh.layout is None
+                else mesh.layout.row_of[idsk].astype(np.int32))
         t0 = self._mark("locate", t0, device)
 
         idsk = torch.as_tensor(idsk).to(device).long()
+        rows = torch.as_tensor(rows).to(device).long()
         cellsk = torch.as_tensor(cellsk).to(device).long()
         t0 = self._mark("copy", t0, device)
 
@@ -390,7 +421,7 @@ class PhotoiMC:
                                rounding_mode="floor") - 1
                 r_dep = bt.r0[idsk] + (ci + 0.5) * bt.dr0[idsk]
                 w = w / (2 * np.pi * r_dep)
-            cc[i_photo].index_put_((idsk, cellsk), w.to(cc.dtype),
+            cc[i_photo].index_put_((rows, cellsk), w.to(cc.dtype),
                                    accumulate=True)
         t0 = self._mark("deposit", t0, device)
 

@@ -186,6 +186,7 @@ class LsfData:
         #: build_seconds)
         self.build_seconds = 0.0
         self._by_position = {}  # lvl -> (digest of ids and positions, data)
+        self._whole = None  # whole(), in a sharded run
 
     def _dist(self, a, b):
         if self.dist_mode == "gss":
@@ -193,32 +194,49 @@ class LsfData:
         return dist_linear(self.lsf, a, b, self.tol, self.min_rel_distance)
 
     def level_data(self, lvl: int):
-        """Distances for all boxes of a level.
+        """Distances for all boxes of a level (in a sharded run, the
+        rank's rows of the level: its own boxes, then its halo).
 
         Returns dict with: dd [n, C, 2*ndim] (1 = no boundary), has_bnd [n]
         (bool, i.e. the mg_lsf_box tag), lsf_cc [n, C] (cell-centered lsf),
         bc_coeff [n, C] (per-cell boundary-potential multiplier), ids [n]
-        (the level's boxes, in the order of the level's id list)."""
+        (the level's boxes, or rows, as the multigrid's level arrays hold
+        them: MeshPlans.level_rows), n_own (how many of them come first
+        and are the level's id list, the rank's own boxes)."""
         def make():
             # a level's fingerprint also changes with the leaf status of
             # its boxes; the distances depend on their positions only
             t = self.tree
-            ids = np.asarray(t.lvl_ids[lvl - 1], np.int64)
-            where = hashlib.blake2b(ids.tobytes() + t.ix[ids].tobytes(),
-                                    digest_size=16).digest()
+            ids = np.asarray(self.mesh.level_rows(lvl), np.int64)
+            n_own = len(t.lvl_ids[lvl - 1])
+            where = hashlib.blake2b(
+                ids.tobytes() + t.ix[ids].tobytes()
+                + np.int64(n_own).tobytes(), digest_size=16).digest()
             hit = self._by_position.get(lvl)
             if hit is None or hit[0] != where:
                 t0 = time.perf_counter()
-                hit = (where, self._level_data(lvl))
+                hit = (where, dict(self._level_data(lvl, ids), n_own=n_own))
                 self._by_position[lvl] = hit
                 self.build_seconds += time.perf_counter() - t0
             return hit[1]
         return self.mesh.cached(("lsf", self, lvl), make, (lvl,))
 
-    def _level_data(self, lvl: int):
+    def whole(self) -> "LsfData":
+        """The same level set on the whole tree (mesh.full): itself when
+        unsharded; in a sharded run a twin that every rank holds, for the
+        level-1 operator of the dense coarse solve."""
+        if self.mesh.full is self.mesh:
+            return self
+        if self._whole is None:
+            self._whole = LsfData(
+                self.mesh.full, self.lsf, self.length_scale, self.dist_mode,
+                self.tol, self.min_rel_distance, self.safety,
+                self.boundary_coeff_fn)
+        return self._whole
+
+    def _level_data(self, lvl: int, ids: np.ndarray):
         t = self.tree
         nc, ndim = t.nc, t.ndim
-        ids = np.asarray(t.lvl_ids[lvl - 1])
         n = len(ids)
         C = nc ** ndim
         dr = t.lvl_dr(lvl)
@@ -287,17 +305,24 @@ class LsfData:
                     ids=ids)
 
     def box_has_boundary(self, ids) -> np.ndarray:
-        """The mg_lsf_box tag for arbitrary box ids (of any levels)."""
+        """The mg_lsf_box tag for boxes ``ids`` of the tree (of any
+        levels); in a sharded run every rank tags its own boxes among
+        them (MeshPlans.map_boxes)."""
+        return self.mesh.map_boxes(ids, lambda rows, _sel: self._has_bnd(
+            rows))
+
+    def _has_bnd(self, rows) -> np.ndarray:
+        """The mg_lsf_box tag of state rows ``rows``."""
         t = self.tree
-        ids = np.asarray(ids, np.int64)
-        lvls = t.lvl[ids]
-        out = np.zeros(len(ids), dtype=bool)
+        rows = np.asarray(rows, np.int64)
+        lvls = t.lvl[rows]
+        out = np.zeros(len(rows), dtype=bool)
         pos = np.empty(int(t.highest_id) + 1, np.int64)
         for lvl in np.unique(lvls):
             data = self.level_data(int(lvl))
             pos[data["ids"]] = np.arange(len(data["ids"]))
             sel = lvls == lvl
-            out[sel] = data["has_bnd"][pos[ids[sel]]]
+            out[sel] = data["has_bnd"][pos[rows[sel]]]
         return out
 
 

@@ -158,6 +158,9 @@ class Multigrid:
         self.n_cycle_down = n_cycle_down
         self.n_cycle_up = n_cycle_up
         self.eps_data = None
+        #: in a sharded run with eps_data, the permittivity blocks of the
+        #: whole of level 1 in the tree's order, gathered on every rank
+        self.eps_level1 = None
         self.lsf_data = None
 
     def rows(self, lvl: int) -> np.ndarray:
@@ -240,8 +243,21 @@ class Multigrid:
         per_cell = self.eps_data is not None or self.lsf_data is not None
         return self._get(("coarse",), lambda: make_coarse_solver(
             self.mesh.full.tree, self.sides_bc, self.lam, self.mesh.device,
-            level1_op=self.op(1) if per_cell else None,
+            level1_op=self.level1_op() if per_cell else None,
             dtype=self.mesh.dtype), ())
+
+    def level1_op(self) -> LevelOp:
+        """The per-cell operator of the whole of level 1 in the tree's
+        order, which the dense coarse solve takes: ``op(1)``, or in a
+        sharded run the operator of the whole tree's level 1 on every rank
+        (the permittivity from ``eps_level1``, the level set's twin on the
+        whole tree)."""
+        if self.mesh.layout is None:
+            return self.op(1)
+        return LevelOp(
+            self.mesh.full.tree, 1, self.lam,
+            None if self.eps_data is None else self.eps_level1(),
+            None if self.lsf_data is None else self.lsf_data.whole())
 
     # --------------------------------------------------------- cycles
     def fill_ghosts_phi(self, cc, params):

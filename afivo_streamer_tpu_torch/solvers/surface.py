@@ -16,6 +16,17 @@ state lives in cc variables stored at the gas-side box row (its first
 nc^(ndim-1) entries), so the state copies and restores of the time step
 carry it like any other variable; ``SurfaceTables`` holds the per-direction
 index and weight tables of the active surfaces on the device.
+
+In a sharded run (parallel/halo.py) the topology stays replicated in box
+ids, and the state lives in the rows of the rank that owns the gas-side
+box. A rank works the gas side of the surfaces whose gas-side box it owns
+and the dielectric side of those whose dielectric-side box it owns; the
+latter reads the surface charge from the gas-side row, which the halo
+exchange brings (the two boxes are same-level neighbors). A relayout moves
+the state rows with the box rows; the refinement update gathers the state
+of every surface before the relayout and writes back each rank's share
+after it. The writers see the whole tree (Simulation.full_view), where the
+tables address box ids again.
 """
 
 from __future__ import annotations
@@ -68,28 +79,49 @@ class SurfaceTables:
     ``rows_out``, dielectric-side rows ``rows_in``, 1/dr normal to the
     surface ``inv_dr`` and the permittivity ``eps`` (float64), the state's
     entries ``fidx`` in a row, and the flat-index tables of
-    ``dir_statics``."""
+    ``dir_statics``. ``dirs`` holds the surfaces whose gas side this rank
+    works, ``dirs_in`` those whose dielectric side it works: both all of
+    them unless ``layout`` (a sharded run's parallel/halo.Layout) is set,
+    and then its own gas-side, or dielectric-side, boxes, in its rows."""
 
-    def __init__(self, surfaces: "Surfaces", device):
+    def __init__(self, surfaces: "Surfaces", device, layout=None):
         t = surfaces.tree
-        self.dirs = []
+        self.dirs, self.dirs_in = [], []
         for d in range(2 * t.ndim):
             ss = [s for s in surfaces.active() if s.direction == d]
             if not ss:
                 continue
-            dim = neighb_dim(d)
-            st = dir_statics(t.ndim, t.nc, d)
-            arrays = dict(
-                rows_out=np.array([s.id_out for s in ss], np.int64),
-                rows_in=np.array([s.id_in for s in ss], np.int64),
-                inv_dr=np.array([1.0 / t.lvl_dr(int(t.lvl[s.id_out]))[dim]
-                                 for s in ss]),
-                eps=np.array([s.eps for s in ss]),
-                fidx=np.arange(t.nc ** (t.ndim - 1)),
-                **{k: v for k, v in st.items() if isinstance(v, np.ndarray)})
-            tab = sp.device_copy(arrays, device)
-            tab.d, tab.dim, tab.low = d, dim, st["low"]
-            self.dirs.append(tab)
+            out = np.array([s.id_out for s in ss], np.int64)
+            inn = np.array([s.id_in for s in ss], np.int64)
+            if layout is None:
+                tab = self._table(t, ss, d, out, inn, device)
+                self.dirs.append(tab)
+                self.dirs_in.append(tab)
+                continue
+            rank, cap = layout.rank, layout.cap
+            for side, ids in ((self.dirs, out), (self.dirs_in, inn)):
+                mine = layout.shards.owner(ids, cap) == rank
+                if mine.any():
+                    sel = np.nonzero(mine)[0]
+                    side.append(self._table(
+                        t, [ss[k] for k in sel], d, layout.row_of[out[sel]],
+                        layout.row_of[inn[sel]], device))
+
+    @staticmethod
+    def _table(t, ss, d, rows_out, rows_in, device):
+        dim = neighb_dim(d)
+        st = dir_statics(t.ndim, t.nc, d)
+        arrays = dict(
+            rows_out=np.asarray(rows_out, np.int64),
+            rows_in=np.asarray(rows_in, np.int64),
+            inv_dr=np.array([1.0 / t.lvl_dr(int(t.lvl[s.id_out]))[dim]
+                             for s in ss]),
+            eps=np.array([s.eps for s in ss]),
+            fidx=np.arange(t.nc ** (t.ndim - 1)),
+            **{k: v for k, v in st.items() if isinstance(v, np.ndarray)})
+        tab = sp.device_copy(arrays, device)
+        tab.d, tab.dim, tab.low = d, dim, st["low"]
+        return tab
 
 
 class Surfaces:
@@ -98,11 +130,15 @@ class Surfaces:
     state k)."""
 
     def __init__(self, tree: Tree, eps, i_photon: int, i_sigma: int,
-                 n_sigma: int):
-        """eps: host array [n_boxes, (nc+2)^ndim] of the permittivity by box
-        id (surface_initialize: a box pair forms a surface where the median
-        eps jumps from <= 1 on the gas side)."""
+                 n_sigma: int, mesh_fn=None):
+        """eps: host array [n_boxes, m] of the permittivity by box id,
+        its (nc+2)^ndim cells or their median (surface_initialize: a box
+        pair forms a surface where the median eps jumps from <= 1 on the
+        gas side). ``mesh_fn`` gives the MeshPlans of the state (a sharded
+        run's rows, or the whole tree's in Simulation.full_view); None for
+        a state in box ids."""
         self.tree = tree
+        self.mesh_fn = mesh_fn or (lambda: None)
         self.i_photon, self.i_sigma, self.n_sigma = i_photon, i_sigma, n_sigma
         self.surfaces: List[Surface] = []
         self.box_out_to_ix: Dict[int, int] = {}
@@ -140,10 +176,32 @@ class Surfaces:
     def active(self) -> List[Surface]:
         return [s for s in self.surfaces if s.in_use]
 
+    def _layout(self):
+        mesh = self.mesh_fn()
+        return None if mesh is None else mesh.layout
+
     def tables(self, device) -> SurfaceTables:
-        if self._tables is None:
-            self._tables = SurfaceTables(self, device)
-        return self._tables
+        layout = self._layout()
+        if self._tables is None or self._tables[0] is not layout:
+            self._tables = (layout, SurfaceTables(self, device, layout))
+        return self._tables[1]
+
+    def own_rows(self, ids):
+        """(mask, rows): which of the gas-side boxes ``ids`` hold their
+        state in this rank's rows (all of them unless sharded), and those
+        rows."""
+        ids = np.asarray(ids, np.int64)
+        layout = self._layout()
+        if layout is None:
+            return np.ones(len(ids), bool), ids
+        return layout.own_rows(ids)
+
+    def _sigma_halo(self, cc):
+        """In a sharded run, the surface charge of the halo rows from
+        their owners: the dielectric side reads it at the gas-side row."""
+        mesh = self.mesh_fn()
+        if mesh is not None and mesh.layout is not None:
+            mesh.halo(cc, range(1, mesh.n_levels + 1), [self.i_sigma])
 
     def refinement_links(self) -> np.ndarray:
         """Box pairs that must have equal refinement
@@ -158,13 +216,21 @@ class Surfaces:
     def charge_to_rhs(self, cc, i_rhs: int, fac: float):
         """Deposit the base-state sigma into the rhs, split between the gas
         and the dielectric side (surface_charge_to_rhs)."""
-        for t in self.tables(cc.device).dirs:
+        self._sigma_halo(cc)
+        tabs = self.tables(cc.device)
+        # a box is on the gas side or the dielectric side of its surfaces,
+        # never both, so the two loops add to different cells
+        for t in tabs.dirs:
             sig = self._rows(cc, self.i_sigma, t.rows_out)
             frac_gas = 1.0 / (1.0 + t.eps.to(cc.dtype))
             idr = t.inv_dr.to(cc.dtype)
             cc[i_rhs].index_put_(
                 (t.rows_out[:, None], t.gas[None, :]),
                 (frac_gas * fac * idr)[:, None] * sig, accumulate=True)
+        for t in tabs.dirs_in:
+            sig = self._rows(cc, self.i_sigma, t.rows_out)
+            frac_gas = 1.0 / (1.0 + t.eps.to(cc.dtype))
+            idr = t.inv_dr.to(cc.dtype)
             cc[i_rhs].index_put_(
                 (t.rows_in[:, None], t.die[None, :]),
                 ((1.0 - frac_gas) * fac * idr)[:, None] * sig,
@@ -174,25 +240,35 @@ class Surfaces:
     def correct_field_fc(self, cc, fc, i_fld: int, i_phi: int, fac: float):
         """One-sided field at the surface faces including the sigma jump
         (surface_correct_field_fc)."""
-        for t in self.tables(cc.device).dirs:
+        self._sigma_halo(cc)
+        tabs = self.tables(cc.device)
+        for t in tabs.dirs:  # the gas side's face
             eps = t.eps.to(cc.dtype)[:, None]
             idr = t.inv_dr.to(cc.dtype)[:, None]
             fac_fld0 = 2.0 * eps / (1.0 + eps)
+            fac_charge = fac / (1.0 + eps)
+            sig = self._rows(cc, self.i_sigma, t.rows_out)
+            ro = t.rows_out[:, None]
+            phi_g = cc[i_phi, ro, t.gas]
+            phi_gg = cc[i_phi, ro, t.g_ghost]
+            if t.low:
+                out_val = fac_fld0 * idr * (phi_gg - phi_g) + fac_charge * sig
+            else:
+                out_val = fac_fld0 * idr * (phi_g - phi_gg) - fac_charge * sig
+            fc[i_fld, t.dim, ro, t.fo] = out_val
+        for t in tabs.dirs_in:  # the dielectric side's face
+            eps = t.eps.to(cc.dtype)[:, None]
+            idr = t.inv_dr.to(cc.dtype)[:, None]
             fac_fld1 = 2.0 / (1.0 + eps)
             fac_charge = fac / (1.0 + eps)
             sig = self._rows(cc, self.i_sigma, t.rows_out)
-            ro, ri = t.rows_out[:, None], t.rows_in[:, None]
-            phi_g = cc[i_phi, ro, t.gas]
-            phi_gg = cc[i_phi, ro, t.g_ghost]
+            ri = t.rows_in[:, None]
             phi_i = cc[i_phi, ri, t.die]
             phi_ig = cc[i_phi, ri, t.i_ghost]
             if t.low:
-                out_val = fac_fld0 * idr * (phi_gg - phi_g) + fac_charge * sig
                 in_val = fac_fld1 * idr * (phi_i - phi_ig) - fac_charge * sig
             else:
-                out_val = fac_fld0 * idr * (phi_g - phi_gg) - fac_charge * sig
                 in_val = fac_fld1 * idr * (phi_ig - phi_i) + fac_charge * sig
-            fc[i_fld, t.dim, ro, t.fo] = out_val
             fc[i_fld, t.dim, ri, t.fi] = in_val
         return fc
 
@@ -227,14 +303,58 @@ class Surfaces:
         return total
 
     # --------------------------------------------------- refinement update
-    def update_after_refinement(self, cc, ref_info):
+    def gather_state(self, cc):
+        """In a sharded run, before the relayout of a refinement epoch:
+        the state of every surface's gas-side box in the layout that is
+        about to go, on every rank, as (box ids, [n, n_var, face cells]);
+        None when unsharded."""
+        mesh = self.mesh_fn()
+        if mesh is None or mesh.layout is None:
+            return None
+        layout = mesh.layout
+        held = np.concatenate(layout.own)
+        ids = np.asarray(sorted({s.id_out for s in self.surfaces}), np.int64)
+        ids = ids[np.isin(ids, held)]
+        ivs = torch.as_tensor(self.state_vars, device=cc.device)
+        F = self.face_cells
+        vals = mesh.map_boxes(ids, lambda rows, _sel: cc[
+            ivs[:, None], torch.as_tensor(rows, device=cc.device)[None, :],
+            :F].transpose(0, 1).cpu().numpy())
+        return ids, vals
+
+    def update_after_refinement(self, cc, ref_info, gathered=None):
         """surface_update_after_refinement (``m_af_surface.f90:327-363``):
         restrict the surfaces of removed boxes into their parent surfaces,
         prolong parent surfaces onto the new children next to the
         dielectric, and move the state rows with them. Run before the
         new boxes' rows are written. In 1D a surface is one cell, whose
         value is copied both ways (the JAX package moves no 1D surface
-        data, so there its charge is lost at derefinement)."""
+        data, so there its charge is lost at derefinement). In a sharded
+        run ``gathered`` is ``gather_state`` of the old layout: the update
+        runs on those rows in box ids, and each rank keeps its rows of the
+        new layout."""
+        if gathered is None:
+            return self._update(cc, ref_info)
+        ids, vals = gathered
+        n_var = max(self.state_vars) + 1
+        X = cc.new_zeros((n_var, int(self.tree.highest_id) + 1,
+                          self.face_cells))
+        ivs = torch.as_tensor(self.state_vars, device=cc.device)
+        X[ivs[:, None], torch.as_tensor(ids, device=cc.device)[None, :]] = \
+            torch.as_tensor(vals, dtype=cc.dtype,
+                            device=cc.device).transpose(0, 1)
+        X = self._update(X, ref_info)
+        layout = self.mesh_fn().layout
+        out = np.asarray(sorted({s.id_out for s in self.surfaces}), np.int64)
+        out = out[out < len(layout.row_of)]
+        rows = layout.row_of[out]
+        out, rows = out[rows >= 0], rows[rows >= 0]
+        cc[ivs[:, None], torch.as_tensor(rows, device=cc.device)[None, :],
+           :self.face_cells] = X[ivs[:, None], torch.as_tensor(
+               out, device=cc.device)[None, :]]
+        return cc
+
+    def _update(self, cc, ref_info):
         t = self.tree
         nc, ndim = t.nc, t.ndim
         hnc = nc // 2

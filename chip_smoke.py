@@ -18,6 +18,12 @@ failure exits non-zero):
    cold one (the inputs taken in turn from copies that hold four times
    the L2), the host's enqueue time per call, and each kernel's bound
    (ops/smoother.min_bytes over the memory rate) and share of it;
+2c. every kernel against its plain version at the box sizes past 48 KB of
+   shared memory, nc = 32 and nc = 64 (K1 and K3 opt in past 48 KB; K2
+   and K5 past 48 KB take kernels that stage less), in float64
+   and float32, at n = 3 and n = 33 boxes, then each timed at nc = 32 and
+   n = 4096 as in phase 2 (cold from two input sets: one holds more than
+   the L2);
 3. run the committed 2D slice config on the card and on the CPU (plain
    kernels) at 64 x 64 cells for 3 steps and compare the states; 3b. the
    same for the 3D slice config at 32^3 cells; 3c. the dielectric slice
@@ -198,7 +204,18 @@ failure exits non-zero):
    whether bit for bit), the regression logs at rtol 1e-8, atol 1e-10,
    K1-K3 (K4-K5) launched on every rank, each rank's rows, cells and
    exchanges; the 2-rank run's ranks also probe which gloo collectives take
-   CUDA tensors (the port passes them to every collective);
+   CUDA tensors (the port passes them to every collective). The branches
+   that ran unsharded only before (SHARDED_BRANCHES: the cylindrical needle
+   electrode, the cylindrical dielectric on 8 x 16 coarse boxes, where some
+   surfaces' two boxes lie on two ranks, the velocity_control_2d program's
+   hooks, Monte-Carlo photoionization) over 2 ranks against their
+   unsharded card runs the same way, with each rank's exchanges (calls,
+   bytes, host ms) per step;
+3z. the committed cylindrical and 3D slices with live refinement at
+   -box_size=32, the coarse grid of two boxes a side as committed (64^2
+   and 64^3 cells; the 3D one with a refinement region of 1.25e-4 m, so
+   that an epoch changes its mesh), on the card and on the CPU as 3d and
+   3e: the same meshes, dts and cycle counts, every variable within 1e-9;
 18. the sharded main path at full size: phase 7's configuration and flags
    over 2 ranks sharing the card, 6 steps: ms per step against phase 7's,
    each rank's leaf cells, rows, K1-K3 launches per step, halo exchanges
@@ -225,7 +242,7 @@ failure exits non-zero):
    meshes are reported. Then (2b) K1, K2 and K3 in float32 on the finest
    and the largest level of the Helmholtz mode with the largest lambda,
    held against their plain versions (tolerance 2e-5) and timed.
-The cuda-vs-cpu phases 3 to 3y run right after phase 2 in four worker
+The cuda-vs-cpu phases 3 to 3z run right after phase 2c in five worker
 processes (WORKER_GROUPS: this script with ``--worker K``, WORKER_THREADS
 threads each), together and beside phase 3x's ranks; each worker's log
 is printed when it ends. Every measurement (phases 2 and 4 to 19) runs
@@ -353,6 +370,18 @@ MC_SMALL = [
                  "-dielectric%gamma_se_ph_highenergy=0.1",
                  "-dielectric%gamma_se_ph_lowenergy=0.1",
                  f"-user%module={USER_MODULE}"], 6, ("fill_2d_swap",))]
+#: phase 3z: the slices with live refinement at -box_size=32, in the form
+#: of BRANCHES_SMALL; the coarse grid is two boxes a side, as committed
+BOX32_SMALL = [
+    ("3z", DATA / "air_cyl_amr_slice.cfg", 2, TABLE,
+     ["-photoi%per_steps=2", "-box_size=32", "-coarse_grid_size=64 64"], 4,
+     ("fill_sweep_2d", "sweep_2d", "fill_2d")),
+    ("3z", DATA / "air_3d_amr_slice.cfg", 3, TABLE,
+     ["-photoi%per_steps=2", "-box_size=32", "-coarse_grid_size=64 64 64",
+      "-refine_regions_dr=1.25e-4"], 4, ("sweep_3d", "fill_3d"))]
+#: phase 2c: the box sizes, the box counts of the checks, and the box size
+#: and count of the timings
+BOX_SIZES, BOX_COUNTS, BOX_TIMED = (32, 64), (3, 33), (32, 4096)
 #: the IMEX problem (phase 3q): uniform meshes (level-1 cells a side, level)
 #: and the runs of tests/test_imex.py (integrator, dt, steps)
 IMEX_MESHES = ((16, 2), (16, 6))
@@ -576,11 +605,11 @@ def enqueue_us(torch, fn, reps=200):
     return 1e6 * t / reps
 
 
-def cold_sets(x, nbytes):
+def cold_sets(x, nbytes, min_sets=COLD_MIN_SETS):
     """Copies of the inputs ``x``, enough that one pass over them moves at
     least COLD_BYTES: called in turn, each call finds its inputs evicted
     from the 50 MB L2 by the calls since its last turn."""
-    k = max(COLD_MIN_SETS, math.ceil(COLD_BYTES / nbytes))
+    k = max(min_sets, math.ceil(COLD_BYTES / nbytes))
     return [{key: v.clone() for key, v in x.items()} for _ in range(k)]
 
 
@@ -599,12 +628,13 @@ def min_flops(name, n, nc):
     return flops
 
 
-def measure(torch, ks, name, x, smi):
+def measure(torch, ks, name, x, smi, min_sets=COLD_MIN_SETS):
     """The kernel ``name`` and its plain version on the inputs ``x``: wall
     time of 50 back-to-back calls (CUDA events), device time with a warm
-    L2 (the same inputs every call) and with a cold L2 (cold_sets), host
-    enqueue time, and the bound: the larger of min_bytes over the memory
-    rate and min_flops over the peak rate of the dtype."""
+    L2 (the same inputs every call) and with a cold L2 (cold_sets, at
+    least ``min_sets`` input sets), host enqueue time, and the bound: the
+    larger of min_bytes over the memory rate and min_flops over the peak
+    rate of the dtype."""
     fn, plain = ks.KERNELS[name], ks.PLAIN[name]
     phi3 = x["phi3"]
     n, nc = phi3.shape[0], phi3.shape[-1] - 2
@@ -612,7 +642,7 @@ def measure(torch, ks, name, x, smi):
     nbytes = ks.min_bytes(name, n, nc, phi3.dtype)
     by_bytes = nbytes / HBM_BYTES_PER_S
     by_ops = min_flops(name, n, nc) / PEAK_FLOPS[dname]
-    sets = cold_sets(x, nbytes)
+    sets = cold_sets(x, nbytes, min_sets)
     r = {"bytes": nbytes, "bound_us": 1e6 * max(by_bytes, by_ops),
          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
          "sets": len(sets),
@@ -696,6 +726,65 @@ def phase_kernels(torch, ks, smi):
             if dtype == torch.float64:
                 results[name] = dict(r, max_abs_err=err)
         free_earlier_runs(torch)
+    return results
+
+
+def box_inputs(torch, name, dtype, n, nc, seed):
+    """Random inputs of kernel ``name`` (those it reads) on n boxes of
+    nc^ndim cells, made on the card: as kernel_inputs, with a stencil with
+    |c0| >= 1 and the red cells of a checkerboard."""
+    ndim = ndim_of(name)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    nd, C = 2 * ndim, nc + 2
+    cube = (nc,) * ndim
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=dtype, device="cuda")
+    g = torch.randint(0, n, (n, 1 + nd), generator=gen, dtype=torch.int32,
+                      device="cuda")
+    g[:, 0] = torch.arange(n, dtype=torch.int32, device="cuda")
+    selfrow = torch.rand((n, nd), generator=gen, device="cuda") < 0.25
+    g[:, 1:][selfrow] = g[:, :1].expand(n, nd)[selfrow]
+    x = {"phi3": rnd(n, *(C,) * ndim), "g": g}
+    if name.startswith("fill"):
+        x.update(A=rnd(n, nd, *(nc,) * (ndim - 1)), W=rnd(n, nd, 8))
+    if "sweep" in name:
+        cs = rnd(n, 2 + nd, *cube)
+        cs[:, 0] = -(1.0 + torch.rand((n,) + cube, generator=gen,
+                                      dtype=dtype, device="cuda"))
+        idx = torch.arange(1, nc + 1, device="cuda")
+        parity = sum(torch.meshgrid(*[idx] * ndim, indexing="ij"))
+        x.update(R=rnd(n, *cube), cs=cs,
+                 mask=((parity % 2) == 1).to(torch.float32))
+    return x
+
+
+def phase_kernels_box_sizes(torch, ks, smi):
+    """Phase 2c: every kernel against its plain version at nc in
+    BOX_SIZES and n in BOX_COUNTS, float64 and float32, then timed at
+    BOX_TIMED (measure; a cold time from two input sets, each larger than
+    the L2). Returns {kernel: {dtype name: measure's result}}."""
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[1]
+        for nc in BOX_SIZES:
+            for n in BOX_COUNTS:
+                errs = {}
+                for name in ks.KERNELS:
+                    x = box_inputs(torch, name, dtype, n, nc, 20261018 + n)
+                    errs[name] = check_against_plain(torch, ks, name, x)[1]
+                log(f"phase 2c: {dname} nc = {nc}, n = {n} against the plain "
+                    f"versions: {errs}")
+        nc, n = BOX_TIMED
+        for name in ks.KERNELS:
+            x = box_inputs(torch, name, dtype, n, nc, 20261019)
+            err, err_text = check_against_plain(torch, ks, name, x)
+            r = measure(torch, ks, name, x, smi, min_sets=2)
+            del x
+            log(f"phase 2c: {name} {dname} nc = {nc}, n = {n} {err_text}; "
+                f"{r['text']}")
+            results.setdefault(name, {})[dname] = dict(r, max_abs_err=err)
+            free_earlier_runs(torch)
     return results
 
 
@@ -1170,9 +1259,11 @@ def record_run(argv, max_steps, after=None):
     added and removed, dt of every attempted step, the (FMG, V-cycle)
     counts of every field solve, the Helmholtz modes' FMG cycles at every
     photoionization update, and at the end the whole state of the boxes in
-    use (gathered on rank 0). Per rank: its rows, own boxes and leaf
-    cells, the kernel launches, the exchanges (calls, bytes, seconds), the
-    same-level ghost copies that read another rank's box, and what
+    use (gathered on rank 0) and the surface charge's integral. Per rank:
+    its rows, own boxes and leaf cells, the kernel launches, the exchanges
+    (calls, bytes, seconds), the same-level ghost copies that read another
+    rank's box, what it holds of an electrode's or a dielectric's boundary
+    (boundary_boxes), and what
     ``after(sim, seconds of the run)``, called on every rank after the
     run, returns. Returns the record on rank 0 (every rank when
     unsharded), None on the other ranks. Runs on the CPU too (the tests
@@ -1229,7 +1320,7 @@ def record_run(argv, max_steps, after=None):
                  for lvl in range(1, sim.tree.highest_lvl + 1)]
         per_rank.update(own=layout.n_own, halo=layout.n_rows - layout.n_own,
                         cap=layout.cap, exchange=dict(layout.stats),
-                        cross=cross)
+                        cross=cross, **boundary_boxes(sim))
     if after is not None:
         per_rank["after"] = after(sim, seconds)
     ranks = [per_rank]
@@ -1248,9 +1339,37 @@ def record_run(argv, max_steps, after=None):
             fc=sim.fc[:, :, ids].cpu().numpy(),
             leaf_cells=(sim.layout.leaf_cells(sim.tree)
                         if sim.layout is not None else None),
+            surf_integral=(sim.surfaces.get_integral(sim.cc)
+                           if sim.surfaces is not None else None),
             n_leaf_cells=sum(len(a) for a in sim.tree.lvl_leaves)
             * sim.tree.nc ** sim.tree.ndim)
         return out
+
+
+def boundary_boxes(sim):
+    """What of an electrode's or a dielectric's boundary the rank holds:
+    ``lsf_bnd`` its own boxes that hold the level set's boundary,
+    ``surf_own`` the surfaces whose gas-side box it owns and
+    ``surf_cross`` those among them whose solid-side box another rank
+    owns."""
+    import numpy as np
+    out = {}
+    lsf = sim.field.lsf_data
+    if lsf is not None:
+        out["lsf_bnd"] = int(sum(
+            np.sum(lsf.level_data(lvl)["has_bnd"][
+                :lsf.level_data(lvl)["n_own"]])
+            for lvl in range(1, sim.tree.highest_lvl + 1)))
+    if sim.surfaces is not None:
+        layout = sim.layout
+        active = sim.surfaces.active()
+        gas = np.asarray([sf.id_out for sf in active], np.int64)
+        solid = np.asarray([sf.id_in for sf in active], np.int64)
+        mine = layout.shards.owner(gas, layout.cap) == layout.rank
+        out["surf_own"] = int(np.sum(mine))
+        out["surf_cross"] = int(np.sum(
+            mine & (layout.shards.owner(solid, layout.cap) != layout.rank)))
+    return out
 
 
 def record_coarse_cycles(sim, counts):
@@ -2862,6 +2981,17 @@ SHARDED_SMALL = [
     (AMR_CFG[2], 2, ["-photoi%per_steps=2", "-field_rise_time=3e-13",
                      "-output%dt=1e-13"], 8, (2, 4)),
     (AMR_CFG[3], 3, ["-photoi%per_steps=2", "-output%dt=1e-13"], 2, (2,))]
+#: phase 3x, the branches that ran unsharded only before, over 2 ranks:
+#: name, config, ndim, flags, steps (each but the program's holds an epoch
+#: that changes the mesh)
+SHARDED_BRANCHES = [
+    ("electrode", ELECTRODE_CFG["cyl"], 2, [], 4),
+    ("dielectric", DATA / "dielectric_cyl_slice.cfg", 2,
+     ["-coarse_grid_size=8 16", f"-user%module={USER_MODULE}"], 4),
+    ("user-module", DATA / "velocity_control_2d.cfg", 2,
+     [f"-user%module={PROGRAMS / 'velocity_control_2d.py'}"], 4),
+    ("montecarlo", DATA / "air_cyl_amr_slice.cfg", 2,
+     MC_FLAGS + ["-photoi_mc%num_photons=20000", "-photoi%per_steps=2"], 4)]
 #: phase 18: phase 7's configuration and flags over 2 ranks on the card
 SHARDED_FULL = (2, 6)
 
@@ -2984,6 +3114,12 @@ def start_sharded(out_dir):
                              extra, cfg) + shard_flags(n))
             threads.append(threading.Thread(
                 target=sharded, args=((ndim, n), argv, n, steps, after)))
+    for name, cfg, ndim, extra, steps in SHARDED_BRANCHES:
+        for n in (1, 2):
+            argv = (amr_argv(out_dir / f"p3x_{name}_{n}", ndim, "cuda",
+                             extra, cfg) + shard_flags(n))
+            threads.append(threading.Thread(
+                target=sharded, args=((name, n), argv, n, steps, None)))
     for th in threads:
         th.start()
     return threads, runs, errors
@@ -3034,8 +3170,45 @@ def phase_sharded(torch, out_dir, started):
                 f"{[{k: v for k, v in r['launches'].items() if v} for r in s['ranks']]}, "
                 f"halo exchanges (calls, bytes) "
                 f"{[(r['exchange']['calls'], r['exchange']['bytes']) for r in s['ranks']]}; "
-                f"{wall:.1f} s with the ranks' start (the five runs started "
-                f"together, beside the workers of phases 3-3y)")
+                f"{wall:.1f} s with the ranks' start (the runs started "
+                f"together, beside the workers of phases 3-3z)")
+    for name, cfg, ndim, extra, steps in SHARDED_BRANCHES:
+        u, s = runs[(name, 1)][0], runs[(name, 2)][0]
+        worst, bitwise = compare_sharded(
+            torch, "3x", u, s, steps, ndim,
+            (out_dir / f"p3x_{name}_1", out_dir / f"p3x_{name}_2"))
+        adds = [c for c in s["changes"] if c[0] or c[1]]
+        if name != "user-module" and not adds:
+            raise RuntimeError(f"phase 3x: {name}: no epoch changed the mesh")
+        for rank in s["ranks"]:
+            for k, v in rank["launches"].items():
+                total[k] = total.get(k, 0) + v
+        per_rank = [
+            {"own": r["own"], "halo": r["halo"],
+             "calls": round(r["exchange"]["calls"] / steps, 1),
+             "bytes": round(r["exchange"]["bytes"] / steps),
+             "host_ms": round(1e3 * r["exchange"]["seconds"] / steps, 2),
+             **{k: r[k] for k in ("lsf_bnd", "surf_own", "surf_cross")
+                if k in r}} for r in s["ranks"]]
+        extra_text = ""
+        if s["surf_integral"] is not None:
+            if s["surf_integral"] != u["surf_integral"]:
+                raise RuntimeError(f"phase 3x: {name}: the surface charge's "
+                                   f"integral {s['surf_integral']} differs "
+                                   f"from {u['surf_integral']}")
+            extra_text = (f"; surface charge integral "
+                          f"{s['surf_integral']:.6e} as unsharded")
+        log(f"phase 3x: {name}: {cfg.name} {' '.join(extra)} over 2 ranks "
+            f"sharing the card (gloo) against the unsharded card run, "
+            f"{steps} steps, {s['n_leaf_cells']} leaf cells at the end: the "
+            f"same mesh at {len(s['epochs'])} meshes (epochs that changed "
+            f"it: {adds}), the same dt at {len(s['dts'])} attempted steps, "
+            f"(FMG, V-cycle) counts at {len(s['solves'])} field solves; "
+            f"state worst scaled deviation {worst:.3e} (limit 1e-12), "
+            f"bitwise equal: {bitwise}{extra_text}; per rank and step: "
+            f"halo exchanges {per_rank}; launches "
+            f"{[{k: v for k, v in r['launches'].items() if v} for r in s['ranks']]}; "
+            f"{runs[(name, 2)][1]:.1f} s with the ranks' start")
     return total
 
 
@@ -3174,7 +3347,7 @@ def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim, smi):
 
 
 def small_phases():
-    """The cuda-vs-cpu phases (3 to 3y but 3x) by name, each a callable of
+    """The cuda-vs-cpu phases (3 to 3z but 3x) by name, each a callable of
     (torch, ks, Simulation, mgb, out_dir); a name with several runs runs
     them in turn."""
     def runs(table, must=None):
@@ -3209,7 +3382,7 @@ def small_phases():
             torch, ks, S, out)}
     for table, must in ((VARIANTS_SMALL, None), (ELECTRODES_SMALL, None),
                         (BRANCHES_SMALL, None), (GAS_SMALL, PATH_KERNELS[2]),
-                        (MC_SMALL, None)):
+                        (MC_SMALL, None), (BOX32_SMALL, None)):
         for phase in dict.fromkeys(row[0] for row in table):
             tasks[phase] = runs(select(table, phase), must)
     return tasks
@@ -3222,7 +3395,8 @@ WORKER_GROUPS = (("3e", "3", "3b", "3c", "3d", "3f", "3g", "3h", "3i",
                   "3v"),
                  ("3l", "3n", "3j", "3k", "3m", "3o", "3p"),
                  ("3r", "3s", "3t", "3u", "3q"),
-                 ("3y", "3w"))
+                 ("3y", "3w"),
+                 ("3z",))
 WORKER_THREADS = 2
 
 
@@ -3283,7 +3457,7 @@ def join_workers(procs):
     if failed:
         raise RuntimeError(f"cuda-vs-cpu phases failed (phases, exit code): "
                            f"{failed}")
-    log(f"phases 3-3y: {len(procs)} workers ended")
+    log(f"phases 3-3z: {len(procs)} workers ended")
 
 
 def main():
@@ -3322,6 +3496,7 @@ def main():
     results = phase_kernels(torch, ks, smi)
     phase_kernels_level_set(torch, ks, smi)
     phase_kernels_eps(torch, ks, smi)
+    box32 = phase_kernels_box_sizes(torch, ks, smi)
     out_dir = ROOT / "out" / "chip_smoke"
     # the cuda-vs-cpu phases in worker processes beside phase 3x's ranks;
     # the measurements below run alone
@@ -3384,7 +3559,13 @@ def main():
                 "bound_by": results[name]["bound_by"], "library_ms": None,
                 "warm_ms": 1e-3 * results[name]["warm_us"],
                 "wall_ms": results[name]["wall_ms"],
-                "enqueue_us": results[name]["enqueue_us"]}
+                "enqueue_us": results[name]["enqueue_us"],
+                # phase 2c: nc = 32, n = 4096, cold, by dtype
+                "nc32": {d: {"ms": 1e-3 * r["cold_us"],
+                             "plain_ms": 1e-3 * r["plain_cold_us"],
+                             "bound_ms": 1e-3 * r["bound_us"],
+                             "max_abs_err": r["max_abs_err"]}
+                         for d, r in box32[name].items()}}
                for name in ks.KERNELS]
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -7,9 +7,13 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
 * each CUDA smoother kernel (K1-K3 and K3-swap in 2D, K4-K5 in 3D)
   against its plain PyTorch version on the same inputs, float64 and
   float32; the kernels that stage boxes in shared memory (K1, K2, K3,
-  K3-swap, K5) besides at n in {1, 3, 33, 4096} and nc in {2, 4, 8, 16},
-  with neighbor rows that are the box's own, K1 and K2 with a mask that
-  is no checkerboard, and their refusal of a misaligned input;
+  K3-swap, K5) besides at n in {1, 3, 33, 4096} and nc in {2, 4, 8, 16,
+  32, 64} (past 48 KB of shared memory K1 and K3 opt in, K2 and K5 take
+  kernels that stage less), with
+  neighbor rows that are the box's own, K1 and K2 with a mask that is no
+  checkerboard, and their refusal of a misaligned input; each staged
+  kernel at the largest nc it runs on the H100, and its refusal of the
+  next even nc (no fall back to the plain version);
 * K1-K5 on every level of a Helmholtz multigrid (the photoionization
   boundary set, the smallest and the largest Bourdon-3 lambda) with that
   level's own stencil, ghost weights, ghost constants and blocks, and on
@@ -153,12 +157,19 @@ STAGED = {"fill_2d": 1e-5, "fill_2d_swap": 1e-5, "fill_3d": 1e-5,
 SWEEPS = ("fill_sweep_2d", "sweep_2d")
 
 
+#: the staged kernels' cases: every name, dtype, n, nc and kind of own
+#: row, but K5 at n = 4096 only up to nc = 32 (at nc = 64 one copy of its
+#: blocks is 9.4 GB in float64)
+STAGED_CASES = [
+    (name, dtype, n, nc, own)
+    for name in STAGED for dtype in (torch.float64, torch.float32)
+    for n in (1, 3, 33, 4096) for nc in (2, 4, 8, 16, 32, 64)
+    for own in ("permuted", "identity")
+    if not (name == "fill_3d" and n == 4096 and nc == 64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("own", ["permuted", "identity"])
-@pytest.mark.parametrize("nc", [2, 4, 8, 16])
-@pytest.mark.parametrize("n", [1, 3, 33, 4096])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("name", list(STAGED))
+@pytest.mark.parametrize("name,dtype,n,nc,own", STAGED_CASES)
 def test_cuda_fill_matches_plain(name, dtype, n, nc, own, cuda):
     """The kernels that stage boxes in shared memory (nc = 8 compiled in,
     other nc at run time; in 2D n leaves the last block of a few boxes
@@ -180,7 +191,7 @@ def test_cuda_fill_matches_plain(name, dtype, n, nc, own, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nc", [4, 8, 16])
+@pytest.mark.parametrize("nc", [4, 8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name", SWEEPS)
 def test_cuda_fill_sweep_with_random_mask(name, dtype, nc, cuda):
@@ -231,6 +242,37 @@ def test_cuda_fill_refuses_misaligned_blocks(dtype, cuda):
             with pytest.raises(ValueError, match="16-byte"):
                 call(ks.KERNELS[name], y, name)
     assert {name: ks.KERNELS[name].launches for name in STAGED} == counts
+
+
+#: the largest nc each 2D staged kernel runs on the H100 (232,448 bytes of
+#: shared memory a block once opted in), by dtype: K1 stages a box's block
+#: and its interior, K2 (past nc = 32) and K3 a box's block. K4 and K5 stage
+#: no box past the limit and have none.
+LARGEST_NC = {"fill_sweep_2d": {torch.float64: 118, torch.float32: 168},
+              "sweep_2d": {torch.float64: 168, torch.float32: 238},
+              "fill_2d": {torch.float64: 168, torch.float32: 238},
+              "fill_2d_swap": {torch.float64: 168, torch.float32: 238}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", list(LARGEST_NC))
+def test_cuda_largest_nc_runs_and_the_next_raises(name, dtype, cuda):
+    """At its largest nc a kernel matches its plain version; at the next
+    even nc its launch is refused (cudaErrorInvalidValue), the wrapper
+    raises and counts no launch, and nothing falls back to the plain
+    version."""
+    nc = LARGEST_NC[name][dtype]
+    x = fill_inputs(name, 3, nc, dtype, cuda)
+    want = call(ks.PLAIN[name], x, name)
+    got = call(ks.KERNELS[name], x, name)
+    tol = 1e-12 if dtype == torch.float64 else STAGED[name]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    x = fill_inputs(name, 3, nc + 2, dtype, cuda)
+    count = ks.KERNELS[name].launches
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        call(ks.KERNELS[name], x, name)
+    assert ks.KERNELS[name].launches == count
 
 
 @pytest.mark.gpu

@@ -26,12 +26,18 @@ temporary directory, one thread each.
     and one written unsharded restarts sharded, each continuing as the
     uninterrupted run.
 (f) make_step_fn sharded against unsharded for one step (dryrun).
-(g) The branches that run sharded (the electron energy equation with the
-    source factor and the plasma region; gas dynamics with slow heating in
-    Cartesian 2D; 3D with edge and corner ghosts) held against the
-    unsharded run as in (b); the others
-    raise NotImplementedError naming their module; a sharded configuration
-    outside a process group raises ValueError.
+(g) The branches (the electron energy equation with the source factor and
+    the plasma region; gas dynamics with slow heating in Cartesian 2D; 3D
+    with edge and corner ghosts; the cylindrical needle electrode; the
+    cylindrical dielectric on a coarse grid of 8 x 16 boxes, where the
+    gas-side and the dielectric-side box of some surfaces lie on two
+    ranks; the velocity_control_2d program's hooks; a user module with the
+    refine, field_amplitude and log_subroutine hooks; Monte-Carlo
+    photoionization) held against the unsharded run as in (b), each over
+    4 ranks and the last five also over 2, across an epoch that changes
+    the mesh; the electrode's boundary boxes on two or more ranks; the
+    surface charge's integral and the user log file as unsharded; a
+    sharded configuration outside a process group raises ValueError.
 """
 
 import subprocess
@@ -67,7 +73,11 @@ CYL_STEPS = 8
 ONE_D = [str(DATA / "air_1d_slice.cfg"), "-ndim=1", TD, "-output%log=t",
          "-refine_init_time=2e-11", "-output%dt=2e-11"]
 ONE_D_STEPS = 12
-#: the branches that run sharded
+MC_FLAGS = ["-photoi%method=montecarlo", "-photoi_mc%physical_photons=f",
+            "-photoi_mc%num_photons=20000", "-photoi%per_steps=2"]
+#: the branches that run sharded, and the steps of their runs (of those in
+#: TWO_RANKS each holds an epoch that changes the mesh but "user-module",
+#: whose program keeps its mesh for its first ns)
 BRANCHES = {
     "ee53-srcfac-plasma-region": (
         [str(DATA / "air_cyl_ee_slice.cfg"), "-ndim=2", "-photoi%per_steps=2",
@@ -79,18 +89,18 @@ BRANCHES = {
                              "-gas%fraction_slow_heating=0.3"], 2),
     "3d": ([str(DATA / "air_3d_slice.cfg"), "-ndim=3", TD,
             "-refine_max_dx=5e-4", "-coarse_grid_size=8 8 8"], 2),
+    "electrode": ([str(DATA / "electrode_cyl_slice.cfg"), "-ndim=2"], 4),
+    "dielectric": ([str(DATA / "dielectric_cyl_slice.cfg"), "-ndim=2",
+                    "-coarse_grid_size=8 16"], 4),
+    "user-module": ([str(DATA / "velocity_control_2d.cfg"), "-ndim=2"], 2),
+    "user-refine-hook": ([str(DATA / "velocity_control_2d.cfg"), "-ndim=2",
+                          TD, "-output%dt=1e-13", "-hooks%which=refine"], 6),
+    "montecarlo": ([str(DATA / "air_cyl_amr_slice.cfg"), "-ndim=2", TD]
+                   + MC_FLAGS, 4),
 }
-#: the branches that do not, and the module each names
-REFUSED = {
-    "dielectric": ([str(DATA / "dielectric_cyl_slice.cfg"), "-ndim=2"],
-                   "solvers/surface.py"),
-    "electrode": ([str(DATA / "electrode_cyl_slice.cfg"), "-ndim=2"],
-                  "solvers/lsf.py"),
-    "montecarlo": ([str(DATA / "air_cyl_amr_slice.cfg"), "-ndim=2", TD,
-                    "-photoi%method=montecarlo"], "physics/photoi_mc.py"),
-    "user-module": ([str(DATA / "velocity_control_2d.cfg"), "-ndim=2"],
-                    "physics/user_methods.py"),
-}
+#: the branches that ran unsharded only before, also over 2 ranks
+TWO_RANKS = ("electrode", "dielectric", "user-module", "user-refine-hook",
+             "montecarlo")
 
 
 def shard(n):
@@ -103,14 +113,8 @@ def _rank_jobs(jobs):
     for name, kind, argv, steps in jobs:
         if kind == "run":
             out[name] = record_run(argv, steps)
-        elif kind == "step":
-            out[name] = compiled._dryrun_rank(*argv)
         else:
-            try:
-                TSim(argv=argv)
-                out[name] = None
-            except NotImplementedError as e:
-                out[name] = str(e)
+            out[name] = compiled._dryrun_rank(*argv)
     return out
 
 
@@ -122,6 +126,15 @@ def runs(tmp_path_factory):
     from afivo_streamer_tpu.driver import Simulation as JSim
     tmp = tmp_path_factory.mktemp("sharded")
     dev = ["-device=cpu"]
+    # the hooks' module of tests/test_torch_hooks.py (imported here: it
+    # imports the JAX package, which the ranks need not)
+    from test_torch_hooks import HOOKS
+    (tmp / "hooks.py").write_text(HOOKS)
+    hooks = [f"-user%module={tmp / 'hooks.py'}"]
+
+    def branch(name):
+        argv, steps = BRANCHES[name]
+        return argv + (hooks if name == "user-refine-hook" else []), steps
     # in a process of its own, whose BLAS runs one thread as the ranks'
     # do, so that its dense level-1 inverses round as theirs
     unsharded = {"cyl": compiled.run_ranks(record_run, 1, (
@@ -136,18 +149,24 @@ def runs(tmp_path_factory):
                 f"-restart_from_file={tmp / 'u_cyl_000002.dat.npz'}"],
              CYL_STEPS),
             ("step", "step", (4, str(tmp)), 0)]
-    jobs += [(name, "run", argv + s4 + [f"-output%name={tmp / name}"],
-              steps) for name, (argv, steps) in BRANCHES.items()]
-    jobs += [(name, "refuse", argv + s4 + [f"-output%name={tmp / name}"], 0)
-             for name, (argv, _m) in REFUSED.items()]
-    sharded = {}
-    spawn = threading.Thread(target=lambda: sharded.update(
-        compiled.run_ranks(_rank_jobs, 4, (jobs,))))
-    spawn.start()
+    jobs += [(name, "run", branch(name)[0] + s4
+              + [f"-output%name={tmp / name}"], branch(name)[1])
+             for name in BRANCHES]
+    jobs2 = [(name, "run", branch(name)[0] + dev + shard(2)
+              + [f"-output%name={tmp / ('two_' + name)}"], branch(name)[1])
+             for name in TWO_RANKS]
+    sharded, two = {}, {}
+    spawns = [threading.Thread(target=lambda: sharded.update(
+                  compiled.run_ranks(_rank_jobs, 4, (jobs,)))),
+              threading.Thread(target=lambda: two.update(
+                  compiled.run_ranks(_rank_jobs, 2, (jobs2,))))]
+    for spawn in spawns:
+        spawn.start()
     try:
         unsharded["1d"] = record_run(
             ONE_D + dev + [f"-output%name={tmp / 'u_1d'}"], ONE_D_STEPS)
-        for name, (argv, steps) in BRANCHES.items():
+        for name in BRANCHES:
+            argv, steps = branch(name)
             unsharded[name] = record_run(
                 argv + dev + [f"-output%name={tmp / ('u_' + name)}"], steps)
         JSim(argv=[a for a in CYL if a != "-datfile%write=t"]
@@ -156,8 +175,11 @@ def runs(tmp_path_factory):
         JSim(argv=ONE_D + [f"-output%name={tmp / 'j_1d'}"]).run(
             max_steps=ONE_D_STEPS)
     finally:
-        spawn.join()
+        for spawn in spawns:
+            spawn.join()
     assert set(sharded) == {name for name, *_r in jobs}, "a rank failed"
+    assert set(two) == set(TWO_RANKS), "a rank of the 2-rank runs failed"
+    sharded["two"] = two
     return tmp, unsharded, sharded
 
 
@@ -314,16 +336,48 @@ def test_step_fn_sharded_matches_unsharded(runs):
 
 @pytest.mark.parametrize("name", list(BRANCHES))
 def test_branch_runs_sharded(runs, name):
-    """(g): the branches that run sharded equal their unsharded runs."""
+    """(g): every branch over 4 ranks equals its unsharded run."""
     _tmp, u, s = runs
     assert_same_run(u[name], s[name])
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_branch_refused_sharded(runs, name):
-    """(g): the other branches name their module."""
-    _tmp, _u, s = runs
-    assert s[name] == f"{REFUSED[name][1]} under compiled%shards"
+@pytest.mark.parametrize("name", TWO_RANKS)
+def test_branch_runs_over_two_ranks(runs, name):
+    """(g): the branches that ran unsharded only before equal their
+    unsharded runs over 2 ranks too, across an epoch that changes the
+    mesh (the velocity_control_2d program keeps its mesh in its steps:
+    the other user module's refine hook changes it)."""
+    _tmp, u, s = runs
+    assert_same_run(u[name], s["two"][name])
+    if name != "user-module":
+        assert any(a + r > 0 for a, r in u[name]["changes"]), name
+
+
+def test_electrode_and_dielectric_boundaries_straddle_ranks(runs):
+    """(g): the electrode's boundary boxes lie on two or more of the 4
+    ranks, and on 2 and on 4 ranks some surface's gas-side box and
+    dielectric-side box lie on two ranks (the dielectric side reads the
+    surface charge through the halo); the surface charge's integral is
+    the unsharded one."""
+    _tmp, u, s = runs
+    ranks = s["electrode"]["ranks"]
+    assert sum(r["lsf_bnd"] > 0 for r in ranks) >= 2
+    assert sum(r["lsf_bnd"] for r in ranks) > 0
+    for run in (s["dielectric"], s["two"]["dielectric"]):
+        assert sum(r["surf_cross"] for r in run["ranks"]) > 0
+        assert sum(r["surf_own"] for r in run["ranks"]) > 0
+        assert run["surf_integral"] == u["dielectric"]["surf_integral"]
+    assert u["dielectric"]["surf_integral"] != 0.0
+
+
+def test_user_log_file_equals_unsharded(runs):
+    """(g): the log_subroutine hook writes its file on rank 0 only, as
+    unsharded."""
+    tmp, _u, _s = runs
+    want = (tmp / "u_user-refine-hook_user_log.txt").read_text()
+    assert want.count("\n") >= 3
+    for name in ("user-refine-hook", "two_user-refine-hook"):
+        assert (tmp / f"{name}_user_log.txt").read_text() == want
 
 
 def test_shards_outside_a_process_group_raise(tmp_path):

@@ -281,10 +281,15 @@ EE = ["-model%type=ee53", "-input_data%old_style=f",
     ("air_cyl_amr_slice.cfg", PHOTOI + [
         "-plasma_region_enabled=t", "-plasma_region_rmin=0 0.0135",
         "-plasma_region_rmax=0.002 0.0155"], 8),
+    # boxes of 16 x 16 cells on a coarse grid of 16 x 16 cells
+    ("air_cyl_amr_slice.cfg", PHOTOI + ["-box_size=16"], 8),
+    # boxes of 4^3 cells (about a minute: slow, out of the default run)
+    pytest.param("air_3d_amr_slice.cfg", PHOTOI + ["-ndim=3", "-box_size=4"],
+                 4, marks=pytest.mark.slow),
 ], ids=["dielectric", "cyl-live-amr", "cyl-live-amr-photoi", "cart2d-photoi",
         "3d-live-amr-photoi", "1d-lfa", "1d-ee53", "cyl-ee53-photoi",
         "cart2d-ee53-photoi", "3d-ee53", "cyl-source-factor",
-        "cyl-plasma-region"])
+        "cyl-plasma-region", "cyl-box16-photoi", "3d-box4-photoi"])
 def test_live_refinement_slice_matches_jax(tmp_path, cfg, extra, steps):
     """The same mesh at setup and after every refinement epoch, then the
     state (densities, phi, E, surface charge, and with photoionization the
