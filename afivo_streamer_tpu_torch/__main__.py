@@ -6,7 +6,9 @@ Usage (mirrors the JAX package's CLI):
 
 Any configuration key can be overridden on the command line; ``-device``
 selects the device of the state (``cuda``, the default, or ``cpu``). The
-resolved configuration is written to ``<output%name>_out.cfg``.
+resolved configuration is written to ``<output%name>_out.cfg``. After the
+run it prints the steps and their seconds, then the cost breakdown of the
+JAX package's command line (the host seconds by part of the step, in %).
 
 With ``-compiled%enabled=T -compiled%shards=N`` (N > 1) the command starts
 N ranks and runs the simulation over them (parallel/compiled.launch):
@@ -39,6 +41,11 @@ def run_simulation(argv):
     wall = time.perf_counter() - t0
     if sim.is_root:
         print(f"{sim.it - 1} steps in {wall:.3f} s on {sim.device}")
+        # the JAX package's cost breakdown (its __main__.py:22-26)
+        total = max(sum(sim.wc.values()), 1e-300)
+        print("Computational cost breakdown (%)")
+        print("".join(f"{k:>10}" for k in sim.wc))
+        print("".join(f"{100 * v / total:10.2f}" for v in sim.wc.values()))
 
 
 def main(argv=None):

@@ -268,6 +268,16 @@ class MeshPlans:
         return self._hooked(ProlongRestrictPlan(self.tree, ids, self.device,
                                                 lvl, self.dtype))
 
+    def prolong_into(self, lvl: int) -> ProlongRestrictPlan:
+        """Prolongation plan into every box of level ``lvl`` (``pr(lvl)``
+        when unsharded; sharded: into the rank's own boxes of the level,
+        whose parents the plan reads through the halo, where ``pr`` holds
+        the children of the rank's own parents)."""
+        if self.layout is None:
+            return self.pr(lvl)
+        return self.cached(("prolong_into", lvl), lambda: self.prolong_plan(
+            lvl, self.tree.global_tree.lvl_ids[lvl - 1]), (lvl - 1, lvl))
+
     def pr_all(self):
         return [self.pr(l) for l in range(1, self.n_levels + 1)]
 

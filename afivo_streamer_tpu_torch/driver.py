@@ -358,6 +358,14 @@ class Simulation:
                                 prolong_limiter=pr.default_prolong_limiter(
                                     ndim))
         self.fluid.field_compute = self.field.compute
+        # host seconds by part of the step (the JAX package's cost
+        # breakdown, driver.py:287-288, printed by the command line):
+        # flux and source of every substep, the field solves, the state
+        # copies, the outputs, the epochs and the photoionization updates;
+        # "advance" is the JAX compiled engine's and stays 0 here
+        self.wc = {k: 0.0 for k in ("flux", "source", "advance", "copy",
+                                    "field", "output", "refine", "photoi")}
+        self.fluid.wc = self.wc
         if (self.st.use_electrode or self.st.use_dielectric
                 or self.st.plasma_region_enabled):
             self.fluid.mask_provider = self._level_mask
@@ -1029,7 +1037,9 @@ class Simulation:
 
             # photoionization update (streamer.f90:236-242)
             if self.photoi.enabled and self.it % self.photoi.per_steps == 0:
+                t1 = _time.time()
                 self._photoi_set_src(time)
+                self.wc["photoi"] += _time.time() - t1
 
             if self.st.use_electrode:
                 self._set_electrode_densities()
@@ -1039,7 +1049,9 @@ class Simulation:
             dt_lim = uc.huge_real
             step_accepted = False
             for attempt in range(MAX_ATTEMPTS_PER_TIME_STEP):
+                t1 = _time.time()
                 self._copy_state(n_states)
+                self.wc["copy"] += _time.time() - t1
                 cc, fc, dt_lim_step, time_new, diag = adv.advance(
                     self.cc, self.fc, dt, time, self.dt_cfg.integrator,
                     self._substep, params)
@@ -1085,8 +1097,10 @@ class Simulation:
                         d_fe / self.field.current_voltage)
 
             # field for the latest state
+            t1 = _time.time()
             self.cc, self.fc = self.field.compute(self.cc, self.fc, 0, time,
                                                   True)
+            self.wc["field"] += _time.time() - t1
 
             # gas dynamics advance (streamer.f90:325-336)
             if self.gasdyn is not None:
@@ -1114,13 +1128,16 @@ class Simulation:
                     self.output.status(self, _time.time() - t_start)
                 raise RuntimeError(f"dt too small: {self.global_dt}")
 
+            t1 = _time.time()
             if write_out:
                 out_cnt += 1
                 self.out_cnt = out_cnt
                 time_last_output = self.global_time
                 self.output_write(out_cnt, _time.time() - t_start)
+            self.wc["output"] += _time.time() - t1
 
             # refinement every refine_per_steps (streamer.f90:380-411)
+            t1 = _time.time()
             if self.it % self.refine_cfg.per_steps == 0:
                 self.restrict_and_gc_densities()
                 if self.gasdyn is not None:
@@ -1133,6 +1150,7 @@ class Simulation:
                         self.cc, self.fc, 0, time, True)
                     if self.photoi.enabled:
                         self._photoi_set_src(time)
+            self.wc["refine"] += _time.time() - t1
 
         if self.is_root:
             self.output.status(self, _time.time() - t_start)

@@ -54,6 +54,15 @@ class Dielectric:
         self.photons_no_absorption = cfg.add_get(
             "dielectric%photons_no_absorption", False,
             "Assume photons are not absorbed for photoemission computation")
+        # read and never applied, as in the JAX package and the reference
+        self.preset_charge = cfg.add_get(
+            "dielectric%preset_charge", [0.0],
+            "preset nonuniform surface charge")
+        self.preset_charge_distribution = cfg.add_get(
+            "dielectric%preset_charge_distribution", [0.0],
+            "preset nonuniform surface charge distribution (relative "
+            "z-coordinates, scaled by the domain length; like the "
+            "reference this is read but not applied anywhere)")
 
     def update_surface_charge(self, cc, fc, dt: float, s_prev: List[int],
                               w_prev: List[float], s_out: int):

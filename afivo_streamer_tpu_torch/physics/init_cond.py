@@ -5,13 +5,17 @@ Re-implements the reference's ``src/m_init_cond.f90`` (init_cond_initialize
 density, line seeds with configurable endpoints, widths and fall-off
 profiles, optional per-species seeds; evaluated vectorized over whole box
 batches (including one ghost layer, as the reference does with
-``KJI_DO(0,nc+1)``)."""
+``KJI_DO(0,nc+1)``). ``stochastic_density`` adds the stochastic background
+(init_cond_stochastic_density ``:146-198``) when user code calls it."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..core import ghostcell as gc
+from ..core import prolong_restrict as pr
+from ..core import spatial as sp
 from ..utils import geometry
 
 
@@ -128,3 +132,61 @@ class InitCond:
         for iv, v in vals.items():
             cc[iv, rows] = torch.as_tensor(v, dtype=cc.dtype, device=cc.device)
         return cc
+
+
+def stochastic_density(sim, rng_seed: int = 0):
+    """Add a stochastic background density to the electrons and the first
+    positive ion (init_cond_stochastic_density, ``m_init_cond.f90:146-198``;
+    the JAX package's ``physics/init_cond.stochastic_density``): uniform
+    noise in [0, stochastic_density) drawn from
+    ``np.random.default_rng(rng_seed)`` on the first level that has leaves,
+    in the level's box order, and prolonged linearly and additively to the
+    finer levels; the rhs row keeps the noise. Like the JAX package, a
+    utility for user code: nothing calls it. It runs on the state's device;
+    in a sharded run every rank draws the whole array and writes its own
+    rows, which gives the unsharded state."""
+    ic = sim.init_cond
+    if ic.stochastic_density <= 0.0:
+        return
+    # the whole tree, also inside a user hook's view of a sharded run
+    t = getattr(sim.tree, "global_tree", sim.tree)
+    mesh, layout, cc = sim.mesh, sim.layout, sim.cc
+    nc, ndim, i_rhs = t.nc, t.ndim, sim.i_rhs
+    rng = np.random.default_rng(rng_seed)
+    interior = torch.as_tensor(sp.interior_flat(ndim, nc), dtype=torch.int64,
+                               device=cc.device)[None, :]
+
+    def own_rows(lvl):
+        ids = np.asarray(t.lvl_ids[lvl - 1], np.int64)
+        sel, rows = ((slice(None), ids) if layout is None
+                     else layout.own_rows(ids))
+        return sel, torch.as_tensor(rows, dtype=torch.int64,
+                                    device=cc.device)[:, None]
+
+    # the highest fully refined level: the first with leaves
+    my_lvl = next(lvl for lvl in range(1, t.highest_lvl + 1)
+                  if len(t.lvl_leaves[lvl - 1]) > 0)
+    cc[i_rhs] = 0.0
+    sel, rows = own_rows(my_lvl)
+    noise = rng.random((len(t.lvl_ids[my_lvl - 1]), nc ** ndim)
+                       ) * ic.stochastic_density
+    cc[i_rhs, rows, interior] = torch.as_tensor(noise[sel], dtype=cc.dtype,
+                                                device=cc.device)
+
+    def neumann(iv, d, c, p):
+        return gc.BC_NEUMANN, 0.0
+    for lvl in range(my_lvl, t.highest_lvl):
+        cc = gc.fill_ghosts_lvl(cc, mesh.gc(lvl), [i_rhs], gc.RB_INTERP,
+                                neumann, {})
+        cc = pr.prolong(cc, mesh.prolong_into(lvl + 1), [i_rhs], "linear",
+                        add=True)
+
+    for lvl in range(my_lvl, t.highest_lvl + 1):
+        rows = own_rows(lvl)[1]
+        noise = cc[i_rhs, rows, interior]
+        for iv in (sim.i_electron, sim.i_1pos_ion):
+            cc[iv, rows, interior] += noise
+    # restrict and refill the ghosts of the two species
+    ivs = [sim.i_electron, sim.i_1pos_ion]
+    cc = pr.restrict_tree(cc, mesh.pr_all(), ivs)
+    sim.cc = sim._gc_simple(cc, ivs)

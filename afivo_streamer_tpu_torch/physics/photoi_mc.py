@@ -431,7 +431,7 @@ class PhotoiMC:
             cc = gc.fill_ghosts_lvl(
                 cc, mesh.gc(lvl), [i_photo], gc.RB_INTERP,
                 lambda iv, d, c, p: (gc.BC_NEUMANN, 0.0), params or {})
-            cc = pr.prolong(cc, mesh.pr(lvl + 1), [i_photo], "linear",
-                            add=True)
+            cc = pr.prolong(cc, mesh.prolong_into(lvl + 1), [i_photo],
+                            "linear", add=True)
         self._mark("prolong", t0, device)
         return cc

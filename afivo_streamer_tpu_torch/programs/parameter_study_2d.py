@@ -1,0 +1,14 @@
+"""User code for the parameter_study_2d program.
+
+Port of the JAX package's ``programs/parameter_study_2d/user.py`` (the
+reference's ``programs/parameter_study_2d/m_user.f90``): a template that
+sets no hook, so the simulation runs with its default routines on any
+configuration.
+
+Use with
+``-user%module=afivo_streamer_tpu_torch/programs/parameter_study_2d.py``.
+"""
+
+
+def user_initialize(cfg, sim):
+    pass

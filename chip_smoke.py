@@ -46,7 +46,8 @@ failure exits non-zero):
    refinement to level 8 around the seed and in the regions, live, 6
    steps) the same way, with the time of each refinement epoch and of the
    host plan rebuilds, and the device busy share of two more steps, then
-   time K3-swap on its largest level that runs it;
+   time K3-swap on its largest level that runs it, in float64 and with
+   that level's tables and inputs cast to float32;
 7. the main path at full size: the cylindrical slice with live refinement
    (a uniform level 6, 262,144 cells, refined to level 8 around the seed
    and in a region that expires) and Helmholtz photoionization every 5
@@ -242,10 +243,31 @@ failure exits non-zero):
    meshes are reported. Then (2b) K1, K2 and K3 in float32 on the finest
    and the largest level of the Helmholtz mode with the largest lambda,
    held against their plain versions (tolerance 2e-5) and timed.
-The cuda-vs-cpu phases 3 to 3z run right after phase 2c in five worker
+20. the 3D slice with live refinement in float32: phase 8's flags and the
+   float32 state, 2 steps, right after phase 19: ms per step, the run's
+   launches by dtype (all float32, K4 and K5 among them), the state
+   float32 and the regression log's observables within 1e-2 of phase 8's
+   after as many steps (recorded in phase 8 from a generic hook at the
+   start of its third step); then one float32 photoionization update and
+   (2b) K4 and K5 in float32 on the finest and the largest level of the
+   Helmholtz mode with the largest lambda, held against their plain
+   versions and timed.
+3aa. the stochastic background density (physics/init_cond.
+   stochastic_density, rng seed 3, 1e15 per m3) on air_cyl_amr_slice.cfg
+   at the committed size, photoionization every 2 steps, on the card and
+   on the CPU: the state right after the call (no kernel launched by it),
+   then 4 steps as phase 3d, K1-K3 launched;
+3ab. the template programs animation_2d and parameter_study_2d on
+   air_cyl_amr_slice.cfg with the stock writers, 4 steps, as phase 3t;
+3ac. a Helmholtz update that takes 2 FMG cycles: the cylindrical needle
+   (electrode_cyl_slice.cfg) with phase 11's finest cells on a coarser
+   mesh (40,192 cells on 8 levels), 5 steps, as phase 3k, and some mode
+   of some update must take 2 FMG cycles (the update after the epoch of
+   step 4 takes [2, 2, 1] on the CPU).
+The cuda-vs-cpu phases 3 to 3ac run right after phase 2c in five worker
 processes (WORKER_GROUPS: this script with ``--worker K``, WORKER_THREADS
 threads each), together and beside phase 3x's ranks; each worker's log
-is printed when it ends. Every measurement (phases 2 and 4 to 19) runs
+is printed when it ends. Every measurement (phases 2 and 4 to 20) runs
 alone on the card. Phases 9 to 15 and 17 run after phase 3x and before
 phase 4: after the long profiler traces of phases 6 to 8 the host has been
 seen to run slower for the rest of the process. Phases 3e, 3h and the
@@ -258,7 +280,8 @@ per kernel (``ms`` and ``plain_ms`` are the cold float64 device times;
 ``launches`` is the count of the main path's run, phase 7 for the 2D
 kernels and phase 8 for the 3D ones, K3-swap's that of phase 6, and
 ``launches_by_phase`` holds every full-size run's, those of phases 9 and
-11 to 19 among them (phase 19's are float32 launches), and phase 3x's; a
+11 to 20 among them (phase 19's and 20's are float32 launches), and
+phase 3x's; a
 sharded phase's count is summed over its runs and ranks);
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -413,6 +436,20 @@ F32_CPU_TOL, F32_F64_RTOL = 1e-4, 1e-3
 #: tests/test_tpu_hardware.py:110-135), and phase 7's peak memory of PR 13
 F32_MAIN_RTOL = 1e-2
 P7_PEAK_GB = 0.338
+#: phase 20: phase 8's flags in float32 for this many steps, held against
+#: phase 8's state after as many steps (within F32_MAIN_RTOL)
+F32_3D_STEPS = 2
+#: phase 3aa: the stochastic background density and the rng seed of
+#: physics/init_cond.stochastic_density
+STOCHASTIC_FLAGS = ["-photoi%per_steps=2", "-stochastic_density=1e15"]
+STOCHASTIC_SEED = 3
+#: phase 3ac: the cylindrical needle on 8 levels (phase 11's finest cells
+#: on a coarser mesh, 40,192 cells), whose photoionization update after
+#: the epoch of step 4 takes 2 FMG cycles in two of its modes, and its
+#: steps (the update of step 5 is a second one)
+FMG2_FLAGS = ["-refine_max_dx=1.25e-4", "-refine_min_dx=4e-6",
+              "-refine_electrode_dx=8e-6", "-refine_regions_dr=3.125e-5"]
+FMG2_STEPS = 5
 SOURCE = {2: "afivo_streamer_tpu_torch/csrc/smoother.cu",
           3: "afivo_streamer_tpu_torch/csrc/smoother_3d.cu"}
 REPLACES = {"fill_sweep_2d": "afivo_streamer_tpu/ops/pallas_smoother.py:397",
@@ -976,14 +1013,15 @@ def phase_kernels_eps(torch, ks, smi):
 
 
 def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi, mg=None,
-                  what="the field solve"):
+                  what="the field solve", cast=None):
     """The kernel ``name`` held against its plain version and timed on
     level ``lvl`` of the multigrid ``mg`` (the simulation's field solve by
     default), with what a V-cycle hands it there: the level's blocks phi3,
     ghost constants A and tables g and W, and for a sweep its rhs R,
     stencil cs and the mask of the second half sweep (the first that K1
     does), R with the boundary term of an electrode; after the run's
-    launch counts were read."""
+    launch counts were read. With ``cast`` (a dtype), the level's float
+    tables and inputs cast to it."""
     mg = mg or sim.field.mg
     P, R = mgb.gather_levels(mg, sim.cc)
     sm = mg.smoother(lvl)
@@ -996,6 +1034,10 @@ def time_on_level(torch, ks, mgb, sim, name, lvl, phase, smi, mg=None,
         x.update(R=mgb.rhs_with_boundary(mg, lvl, R[lvl - 1],
                                          params).contiguous(),
                  cs=mg.cs(lvl, dtype), mask=mg.parity_masks(2)[1])
+    if cast is not None:
+        x = {k: v.to(cast) if v.is_floating_point() else v
+             for k, v in x.items()}
+        what += f", cast to {str(cast).split('.')[1]}"
     _, err_text = check_against_plain(torch, ks, name, x)
     r = measure(torch, ks, name, x, smi)
     log(f"phase {phase}: {name} on level {lvl} of {what} "
@@ -1175,8 +1217,10 @@ def phase_dielectric_full(torch, ks, Simulation, mgb, out_dir, smi):
         f"K3-swap on levels {swap_lvls}, float64)")
     log(f"phase 6: device busy share: "
         f"{busy_share(torch, sim, 1e3 * (t2 - t1) / steps)}")
-    time_on_level(torch, ks, mgb, sim, "fill_2d_swap",
-                  max(swap_lvls, key=lambda l: mg.smoother(l).n), "6", smi)
+    swap_lvl = max(swap_lvls, key=lambda l: mg.smoother(l).n)
+    for cast in (None, torch.float32):
+        time_on_level(torch, ks, mgb, sim, "fill_2d_swap", swap_lvl, "6",
+                      smi, cast=cast)
     return launches
 
 
@@ -1252,9 +1296,12 @@ def record_field_cycles(mgb, sim, solves):
     sim.field.compute = sim.fluid.field_compute = wrapped
 
 
-def record_run(argv, max_steps, after=None):
+def record_run(argv, max_steps, after=None, prepare=None):
     """Run ``Simulation(argv)`` for ``max_steps`` steps, sharded or not,
     and record what a sharded run must reproduce (with the helpers above):
+    with ``prepare``, ``prepare(sim)`` runs on every rank right after the
+    setup and the state of the boxes in use right after it is recorded
+    (``prepared``, gathered on rank 0); then
     the mesh after setup and after every refinement epoch with its boxes
     added and removed, dt of every attempted step, the (FMG, V-cycle)
     counts of every field solve, the Helmholtz modes' FMG cycles at every
@@ -1277,6 +1324,13 @@ def record_run(argv, max_steps, after=None):
     from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
 
     sim = Simulation(argv=list(argv))
+    prepared = None
+    if prepare is not None:
+        prepare(sim)
+        with sim.full_view() as root:
+            if root:
+                ids = np.nonzero(sim.tree.in_use[:sim.tree.highest_id])[0]
+                prepared = sim.cc[:, ids].cpu().numpy()
     mesh0 = [list(map(int, x)) for x in sim.tree.lvl_ids]
     epochs, dts, solves, updates = [], [], [], []
     record_epochs(sim, epochs, torch)
@@ -1301,7 +1355,8 @@ def record_run(argv, max_steps, after=None):
     out = {"epochs": [mesh0] + [e["ids"] for e in epochs],
            "changes": [(e["add"], e["rm"]) for e in epochs],
            "dts": [float(d) for d in dts], "solves": list(solves),
-           "photoi": [(u["it"], u["cycles"]) for u in updates]}
+           "photoi": [(u["it"], u["cycles"]) for u in updates],
+           "prepared": prepared}
     layout = sim.layout
     per_rank = {
         "launches": {name: fn.launches for name, fn in ks.KERNELS.items()},
@@ -1390,7 +1445,7 @@ def record_coarse_cycles(sim, counts):
 
 def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
                           cfg=None, table=TABLE, extra=None, steps=None,
-                          must_launch=()):
+                          must_launch=(), prepare=None, must_fmg=None):
     """Phase 3d (cylindrical) and 3e (3D): the slice with live refinement
     and photoionization every 2 steps on the card and on the CPU: the same
     mesh at every epoch (one of them changing it), the same FMG cycle
@@ -1404,7 +1459,10 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
     surface, the V-cycles of every uniform coarse-grid solve and that the
     kernels ``must_launch`` were launched on the card. Every phase also
     holds dt of every attempted step (rtol 1e-9) and the FMG and V-cycle
-    counts of every field solve of the run."""
+    counts of every field solve of the run. Phase 3aa: ``prepare(sim)``
+    runs right after the setup (the stochastic background), and the states
+    right after it are held as well. Phase 3ac: some mode of some update
+    must take ``must_fmg`` FMG cycles."""
     from afivo_streamer_tpu_torch import interop
     from afivo_streamer_tpu_torch.solvers import mg_blocks as mgb
     phase = phase or ("3d" if ndim == 2 else "3e")
@@ -1412,10 +1470,18 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
     steps = steps or AMR_SMALL_STEPS[ndim]
     extra = ["-photoi%per_steps=2"] if extra is None else extra
     sims, epochs, updates, dts, solves, coarse = {}, {}, {}, {}, {}, {}
-    gas0 = {}
+    gas0, prepared = {}, {}
     for dev in ("cpu", "cuda"):
         sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_{dev}", ndim,
                                        dev, extra, cfg, table))
+        if prepare is not None:
+            before = {k: fn.launches for k, fn in ks.KERNELS.items()}
+            prepare(sim)
+            prepared[dev] = sim.cc[:, :sim.tree.highest_id].to(
+                "cpu", copy=True)
+            if any(fn.launches != before[k] for k, fn in ks.KERNELS.items()):
+                raise RuntimeError(f"phase {phase}: a kernel launched in "
+                                   f"{prepare.__name__}")
         if sim.gasdyn is not None:
             gas0[dev] = gas_setup_state(torch, sim)
         epochs[dev] = [{"ids": [list(map(int, x)) for x in sim.tree.lvl_ids],
@@ -1451,20 +1517,27 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
     if cycles["cpu"] != cycles["cuda"]:
         raise RuntimeError(f"phase {phase}: the FMG cycle counts differ: "
                            f"{cycles}")
+    if must_fmg is not None and not any(
+            must_fmg in c for _it, c in cycles["cpu"]):
+        raise RuntimeError(f"phase {phase}: no update took {must_fmg} FMG "
+                           f"cycles: {cycles}")
     a, b = sims["cpu"], sims["cuda"]
     n = a.tree.highest_id
     use = torch.as_tensor(a.tree.in_use[:n])
-    worst, worst_name = 0.0, ""
-    for iv, name in enumerate(a.registry.cc_names):
-        if iv == a.i_tmp:
-            continue
-        ref = a.cc[iv, :n][use]
-        got = b.cc[iv, :n].cpu()[use]
-        scale = float(ref.abs().max())
-        err = float((got - ref).abs().max())
-        rel = err / scale if scale > 0 else err
-        if rel > worst:
-            worst, worst_name = rel, name
+    worst, worst_name = worst_scaled(a, a.cc[:, :n], b.cc[:, :n].cpu(), use)
+    if prepare is not None:
+        # the state right after prepare (the setup's mesh)
+        n0 = prepared["cpu"].shape[1]
+        use0 = torch.as_tensor(a.tree.in_use[:n0]) if n0 == n else None
+        w0, w0_name = worst_scaled(a, prepared["cpu"], prepared["cuda"], use0)
+        noise = float(prepared["cuda"][a.i_rhs].max())
+        log(f"phase {phase}: right after {prepare.__name__}: worst scaled "
+            f"deviation {w0:.3e} ({w0_name}; limit 1e-9), max(rhs) = "
+            f"{noise:.6e} on the card, no kernel launched")
+        if w0 > 1e-9 or not noise > 0.0:
+            raise RuntimeError(f"phase {phase}: right after "
+                               f"{prepare.__name__}: {w0} {w0_name}, "
+                               f"max(rhs) {noise}")
     n_leaf = sum(len(l) for l in a.tree.lvl_leaves) * a.tree.nc ** ndim
     photo = (f"; max|photo| = "
              f"{float(b.cc[b.photoi.i_photo, :n].abs().max()):.4e}"
@@ -1510,6 +1583,34 @@ def phase_amr_cpu_vs_cuda(torch, ks, Simulation, out_dir, ndim, phase=None,
         gas_increments(torch, a, b, gas0, phase)
     if b.photoi.mc is not None:
         check_mc_photons(b, phase)
+
+
+def worst_scaled(sim, ref, got, use=None):
+    """The worst deviation of ``got`` from ``ref`` (state rows [variable,
+    box, cell] of ``sim``'s variables, on the CPU) over the scale of each
+    variable but the scratch one, on the boxes ``use`` (all when None);
+    returns it and the variable's name."""
+    worst, worst_name = 0.0, ""
+    for iv, name in enumerate(sim.registry.cc_names):
+        if iv == sim.i_tmp:
+            continue
+        a, b = ref[iv], got[iv]
+        if use is not None:
+            a, b = a[use], b[use]
+        scale = float(a.abs().max())
+        err = float((b - a).abs().max())
+        rel = err / scale if scale > 0 else err
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def add_stochastic_background(sim):
+    """Phase 3aa's start: the stochastic background density from rng seed
+    STOCHASTIC_SEED (physics/init_cond.stochastic_density)."""
+    from afivo_streamer_tpu_torch.physics.init_cond import \
+        stochastic_density
+    stochastic_density(sim, STOCHASTIC_SEED)
 
 
 #: the gas variables whose increments the gas phases compare
@@ -1681,6 +1782,7 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
     if record is not None:
         record_field_cycles(mgb, sim, solves)
         record_dts(sim, dts)
+        record_row_at(sim, F32_3D_STEPS, record, out_dir / f"p{phase}_row")
     sim.run(max_steps=steps)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
@@ -1786,17 +1888,121 @@ def phase_amr_full(torch, ks, Simulation, mgb, out_dir, ndim, smi,
         f"of Helmholtz mode {mode + 1} (lambda = "
         f"{sim.photoi.lambdas[mode]:.6g} 1/m; {t.highest_lvl} levels, "
         f"{str(sim.cc.dtype).split('.')[1]})")
+    helmholtz_2b(torch, ks, mgb, sim, names, phase, smi)
+    # last: the long trace of these steps makes the next traces lose events
+    log(f"phase {phase}: device busy share: "
+        f"{busy_share(torch, sim, ms_step)}")
+    return launches
+
+
+def helmholtz_2b(torch, ks, mgb, sim, names, phase, smi):
+    """Phase 2b of a run with photoionization: the kernels ``names`` held
+    against their plain versions and timed on the finest and on the
+    largest level of the Helmholtz mode with the largest lambda, with that
+    mode's own stencil, ghost weights and inputs (set_src wrote its rhs)."""
+    t = sim.tree
+    mode = max(range(sim.photoi.n_modes), key=lambda k: sim.photoi.lambdas[k])
     largest = max(range(1, t.highest_lvl + 1),
                   key=lambda l: len(t.lvl_ids[l - 1]))
     for lvl in sorted({t.highest_lvl, largest}, reverse=True):
         lam2dx2 = (sim.photoi.lambdas[mode] * float(t.lvl_dr(lvl)[0])) ** 2
         for name in names:
-            time_on_level(torch, ks, mgb, sim, name, lvl, "2b", smi, mg=mg_h,
+            time_on_level(torch, ks, mgb, sim, name, lvl, "2b", smi,
+                          mg=sim.photoi.mgs[mode],
                           what=f"Helmholtz mode {mode + 1} of phase {phase} "
                           f"(lambda^2 dx^2 = {lam2dx2:.4g})")
-    # last: the long trace of these steps makes the next traces lose events
-    log(f"phase {phase}: device busy share: "
-        f"{busy_share(torch, sim, ms_step)}")
+
+
+def regression_row(sim, prefix):
+    """The regression log's row (it, time, dt, the species' sums, sums of
+    squares and maxima) of ``sim``'s state, written to a file of its own,
+    ``<prefix>_rtest.log``."""
+    import numpy as np
+    name = sim.output.name
+    sim.output.name = str(prefix)
+    try:
+        with sim.full_view():
+            sim.output.regression_log(sim, 0)
+    finally:
+        sim.output.name = name
+    return np.loadtxt(f"{prefix}_rtest.log", skiprows=1)
+
+
+def record_row_at(sim, steps, record, prefix):
+    """Put the regression log's row of ``sim``'s state after ``steps``
+    steps (and the epoch of the last) into ``record["row_at"]``, from a
+    generic hook at the start of the next step."""
+    def hook(s, _time):
+        if s.it == steps + 1 and "row_at" not in record:
+            record["row_at"] = regression_row(s, prefix)
+    sim.user.generic = hook
+
+
+def phase_float32_3d(torch, ks, Simulation, mgb, out_dir, smi, p8):
+    """Phase 20: phase 8's flags with the float32 state (F32_FLAGS) for
+    F32_3D_STEPS steps, after phase 8 in the same call: ms per step, the
+    run's launches by dtype (all float32, K4 and K5 among them), the state
+    float32, the regression log's observables after the run within
+    F32_MAIN_RTOL of phase 8's after as many steps, the meshes (reported);
+    then (2b) K4 and K5 in float32 on the finest and the largest level of
+    the Helmholtz mode with the largest lambda, after one float32 update.
+    Returns the run's launches."""
+    import numpy as np
+    phase, names = "20", PATH_KERNELS[3]
+    extra = AMR_FULL[3][0] + F32_FLAGS
+    free_earlier_runs(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ks.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_full", 3, "cuda",
+                                   extra))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    setup = {k: dict(fn.launches_by_dtype) for k, fn in ks.KERNELS.items()}
+    meshes = [[list(map(int, x)) for x in sim.tree.lvl_ids]]
+    epochs = []
+    record_epochs(sim, epochs, torch)
+    sim.run(max_steps=F32_3D_STEPS)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: ks.KERNELS[k].launches for k in names}
+    by_dtype = {k: {str(d).split(".")[1]: c - setup[k][d]
+                    for d, c in fn.launches_by_dtype.items()}
+                for k, fn in ks.KERNELS.items() if k in names
+                or fn.launches_by_dtype != setup[k]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    meshes += [e["ids"] for e in epochs]
+    row, ref = regression_row(sim, out_dir / f"p{phase}_row"), p8["row_at"]
+    rel = float((np.abs(row[1:] - ref[1:])
+                 / np.maximum(np.abs(ref[1:]), 1e-300)).max())
+    n_leaf = sum(len(l) for l in sim.tree.lvl_leaves) * sim.tree.nc ** 3
+    log(f"phase {phase}: {AMR_CFG[3].name} {' '.join(extra)}: setup "
+        f"{t1 - t0:.2f} s; {F32_3D_STEPS} steps {t2 - t1:.2f} s = "
+        f"{1e3 * (t2 - t1) / F32_3D_STEPS:.2f} ms/step (phase 8: "
+        f"{p8['ms_step']:.2f} over its {len(p8['dts'])} attempted steps "
+        f"and photoionization updates); {n_leaf} leaf cells at the end; "
+        f"peak memory {peak_gb:.3f} GB (phase 8 {p8['peak_gb']:.3f}); "
+        f"launches of the run by dtype {by_dtype}; the same meshes as "
+        f"phase 8 at {len(meshes)} meshes: "
+        f"{meshes == p8['meshes'][:len(meshes)]} (reported, not required); "
+        f"the regression log's observables after {F32_3D_STEPS} steps "
+        f"against phase 8's, worst relative deviation {rel:.3e} (limit "
+        f"{F32_MAIN_RTOL:.0e})")
+    if any(c["float64"] for c in by_dtype.values()) or not all(
+            by_dtype[k]["float32"] > 0 for k in names):
+        raise RuntimeError(f"phase {phase}: a float64 launch or a kernel "
+                           f"not launched in float32: {by_dtype}")
+    if sim.cc.dtype != torch.float32 or not rel <= F32_MAIN_RTOL:
+        raise RuntimeError(f"phase {phase}: state {sim.cc.dtype}, the "
+                           f"observables deviate by {rel:.3e}: {ref} {row}")
+    params = {"voltage": sim.field.current_voltage}
+    t3 = time.perf_counter()
+    sim.cc = sim.photoi.set_src(sim.cc, 0.0, params)
+    torch.cuda.synchronize()
+    log(f"phase {phase}: one float32 photoionization update "
+        f"{time.perf_counter() - t3:.2f} s (its tables and dense level-1 "
+        f"inverses built), FMG cycles per mode {sim.photoi.fmg_cycles}")
+    helmholtz_2b(torch, ks, mgb, sim, names, phase, smi)
     return launches
 
 
@@ -2257,6 +2463,14 @@ PROGRAMS_SMALL = [
      ("fill_sweep_2d", "sweep_2d", "fill_2d"), False),
     ("c", DATA / "stability_3d.cfg", 3, TABLE, ["-output%dt=5e-14"], 4,
      ("sweep_3d", "fill_3d"), False)]
+#: phase 3ab: the two template programs on air_cyl_amr_slice.cfg with the
+#: stock writers, in the form of PROGRAMS_SMALL
+STOCK_PROGRAMS_SMALL = [
+    (f"-{name}", AMR_CFG[2], 2, TABLE,
+     ["-photoi%per_steps=2", "-output%log=t", "-silo_write=t",
+      "-output%dt=5e-14", f"-user%module={PROGRAMS / (name + '.py')}"], 4,
+     PATH_KERNELS[2], False)
+    for name in ("animation_2d", "parameter_study_2d")]
 #: the stock writers on the main path at the card's size (phase 16), under
 #: velocity_control_2d: flags beside phase 7's and steps
 WRITERS_FULL = (["-field_amplitude=-1.8e6", "-output%log=t", "-silo_write=t",
@@ -2287,26 +2501,29 @@ def record_hooks(sim, calls, torch=None, seconds=None):
         setattr(sim.user, name, wrapped)
 
 
-def phase_programs_cpu_vs_cuda(torch, ks, Simulation, mgb, out_dir):
+def phase_programs_cpu_vs_cuda(torch, ks, Simulation, mgb, out_dir,
+                               table=PROGRAMS_SMALL, prefix="3t"):
     """Phase 3t: the programs with the stock writers on the card and on
     the CPU at the committed sizes: (a) the main path's slice under
     velocity_control_2d (both simulations past 1 ns, photoionization every
     2 steps), (b) comparison_air_2d (the tabulated electrode potentials in
-    the ghost constants A), (c) stability_3d. The same mesh at every epoch,
+    the ghost constants A), (c) stability_3d; phase 3ab: the runs of
+    STOCK_PROGRAMS_SMALL (animation_2d and parameter_study_2d, templates
+    without a hook, on the main path's slice). The same mesh at every epoch,
     dt at every attempted step, (FMG, V-cycle) counts of every field solve,
     every recorded hook call, every variable within 1e-9 of its scale and
     every written file (io/compare.py: log, grid files, chemistry files)
     within 1e-8, the last of the 9 digits the text files print; the path's
     kernels launched."""
     from afivo_streamer_tpu_torch.io.compare import compare_outputs
-    for label, cfg, ndim, table, extra, steps, must, past in PROGRAMS_SMALL:
-        phase = f"3t{label}"
+    for label, cfg, ndim, tab, extra, steps, must, past in table:
+        phase = f"{prefix}{label}"
         if cfg != AMR_CFG[2]:
             extra = extra + [f"-user%module={PROGRAMS / (cfg.stem + '.py')}"]
         sims, rec = {}, {}
         for dev in ("cpu", "cuda"):
             sim = Simulation(argv=amr_argv(out_dir / f"p{phase}_{dev}", ndim,
-                                           dev, extra, cfg, table))
+                                           dev, extra, cfg, tab))
             if past:
                 sim.global_time = PAST_ONE_NS
             r = rec[dev] = {"epochs": [], "dts": [], "solves": [],
@@ -2340,17 +2557,8 @@ def phase_programs_cpu_vs_cuda(torch, ks, Simulation, mgb, out_dir):
             raise RuntimeError(f"phase {phase}: not launched on the card: "
                                f"{rb['launched']}")
         n = a.tree.highest_id
-        use = torch.as_tensor(a.tree.in_use[:n])
-        worst, worst_name = 0.0, ""
-        for iv, name in enumerate(a.registry.cc_names):
-            if iv == a.i_tmp:
-                continue
-            ref = a.cc[iv, :n][use]
-            err = float((b.cc[iv, :n].cpu()[use] - ref).abs().max())
-            scale = float(ref.abs().max())
-            rel = err / scale if scale > 0 else err
-            if rel > worst:
-                worst, worst_name = rel, name
+        worst, worst_name = worst_scaled(a, a.cc[:, :n], b.cc[:, :n].cpu(),
+                                         torch.as_tensor(a.tree.in_use[:n]))
         if worst > 1e-9:
             raise RuntimeError(f"phase {phase}: cuda vs cpu {worst} "
                                f"{worst_name}")
@@ -3171,7 +3379,7 @@ def phase_sharded(torch, out_dir, started):
                 f"halo exchanges (calls, bytes) "
                 f"{[(r['exchange']['calls'], r['exchange']['bytes']) for r in s['ranks']]}; "
                 f"{wall:.1f} s with the ranks' start (the runs started "
-                f"together, beside the workers of phases 3-3z)")
+                f"together, beside the workers of phases 3-3ac)")
     for name, cfg, ndim, extra, steps in SHARDED_BRANCHES:
         u, s = runs[(name, 1)][0], runs[(name, 2)][0]
         worst, bitwise = compare_sharded(
@@ -3347,7 +3555,7 @@ def phase_full_slice(torch, ks, Simulation, mgb, out_dir, ndim, smi):
 
 
 def small_phases():
-    """The cuda-vs-cpu phases (3 to 3z but 3x) by name, each a callable of
+    """The cuda-vs-cpu phases (3 to 3ac but 3x) by name, each a callable of
     (torch, ks, Simulation, mgb, out_dir); a name with several runs runs
     them in turn."""
     def runs(table, must=None):
@@ -3375,6 +3583,14 @@ def small_phases():
             torch, S, out),
         "3q": lambda torch, ks, S, mgb, out: phase_imex(torch, ks),
         "3t": phase_programs_cpu_vs_cuda,
+        "3aa": lambda torch, ks, S, mgb, out: phase_amr_cpu_vs_cuda(
+            torch, ks, S, out, 2, "3aa", extra=STOCHASTIC_FLAGS,
+            must_launch=PATH_KERNELS[2], prepare=add_stochastic_background),
+        "3ab": lambda torch, ks, S, mgb, out: phase_programs_cpu_vs_cuda(
+            torch, ks, S, mgb, out, STOCK_PROGRAMS_SMALL, "3ab"),
+        "3ac": lambda torch, ks, S, mgb, out: phase_amr_cpu_vs_cuda(
+            torch, ks, S, out, 2, "3ac", ELECTRODE_CFG["cyl"], TABLE,
+            FMG2_FLAGS, FMG2_STEPS, PATH_KERNELS[2], must_fmg=2),
         "3v": lambda torch, ks, S, mgb, out: phase_restart(torch, S, out),
         "3w": lambda torch, ks, S, mgb, out: phase_writers_cpu_vs_cuda(
             torch, S, out),
@@ -3393,10 +3609,10 @@ def small_phases():
 #: ranks, each with WORKER_THREADS threads in PyTorch and in the BLAS
 WORKER_GROUPS = (("3e", "3", "3b", "3c", "3d", "3f", "3g", "3h", "3i",
                   "3v"),
-                 ("3l", "3n", "3j", "3k", "3m", "3o", "3p"),
+                 ("3l", "3n", "3j", "3k", "3m", "3o", "3p", "3aa"),
                  ("3r", "3s", "3t", "3u", "3q"),
                  ("3y", "3w"),
-                 ("3z",))
+                 ("3z", "3ac", "3ab"))
 WORKER_THREADS = 2
 
 
@@ -3457,7 +3673,7 @@ def join_workers(procs):
     if failed:
         raise RuntimeError(f"cuda-vs-cpu phases failed (phases, exit code): "
                            f"{failed}")
-    log(f"phases 3-3z: {len(procs)} workers ended")
+    log(f"phases 3-3ac: {len(procs)} workers ended")
 
 
 def main():
@@ -3527,14 +3743,16 @@ def main():
                                           out_dir, smi)
     # phase 16 just before phase 7, whose host state it shares
     writers = phase_writers_full(torch, ks, Simulation, mgb, out_dir, smi)
-    main_path = {}
+    main_path, p8 = {}, {}
     for ndim in (2, 3):
         by_phase[str(5 + ndim)] = phase_amr_full(
             torch, ks, Simulation, mgb, out_dir, ndim, smi,
-            record=main_path if ndim == 2 else None)
+            record=main_path if ndim == 2 else p8)
     writers_against_main_path(writers, main_path)
     by_phase["19"] = phase_amr_full(torch, ks, Simulation, mgb, out_dir, 2,
                                     smi, "19", record={}, against=main_path)
+    by_phase["20"] = phase_float32_3d(torch, ks, Simulation, mgb, out_dir,
+                                      smi, p8)
     by_phase["3x"] = sharded
     by_phase["18"] = phase_sharded_full(torch, out_dir, main_path)
     log(f"phase 17: ms per Monte-Carlo update "

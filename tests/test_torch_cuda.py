@@ -48,7 +48,10 @@ no JAX, so they run on a machine that has only PyTorch with CUDA:
   deposits and gather, and a restart on the card from a checkpoint the CPU
   wrote, each against the CPU;
 * the compiled engine's float32 state on the cylindrical and the 3D slice
-  against the CPU's float32 run, every launch float32.
+  against the CPU's float32 run, every launch float32;
+* the stochastic background density (init_cond.stochastic_density) on the
+  cylindrical slice with live refinement: right after the call and after
+  4 steps, on the card as on the CPU.
 """
 
 import re
@@ -500,10 +503,11 @@ def test_1d_smoother_on_card_matches_cpu(dtype, cuda):
 
 
 def slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=("-refine_max_dx=5e-4",),
-                      steps=2, cycles=None):
+                      steps=2, cycles=None, prepare=None):
     """Run ``cfg`` on the CPU and on the card and compare every variable;
     ``cycles``, a pair of lists, takes the FMG cycle counts of every
-    photoionization update of the two runs."""
+    photoionization update of the two runs; ``prepare(sim)`` runs right
+    after each setup."""
     from afivo_streamer_tpu_torch.driver import Simulation
     sims = []
     for k, dev in enumerate(("cpu", "cuda")):
@@ -511,6 +515,8 @@ def slice_cuda_vs_cpu(tmp_path, cfg, ndim, extra=("-refine_max_dx=5e-4",),
             str(DATA / cfg), f"-ndim={ndim}",
             f"-input_data%file={DATA / 'td_air_synthetic.txt'}", *extra,
             f"-output%name={tmp_path}/{dev}", f"-device={dev}"])
+        if prepare is not None:
+            prepare(sim)
         if cycles is not None:
             def set_src(*args, _sim=sim, _set=sim.photoi.set_src, _k=k):
                 cc = _set(*args)
@@ -806,3 +812,35 @@ def test_float32_state_on_the_card_matches_cpu(cfg, ndim, cuda, tmp_path):
         torch.testing.assert_close(b.cc[iv, rows].cpu().double(), ref,
                                    rtol=0.0,
                                    atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+def test_stochastic_density_cuda_matches_cpu(cuda, tmp_path):
+    """The stochastic background (rng seed 3, 1e15 per m3) on the
+    cylindrical slice with live refinement and photoionization every 2
+    steps: the electron, ion and rhs rows right after the call within
+    1e-12 of their scale on the card as on the CPU, no kernel launched by
+    it; then 4 steps as test_photoi_slice_cuda_matches_cpu, K1-K3
+    launched."""
+    from afivo_streamer_tpu_torch.physics.init_cond import \
+        stochastic_density
+    after = []
+
+    def prepare(sim):
+        before = ks.KERNELS["fill_2d"].launches
+        stochastic_density(sim, 3)
+        assert ks.KERNELS["fill_2d"].launches == before
+        after.append(sim.cc[[sim.i_electron, sim.i_1pos_ion, sim.i_rhs],
+                            :sim.tree.highest_id].cpu())
+    before = {k: fn.launches for k, fn in ks.KERNELS.items()}
+    cycles = ([], [])
+    slice_cuda_vs_cpu(tmp_path, "air_cyl_amr_slice.cfg", 2,
+                      ["-photoi%per_steps=2", "-stochastic_density=1e15"],
+                      steps=4, cycles=cycles, prepare=prepare)
+    for ref, got in zip(after[0], after[1]):
+        torch.testing.assert_close(got, ref, rtol=1e-12,
+                                   atol=1e-12 * float(ref.abs().max()))
+    assert 0.9e15 < float(after[1][2].max()) < 1e15
+    assert len(cycles[0]) >= 3 and cycles[0] == cycles[1]
+    for k in ("fill_sweep_2d", "sweep_2d", "fill_2d"):
+        assert ks.KERNELS[k].launches > before[k], k

@@ -13,7 +13,10 @@ packages on the CPU in float64, 8 steps with the stock writers on:
   copy of it in tmp_path beside the committed tables);
 * gas_gradient_2d with a line and with a sphere;
 * 2d_sprite and 3d_sprite (the altitude density and the Wait-Spies
-  profile).
+  profile);
+* animation_2d and parameter_study_2d, templates that set no hook, on the
+  committed cylindrical slice with live refinement and photoionization
+  (air_cyl_amr_slice.cfg) and the stock writers turned on.
 
 Each holds the same mesh at every epoch, dt at every attempted step, the
 FMG and V-cycle counts, the recorded calls of the field_amplitude and
@@ -33,7 +36,10 @@ from torch_pairs import (DATA, JAX_PROGRAMS, PROGRAMS, RTOL,
 torch.set_num_threads(1)
 
 STEPS = 8
-#: program -> (configuration, ndim, extra flags)
+#: the stock writers on air_cyl_amr_slice.cfg, with an output every 0.05 ps
+WRITERS = ["-output%log=t", "-silo_write=t", "-output%dt=5e-14"]
+#: case (the program, then "-" and a variant) -> (configuration, ndim,
+#: extra flags)
 CASES = {
     "velocity_control_2d": ("velocity_control_2d", 2, []),
     "stability_3d": ("stability_3d", 3, []),
@@ -43,6 +49,8 @@ CASES = {
                                ["-gradient_type=sphere"]),
     "2d_sprite": ("2d_sprite", 2, []),
     "3d_sprite": ("3d_sprite", 3, []),
+    "animation_2d": ("air_cyl_amr_slice", 2, WRITERS),
+    "parameter_study_2d": ("air_cyl_amr_slice", 2, WRITERS),
 }
 #: the time both simulations of velocity_control_2d start from
 PAST_ONE_NS = 1.1e-9
@@ -79,7 +87,7 @@ def jax_module(tmp_path, program):
 @pytest.mark.parametrize("case", list(CASES))
 def test_program_matches_jax(tmp_path, monkeypatch, case):
     cfg, ndim, extra = CASES[case]
-    program = cfg
+    program = case.split("-")[0]
     argv = [str(DATA / f"{cfg}.cfg"), f"-ndim={ndim}",
             f"-input_data%file={DATA / table_of(cfg)}"] + extra
     j, t, rec = build_pair(
@@ -135,6 +143,10 @@ def check_program(program, t, calls):
         N = t.gas.number_density
         assert float(M.min()) == pytest.approx(0.8 * N, rel=1e-6)
         assert float(M.max()) == pytest.approx(N, rel=1e-6)
+    elif program in ("animation_2d", "parameter_study_2d"):
+        # templates: no hook, so the run is the stock one
+        assert not calls
+        assert all(v is None for v in vars(t.user).values())
     else:  # the sprites: density falls with altitude, ambient electrons
         M = t.cc[t.registry.cc_names.index("M"), :t.tree.highest_id]
         assert float(M.max()) / float(M.min()) > 100.0

@@ -33,11 +33,19 @@ temporary directory, one thread each.
     gas-side and the dielectric-side box of some surfaces lie on two
     ranks; the velocity_control_2d program's hooks; a user module with the
     refine, field_amplitude and log_subroutine hooks; Monte-Carlo
-    photoionization) held against the unsharded run as in (b), each over
-    4 ranks and the last five also over 2, across an epoch that changes
+    photoionization, and with photons absorbed on every level
+    (photoi_mc%const_dx = f), whose prolongation reaches boxes whose
+    parents another rank owns) held against the unsharded run as in (b),
+    each over 4 ranks and five of them also over 2, across an epoch that
+    changes
     the mesh; the electrode's boundary boxes on two or more ranks; the
     surface charge's integral and the user log file as unsharded; a
     sharded configuration outside a process group raises ValueError.
+(h) The stochastic background (physics/init_cond.stochastic_density,
+    every rank drawing the whole array and writing its own rows), called
+    in a user hook's view of the simulation, over 2 ranks on
+    air_cyl_amr_slice.cfg: the noise right after the call equal to the
+    unsharded one bit for bit, then 4 steps as in (b).
 """
 
 import subprocess
@@ -52,6 +60,7 @@ import torch
 from afivo_streamer_tpu_torch.driver import Simulation as TSim
 from afivo_streamer_tpu_torch.io.compare import compare_outputs
 from afivo_streamer_tpu_torch.parallel import compiled
+from afivo_streamer_tpu_torch.physics.init_cond import stochastic_density
 from chip_smoke import record_run
 
 torch.set_num_threads(1)
@@ -97,10 +106,24 @@ BRANCHES = {
                           TD, "-output%dt=1e-13", "-hooks%which=refine"], 6),
     "montecarlo": ([str(DATA / "air_cyl_amr_slice.cfg"), "-ndim=2", TD]
                    + MC_FLAGS, 4),
+    # photons absorbed on every level, prolonged into boxes whose parents
+    # another rank owns
+    "montecarlo-levels": ([str(DATA / "air_cyl_amr_slice.cfg"), "-ndim=2",
+                           TD, "-photoi_mc%const_dx=f"] + MC_FLAGS, 2),
 }
 #: the branches that ran unsharded only before, also over 2 ranks
 TWO_RANKS = ("electrode", "dielectric", "user-module", "user-refine-hook",
              "montecarlo")
+#: (h): the main path from a stochastic background, and its steps
+STOCHASTIC = ([str(DATA / "air_cyl_amr_slice.cfg"), "-ndim=2", TD,
+               "-photoi%per_steps=2", "-stochastic_density=1e15"], 4)
+
+
+def add_noise(sim):
+    """(h): the stochastic background from rng seed 3, called as a user
+    hook calls it (sim.tree the rank's LocalTree when sharded)."""
+    with sim._hook_view():
+        stochastic_density(sim, 3)
 
 
 def shard(n):
@@ -113,6 +136,8 @@ def _rank_jobs(jobs):
     for name, kind, argv, steps in jobs:
         if kind == "run":
             out[name] = record_run(argv, steps)
+        elif kind == "stochastic":
+            out[name] = record_run(argv, steps, prepare=add_noise)
         else:
             out[name] = compiled._dryrun_rank(*argv)
     return out
@@ -155,6 +180,9 @@ def runs(tmp_path_factory):
     jobs2 = [(name, "run", branch(name)[0] + dev + shard(2)
               + [f"-output%name={tmp / ('two_' + name)}"], branch(name)[1])
              for name in TWO_RANKS]
+    jobs2.append(("stochastic", "stochastic", STOCHASTIC[0] + dev + shard(2)
+                  + [f"-output%name={tmp / 'two_stochastic'}"],
+                  STOCHASTIC[1]))
     sharded, two = {}, {}
     spawns = [threading.Thread(target=lambda: sharded.update(
                   compiled.run_ranks(_rank_jobs, 4, (jobs,)))),
@@ -163,6 +191,9 @@ def runs(tmp_path_factory):
     for spawn in spawns:
         spawn.start()
     try:
+        unsharded["stochastic"] = record_run(
+            STOCHASTIC[0] + dev + [f"-output%name={tmp / 'u_stochastic'}"],
+            STOCHASTIC[1], prepare=add_noise)
         unsharded["1d"] = record_run(
             ONE_D + dev + [f"-output%name={tmp / 'u_1d'}"], ONE_D_STEPS)
         for name in BRANCHES:
@@ -178,7 +209,8 @@ def runs(tmp_path_factory):
         for spawn in spawns:
             spawn.join()
     assert set(sharded) == {name for name, *_r in jobs}, "a rank failed"
-    assert set(two) == set(TWO_RANKS), "a rank of the 2-rank runs failed"
+    assert set(two) == set(TWO_RANKS) | {"stochastic"}, \
+        "a rank of the 2-rank runs failed"
     sharded["two"] = two
     return tmp, unsharded, sharded
 
@@ -351,6 +383,23 @@ def test_branch_runs_over_two_ranks(runs, name):
     assert_same_run(u[name], s["two"][name])
     if name != "user-module":
         assert any(a + r > 0 for a, r in u[name]["changes"]), name
+
+
+def test_stochastic_density_over_two_ranks(runs):
+    """(h): the noise right after the call bit for bit as unsharded, then
+    the same run."""
+    _tmp, u, s = runs
+    u, s = u["stochastic"], s["two"]["stochastic"]
+    i_rhs = u["names"].index("rhs")
+    assert float(u["prepared"][i_rhs].max()) > 0.9e15
+    # the noise bit for bit (phi of the setup's field solve rounds by the
+    # BLAS threads of the dense level-1 inverse)
+    for name in ("e", "M_plus", "rhs"):
+        iv = u["names"].index(name)
+        np.testing.assert_array_equal(s["prepared"][iv], u["prepared"][iv])
+    dev = np.abs(s["prepared"] - u["prepared"]).max(axis=(1, 2))
+    assert np.all(dev <= 1e-12 * np.abs(u["prepared"]).max(axis=(1, 2))), dev
+    assert_same_run(u, s)
 
 
 def test_electrode_and_dielectric_boundaries_straddle_ranks(runs):

@@ -17,6 +17,8 @@ package's (tools/), on the CPU in float64, on committed inputs.
     table rows with values within rtol 1e-6.
 (f) profile_step for 2 steps on the CPU prints its JSON with every unit.
 (g) Both spellings of the device flag.
+(h) sensitivity_generate_commands: the command file of the JAX tool with
+    this package as the runner, and -device passed on when given.
 """
 
 import importlib.util
@@ -34,7 +36,7 @@ import golden_cases
 from afivo_streamer_tpu_torch.tools import (
     absorption_function, chaos_floor, chemistry_inspect,
     chemistry_reaction_parser, electrode_sensitivity, poisson_bench,
-    profile_step)
+    profile_step, sensitivity_generate_commands)
 from afivo_streamer_tpu_torch.tools._args import add_device
 
 torch.set_num_threads(1)
@@ -260,3 +262,25 @@ def test_device_flag_spellings(argv):
     add_device(ap)
     assert ap.parse_args(argv).device == "cpu"
     assert ap.parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_sensitivity_commands_match_jax(monkeypatch, capsys, tmp_path,
+                                        device):
+    """(h)."""
+    args = [str(DATA / "air_cyl_amr_slice.cfg"), "-ix_range", "2", "4",
+            "-rate_factors", "0.5", "2.0"]
+    monkeypatch.chdir(tmp_path)
+    ref = run_jax(jax_tool("sensitivity_generate_commands"), monkeypatch,
+                  capsys, args + ["-command_file", "j.txt"])
+    got = run_port(sensitivity_generate_commands, capsys,
+                   args + ["-command_file", "t.txt"]
+                   + ([f"-device={device}"] if device else []))
+    assert ref == "wrote 7 commands to j.txt\n"
+    assert got.replace("t.txt", "j.txt") == ref
+    want = (tmp_path / "j.txt").read_text().replace(
+        "python -m afivo_streamer_tpu ", "python -m afivo_streamer_tpu_torch ")
+    if device:
+        want = want.replace(" -ndim=2", f" -ndim=2 -device={device}")
+    assert (tmp_path / "t.txt").read_text() == want
+    assert want.count("afivo_streamer_tpu_torch ") == 7
