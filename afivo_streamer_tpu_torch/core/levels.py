@@ -30,6 +30,7 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from ..trace import Tracer
 from . import spatial as sp
 from .ghostcell import GcLevelPlan
 from .prolong_restrict import ProlongRestrictPlan
@@ -97,11 +98,15 @@ class MeshPlans:
     An object cached under a key depends on a set of levels (all levels by
     default); it is rebuilt when the fingerprint of one of them changed
     since it was built. ``epoch`` follows the tree's topology version;
-    ``build_seconds`` counts the host time spent building objects."""
+    ``build_seconds`` counts the host time spent building objects, each
+    outermost build also a span ``plans.build`` of ``tracer`` (the
+    simulation's, which the objects built on this MeshPlans time their
+    work with; a tracer of its own by default)."""
 
     def __init__(self, tree: Tree, device, full: "MeshPlans" = None,
-                 dtype=torch.float64):
+                 dtype=torch.float64, tracer: Optional[Tracer] = None):
         self.tree = tree
+        self.tracer = Tracer() if tracer is None else tracer
         self.device = torch.device(device)
         #: dtype of the state and of the plans' float tables
         self.dtype = dtype
@@ -142,16 +147,22 @@ class MeshPlans:
         fp = self.fingerprint(lvls)
         hit = self._cache.get(key)
         if hit is None or hit[0] != fp:
-            t0 = time.perf_counter()
-            self._depth += 1
-            try:
-                hit = (fp, lvls, make())
-            finally:
-                self._depth -= 1
-            self._cache[key] = hit
-            if self._depth == 0:  # nested builds are inside this one
+            if self._depth:  # nested builds are inside the outermost one
+                hit = self._build(fp, lvls, make)
+            else:
+                t0 = time.perf_counter()
+                with self.tracer.span("plans.build"):
+                    hit = self._build(fp, lvls, make)
                 self.build_seconds += time.perf_counter() - t0
+            self._cache[key] = hit
         return hit[2]
+
+    def _build(self, fp, lvls, make):
+        self._depth += 1
+        try:
+            return (fp, lvls, make())
+        finally:
+            self._depth -= 1
 
     @property
     def n_levels(self) -> int:

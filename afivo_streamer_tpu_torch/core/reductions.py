@@ -21,6 +21,7 @@ import numpy as np
 
 import torch
 
+from ..trace import to_list, to_numpy
 from .levels import MeshPlans
 from .rowops import cc_get_interior, fc_get_faces
 
@@ -43,20 +44,24 @@ def tree_sum_cc(cc, mesh: MeshPlans, iv: int, power: int = 1) -> float:
             vals = vals * tb.d.two_pi_r.to(vals.dtype)
         sums.append(vals.sum())
     total = 0.0
-    per_lvl = mesh.reduce(torch.stack(sums), "sum").cpu().tolist()
+    per_lvl = mesh.tracer.host_read(mesh.reduce(torch.stack(sums), "sum"),
+                                    "tree_sum_cc", to_list)
     for lvl, s in enumerate(per_lvl, start=1):
         total += float(np.prod(tree.lvl_dr(lvl))) * s
     return total
 
 
-def leaf_extremum(mesh: MeshPlans, values, largest: bool = True):
+def leaf_extremum(mesh: MeshPlans, values, largest: bool = True,
+                  site: str = "leaf_extremum"):
     """The largest (or smallest) of ``values(lvl, tb)`` -> [n, m] over the
     levels with leaves, and where it is: (value, level, row, flat index in
     the row), or None without leaves. Each level reduces on the device and
     one small tensor comes to the host. Ties go to the first level, then
     the first row and index, as a scan of the levels with np.argmax (or
     np.argmin) finds them. In a sharded run the row is the leaf's position
-    in the tree's leaf list of its level (``leaf_box``)."""
+    in the tree's leaf list of its level (``leaf_box``). The reads to the
+    host are the tracer's ``sync.extremum_index`` (one per level) and
+    ``sync.<site>``."""
     lvls, best, where = [], [], []
     for lvl in range(1, mesh.tree.highest_lvl + 1):
         tb = mesh.tb(lvl)
@@ -68,11 +73,14 @@ def leaf_extremum(mesh: MeshPlans, values, largest: bool = True):
         flat = vals.reshape(-1)
         k = flat.argmax() if largest else flat.argmin()
         lvls.append((lvl, vals.shape[1]))
-        best.append(flat[k].to(torch.float64))
+        # a 0-d tensor as an index is read by the host (sync.extremum_index)
+        best.append(flat[mesh.tracer.host_read(k, "extremum_index", int)]
+                    .to(torch.float64))
         where.append(k.to(torch.float64))
     found = []
     if lvls:
-        host = torch.stack(best + where).cpu().numpy()
+        host = mesh.tracer.host_read(torch.stack(best + where), site,
+                                     to_numpy)
         vals = host[:len(lvls)]
         j = int(np.argmax(vals) if largest else np.argmin(vals))
         lvl, m = lvls[j]
@@ -144,7 +152,7 @@ def tree_maxabs_cc(cc, mesh: MeshPlans, iv: int) -> float:
     """max |cc(iv)| over leaf interiors (af_tree_maxabs_cc loops leaves)."""
     tree = mesh.tree
     found = leaf_extremum(mesh, lambda lvl, tb: cc_get_interior(
-        cc, iv, tb.d.leaves, tree.nc, tree.ndim).abs())
+        cc, iv, tb.d.leaves, tree.nc, tree.ndim).abs(), site="tree_maxabs_cc")
     return 0.0 if found is None else found[0]
 
 

@@ -101,10 +101,16 @@ from .physics.streamer import (Registry, StreamerSettings,
 from .physics.transport_data import TransportData
 from .physics.user_methods import UserMethods, load_user_module
 from .solvers.surface import Surfaces
+from .trace import Tracer, to_numpy
 from .utils.config import CFG
 from .utils.table_data import TableDataSettings
 
 MAX_ATTEMPTS_PER_TIME_STEP = 10  # streamer.f90:27
+#: the parts of the JAX package's cost breakdown (its driver.py:287-288),
+#: each the self time of the tracer's span of that name under a step
+#: (``Simulation.wc``); "advance" is the JAX compiled engine's and stays 0
+WC_KEYS = ("flux", "source", "advance", "copy", "field", "output", "refine",
+           "photoi")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -251,13 +257,16 @@ class Simulation:
             self.fc_flux.append(reg.add_fc(f"flux_{nm}"))
         self.fc_E = reg.add_fc("electric_fld")
 
-        # ---- tree (refined at setup) and its cached plans
+        # ---- tree (refined at setup) and its cached plans; the spans and
+        # counters of the run (trace.py), which every object built on the
+        # plans reaches as mesh.tracer
+        self.tracer = Tracer(groups=WC_KEYS)
         self.tree = Tree(ndim, self.st.box_size, self.st.domain_len,
                          self.st.coarse_grid_size, periodic=self.st.periodic,
                          coord=self.st.coord, r_min=self.st.domain_origin)
         self.layout = None
         if self.shards is None:
-            self.mesh = MeshPlans(self.tree, self.device)
+            self.mesh = MeshPlans(self.tree, self.device, tracer=self.tracer)
         else:
             # the rank's rows: its own boxes and their halo
             self._cap = pad_capacity_to(capacity(self.tree.highest_id),
@@ -266,7 +275,9 @@ class Simulation:
             self.local_tree = halo.LocalTree(self.tree)
             self.local_tree.refresh(self.layout)
             self.mesh = MeshPlans(self.local_tree, self.device,
-                                  full=MeshPlans(self.tree, self.device))
+                                  full=MeshPlans(self.tree, self.device,
+                                                 tracer=self.tracer),
+                                  tracer=self.tracer)
 
         # ---- species BCs and methods
         if self.st.species_boundary_condition == "neumann_zero":
@@ -358,14 +369,6 @@ class Simulation:
                                 prolong_limiter=pr.default_prolong_limiter(
                                     ndim))
         self.fluid.field_compute = self.field.compute
-        # host seconds by part of the step (the JAX package's cost
-        # breakdown, driver.py:287-288, printed by the command line):
-        # flux and source of every substep, the field solves, the state
-        # copies, the outputs, the epochs and the photoionization updates;
-        # "advance" is the JAX compiled engine's and stays 0 here
-        self.wc = {k: 0.0 for k in ("flux", "source", "advance", "copy",
-                                    "field", "output", "refine", "photoi")}
-        self.fluid.wc = self.wc
         if (self.st.use_electrode or self.st.use_dielectric
                 or self.st.plasma_region_enabled):
             self.fluid.mask_provider = self._level_mask
@@ -415,6 +418,18 @@ class Simulation:
             read_checkpoint(restart_from, self)
         else:
             self.setup_initial_conditions()
+
+    @property
+    def wc(self) -> dict:
+        """Host seconds by part of the steps so far (the JAX package's cost
+        breakdown, which the command line prints), ``WC_KEYS`` in order:
+        the self time of the tracer's spans under each step, by the
+        innermost span named after a part (the flux and source of every
+        substep, the field solves, the state copies, the outputs, the
+        refinement, the photoionization updates), so that the solve and
+        the update after a mesh change count under field and photoi and
+        nothing counts twice."""
+        return {k: self.tracer.group_seconds(k) for k in WC_KEYS}
 
     # ------------------------------------------------------------ helpers
     def _enter_state_dtype(self):
@@ -830,42 +845,64 @@ class Simulation:
         """af_adjust_refinement and the data movement for new and removed
         boxes: the surfaces follow the mesh, the state grows, and every
         variable with methods is prolonged into the new boxes and
-        ghost-filled, level by level."""
-        self.refiner.time = self.global_time
-        links = (self.surfaces.refinement_links()
-                 if self.surfaces is not None else None)
-        if self.user.refine is not None:
-            # the user's criterion replaces the default one, called with
-            # the documented signature refine(sim, cc, ids)
+        ghost-filled, level by level. The span ``epoch`` holds
+        ``epoch.flags`` (each call of the criterion, its read to the host
+        included), ``epoch.consistency`` and ``epoch.apply`` (the two phases
+        of ``Tree.adjust_refinement``), ``epoch.capacity``,
+        ``epoch.prolong`` and ``epoch.eps_halo``."""
+        tr = self.tracer
+        with tr.span("epoch"):
+            self.refiner.time = self.global_time
+            links = (self.surfaces.refinement_links()
+                     if self.surfaces is not None else None)
+            if self.user.refine is not None:
+                # the user's criterion replaces the default one, called
+                # with the documented signature refine(sim, cc, ids)
+                def criterion(ids):
+                    return self._user_flags(ids)
+            else:
+                def criterion(ids):
+                    return self.refiner.cell_flags(self.cc, ids)
+
             def flags_fn(ids):
-                return self._user_flags(ids)
-        else:
-            def flags_fn(ids):
-                return self.refiner.cell_flags(self.cc, ids)
-        info = self.tree.adjust_refinement(
-            flags_fn, ref_buffer=self.refine_cfg.buffer_width, ref_links=links)
-        if info.n_add == 0 and info.n_rm == 0:
+                with tr.span("epoch.flags"):
+                    return criterion(ids)
+            # Tree.adjust_refinement's two phases, each in its span
+            with tr.span("epoch.consistency"):
+                flags = self.tree._consistent_ref_flags(
+                    flags_fn, self.refine_cfg.buffer_width, links)
+            with tr.span("epoch.apply"):
+                info = self.tree._apply_flags(flags)
+            tr.count("epochs")
+            if info.n_add == 0 and info.n_rm == 0:
+                return info
+            tr.count("mesh_changes")
+            gathered = (self.surfaces.gather_state(self.cc)
+                        if self.surfaces is not None else None)
+            with tr.span("epoch.capacity"):
+                self._sync_capacity()
+            if self.surfaces is not None:
+                self.cc = self.surfaces.update_after_refinement(
+                    self.cc, info, gathered)
+            params = {"voltage": self.field.current_voltage}
+            methods = self.registry.methods
+            with tr.span("epoch.prolong"):
+                for lvl in sorted(info.added_per_lvl):
+                    self._fill_lsf(info.added_per_lvl[lvl])
+                    self._fill_user_gas_density(info.added_per_lvl[lvl])
+                    plan = self.mesh.prolong_plan(lvl,
+                                                  info.added_per_lvl[lvl])
+                    for iv in self.registry.auto_vars:
+                        pr.prolong(self.cc, plan, [iv],
+                                   methods[iv]["prolong"])
+                    gplan = self.mesh.gc(lvl)
+                    for iv in self.registry.auto_vars:
+                        gc.fill_ghosts_lvl(self.cc, gplan, [iv],
+                                           methods[iv]["rb"],
+                                           methods[iv]["bc"], params)
+            with tr.span("epoch.eps_halo"):
+                self._refresh_eps_halo()
             return info
-        gathered = (self.surfaces.gather_state(self.cc)
-                    if self.surfaces is not None else None)
-        self._sync_capacity()
-        if self.surfaces is not None:
-            self.cc = self.surfaces.update_after_refinement(self.cc, info,
-                                                            gathered)
-        params = {"voltage": self.field.current_voltage}
-        methods = self.registry.methods
-        for lvl in sorted(info.added_per_lvl):
-            self._fill_lsf(info.added_per_lvl[lvl])
-            self._fill_user_gas_density(info.added_per_lvl[lvl])
-            plan = self.mesh.prolong_plan(lvl, info.added_per_lvl[lvl])
-            for iv in self.registry.auto_vars:
-                pr.prolong(self.cc, plan, [iv], methods[iv]["prolong"])
-            gplan = self.mesh.gc(lvl)
-            for iv in self.registry.auto_vars:
-                gc.fill_ghosts_lvl(self.cc, gplan, [iv], methods[iv]["rb"],
-                                   methods[iv]["bc"], params)
-        self._refresh_eps_halo()
-        return info
 
     def _set_power_density(self):
         """J.E deposited per cell on the leaves (set_power_density_box,
@@ -969,15 +1006,24 @@ class Simulation:
     # -------------------------------------------------------- main loop
     def _substep(self, cc, fc, dt, dt_lim, time, s_deriv, s_prev, w_prev,
                  s_out, i_step, n_steps, params):
+        """One forward-Euler substep of the fluid, the tracer's span
+        ``substep`` (the field solve of a later substep nested in it)."""
         self.cc, self.fc = cc, fc
-        return self.fluid.forward_euler(cc, fc, dt, dt_lim, time, s_deriv,
-                                        s_prev, w_prev, s_out, i_step,
-                                        n_steps, params)
+        with self.tracer.span("substep"):
+            return self.fluid.forward_euler(cc, fc, dt, dt_lim, time,
+                                            s_deriv, s_prev, w_prev, s_out,
+                                            i_step, n_steps, params)
 
     def run(self, end_time: Optional[float] = None,
             max_steps: Optional[int] = None):
-        """The main time loop (streamer.f90:177-415)."""
+        """The main time loop (streamer.f90:177-415). Each step is the
+        tracer's span ``step`` (after the per-iteration user hook), holding
+        ``photoi``, ``copy``, the substeps (``substep``, physics/fluid.py),
+        ``field``, ``output`` and ``refine`` (``restrict``, then ``epoch``,
+        then the field solve and the photoionization update after a mesh
+        change); the blocking reads of the step are ``host_read``s."""
         self._enter_state_dtype()
+        tr = self.tracer
         st = self.st
         end_time = end_time if end_time is not None else st.end_time
         n_states = self.dt_cfg.num_steps
@@ -985,7 +1031,7 @@ class Simulation:
         time = self.global_time
         out_cnt = self.out_cnt
         time_last_output = time
-        t_start = _time.time()
+        t_start = _time.perf_counter()
         time_last_print = -1e10
         field_energy_prev = self.field.compute_energy(self.cc)
         field_energy_prev_time = time
@@ -994,11 +1040,12 @@ class Simulation:
 
         while True:
             self.it += 1
+            tr.step = self.it
             if time >= end_time:
                 break
             if max_steps is not None and self.it > max_steps:
                 break
-            wc_time = _time.time() - t_start
+            wc_time = _time.perf_counter() - t_start
             if wc_time - time_last_print > self.output.status_delay:
                 if self.is_root:
                     self.output.status(self, wc_time)
@@ -1009,152 +1056,165 @@ class Simulation:
                 with self._hook_view():
                     self.user.generic(self, time)
 
-            # pulse-train bookkeeping (streamer.f90:216-234)
-            time_until_next_pulse = (self.field.field_pulse_period
-                                     - np.mod(time,
-                                              self.field.field_pulse_period))
-            self.field.set_voltage(time)
-            if (abs(self.field.current_voltage) > 0.0
-                    or time_until_next_pulse < self.refine_prepulse_time):
-                current_output_dt = self.output.dt
-                self.refiner.current_electrode_dx = \
-                    self.refine_cfg.electrode_dx
-            else:
-                current_output_dt = (self.output.dt
-                                     * self.output.dt_factor_pulse_off)
-                self.refiner.current_electrode_dx = (
-                    self.electrode_derefine_factor
-                    * self.refine_cfg.electrode_dx)
+            with tr.span("step"):
+                # pulse-train bookkeeping (streamer.f90:216-234)
+                time_until_next_pulse = (
+                    self.field.field_pulse_period
+                    - np.mod(time, self.field.field_pulse_period))
+                self.field.set_voltage(time)
+                if (abs(self.field.current_voltage) > 0.0
+                        or time_until_next_pulse < self.refine_prepulse_time):
+                    current_output_dt = self.output.dt
+                    self.refiner.current_electrode_dx = \
+                        self.refine_cfg.electrode_dx
+                else:
+                    current_output_dt = (self.output.dt
+                                         * self.output.dt_factor_pulse_off)
+                    self.refiner.current_electrode_dx = (
+                        self.electrode_derefine_factor
+                        * self.refine_cfg.electrode_dx)
 
-            write_out = (time + dt >= time_last_output + current_output_dt)
-            if write_out:
-                dt = max(0.0, time_last_output + current_output_dt - time)
+                write_out = (time + dt >= time_last_output + current_output_dt)
+                if write_out:
+                    dt = max(0.0, time_last_output + current_output_dt - time)
 
-            # make sure to capture the start of the next pulse
-            start_of_new_pulse = dt >= time_until_next_pulse
-            if start_of_new_pulse:
-                dt = max(time_until_next_pulse, self.dt_cfg.dt_min)
+                # make sure to capture the start of the next pulse
+                start_of_new_pulse = dt >= time_until_next_pulse
+                if start_of_new_pulse:
+                    dt = max(time_until_next_pulse, self.dt_cfg.dt_min)
 
-            # photoionization update (streamer.f90:236-242)
-            if self.photoi.enabled and self.it % self.photoi.per_steps == 0:
-                t1 = _time.time()
-                self._photoi_set_src(time)
-                self.wc["photoi"] += _time.time() - t1
+                # photoionization update (streamer.f90:236-242)
+                if (self.photoi.enabled
+                        and self.it % self.photoi.per_steps == 0):
+                    self._photoi_set_src(time)
 
-            if self.st.use_electrode:
-                self._set_electrode_densities()
+                if self.st.use_electrode:
+                    self._set_electrode_densities()
 
-            # attempt loop with state copy/rejection (streamer.f90:251-288)
-            params = {"voltage": self.field.current_voltage}
-            dt_lim = uc.huge_real
-            step_accepted = False
-            for attempt in range(MAX_ATTEMPTS_PER_TIME_STEP):
-                t1 = _time.time()
-                self._copy_state(n_states)
-                self.wc["copy"] += _time.time() - t1
-                cc, fc, dt_lim_step, time_new, diag = adv.advance(
-                    self.cc, self.fc, dt, time, self.dt_cfg.integrator,
-                    self._substep, params)
-                self.cc, self.fc = cc, fc
-                dt_lim_step = float(dt_lim_step)
-                dt_lim = min(dt_lim, dt_lim_step)
-                if dt <= dt_lim_step:
-                    step_accepted = True
-                    time = time_new
-                    break
-                n_steps_rejected += 1
-                if self.is_root:
-                    print(f"{self.it} Step rejected (#{n_steps_rejected}) "
-                          f"(dt, dt_lim) = {dt:.4E} {dt_lim:.4E}")
-                dt = self.dt_cfg.safety_factor * dt_lim_step
-                time = self.global_time
-                write_out = False
-                self._restore_state(n_states, params)
-            fraction_steps_rejected = 0.99 * fraction_steps_rejected
-            if attempt > 0:
-                fraction_steps_rejected += 0.01
-            if not step_accepted:
-                raise RuntimeError("All time steps were rejected")
+                # attempt loop with state copy/rejection
+                # (streamer.f90:251-288)
+                params = {"voltage": self.field.current_voltage}
+                dt_lim = uc.huge_real
+                step_accepted = False
+                for attempt in range(MAX_ATTEMPTS_PER_TIME_STEP):
+                    with tr.span("copy"):
+                        self._copy_state(n_states)
+                    cc, fc, dt_lim_step, time_new, diag = adv.advance(
+                        self.cc, self.fc, dt, time, self.dt_cfg.integrator,
+                        self._substep, params)
+                    self.cc, self.fc = cc, fc
+                    dt_lim_step = tr.host_read(dt_lim_step, "dt_lim_step")
+                    dt_lim = min(dt_lim, dt_lim_step)
+                    if dt <= dt_lim_step:
+                        step_accepted = True
+                        time = time_new
+                        break
+                    n_steps_rejected += 1
+                    tr.count("steps_rejected")
+                    if self.is_root:
+                        print(f"{self.it} Step rejected "
+                              f"(#{n_steps_rejected}) "
+                              f"(dt, dt_lim) = {dt:.4E} {dt_lim:.4E}")
+                    dt = self.dt_cfg.safety_factor * dt_lim_step
+                    time = self.global_time
+                    write_out = False
+                    self._restore_state(n_states, params)
+                fraction_steps_rejected = 0.99 * fraction_steps_rejected
+                if attempt > 0:
+                    fraction_steps_rejected += 0.01
+                if not step_accepted:
+                    raise RuntimeError("All time steps were rejected")
+                tr.sample("dt", dt)
 
-            # global rate accounting
-            if self.chem.n_reactions:
-                self.global_rates = (self.global_rates
-                                     + diag["rates"].to(torch.float64)
-                                     .cpu().numpy() * dt)
-            jdote = float(diag["JdotE"])
-            self.global_JdotE += jdote * dt
+                # global rate accounting
+                if self.chem.n_reactions:
+                    self.global_rates = (self.global_rates + tr.host_read(
+                        diag["rates"].to(torch.float64), "rates", to_numpy)
+                        * dt)
+                jdote = tr.host_read(diag["JdotE"], "JdotE")
+                self.global_JdotE += jdote * dt
 
-            # electric current (Sato) every N steps (streamer.f90:296-317)
-            if self.it % st.current_update_per_steps == 0:
-                fe = self.field.compute_energy(self.cc)
-                d_fe = ((fe - field_energy_prev)
-                        / max(time - field_energy_prev_time, 1e-300))
-                field_energy_prev, field_energy_prev_time = fe, time
-                if abs(self.field.current_voltage) > 0:
-                    self.global_JdotE_current = (
-                        jdote / self.field.current_voltage)
-                    self.global_displ_current = (
-                        d_fe / self.field.current_voltage)
+                # electric current (Sato) every N steps
+                # (streamer.f90:296-317)
+                if self.it % st.current_update_per_steps == 0:
+                    fe = self.field.compute_energy(self.cc)
+                    d_fe = ((fe - field_energy_prev)
+                            / max(time - field_energy_prev_time, 1e-300))
+                    field_energy_prev, field_energy_prev_time = fe, time
+                    if abs(self.field.current_voltage) > 0:
+                        self.global_JdotE_current = (
+                            jdote / self.field.current_voltage)
+                        self.global_displ_current = (
+                            d_fe / self.field.current_voltage)
 
-            # field for the latest state
-            t1 = _time.time()
-            self.cc, self.fc = self.field.compute(self.cc, self.fc, 0, time,
-                                                  True)
-            self.wc["field"] += _time.time() - t1
+                # field for the latest state
+                self.cc, self.fc = self.field.compute(self.cc, self.fc, 0,
+                                                      time, True)
 
-            # gas dynamics advance (streamer.f90:325-336)
-            if self.gasdyn is not None:
-                self._gas_step(dt, params)
-
-            # new time step (streamer.f90:338-343)
-            tmp = self.dt_cfg.max_growth_factor
-            if fraction_steps_rejected > 0.1:
-                tmp = 1.0
-            dt = min(tmp * self.global_dt,
-                     self.dt_cfg.safety_factor * min(dt_lim, self.dt_gas_lim))
-            if start_of_new_pulse:
-                # start a new pulse with a small time step
-                dt = self.dt_cfg.dt_min
-                if self.user.new_pulse_conditions is not None:
-                    with self._hook_view():
-                        self.user.new_pulse_conditions(self)
-            self.global_dt = dt
-            self.global_time = time
-            # float64 on the host (JAX driver.py:1957)
-            self.dt_limits = diag["dt_limits"].to(torch.float64).cpu().numpy()
-
-            if self.global_dt < self.dt_cfg.dt_min:
-                if self.is_root:
-                    self.output.status(self, _time.time() - t_start)
-                raise RuntimeError(f"dt too small: {self.global_dt}")
-
-            t1 = _time.time()
-            if write_out:
-                out_cnt += 1
-                self.out_cnt = out_cnt
-                time_last_output = self.global_time
-                self.output_write(out_cnt, _time.time() - t_start)
-            self.wc["output"] += _time.time() - t1
-
-            # refinement every refine_per_steps (streamer.f90:380-411)
-            t1 = _time.time()
-            if self.it % self.refine_cfg.per_steps == 0:
-                self.restrict_and_gc_densities()
+                # gas dynamics advance (streamer.f90:325-336)
                 if self.gasdyn is not None:
-                    self.cc = pr.restrict_tree(self.cc, self.mesh.pr_all(),
-                                               self.gasdyn.gas_vars)
-                    self.cc = self._gc_simple(self.cc, self.gasdyn.gas_vars)
-                info = self.adjust_refinement()
-                if info.n_add > 0 or info.n_rm > 0:
-                    self.cc, self.fc = self.field.compute(
-                        self.cc, self.fc, 0, time, True)
-                    if self.photoi.enabled:
-                        self._photoi_set_src(time)
-            self.wc["refine"] += _time.time() - t1
+                    self._gas_step(dt, params)
+
+                # new time step (streamer.f90:338-343)
+                tmp = self.dt_cfg.max_growth_factor
+                if fraction_steps_rejected > 0.1:
+                    tmp = 1.0
+                dt = min(tmp * self.global_dt,
+                         self.dt_cfg.safety_factor
+                         * min(dt_lim, self.dt_gas_lim))
+                if start_of_new_pulse:
+                    # start a new pulse with a small time step
+                    dt = self.dt_cfg.dt_min
+                    if self.user.new_pulse_conditions is not None:
+                        with self._hook_view():
+                            self.user.new_pulse_conditions(self)
+                self.global_dt = dt
+                self.global_time = time
+                # float64 on the host (JAX driver.py:1957)
+                self.dt_limits = tr.host_read(
+                    diag["dt_limits"].to(torch.float64), "dt_limits",
+                    to_numpy)
+
+                if self.global_dt < self.dt_cfg.dt_min:
+                    if self.is_root:
+                        self.output.status(self, _time.perf_counter()
+                                           - t_start)
+                    raise RuntimeError(f"dt too small: {self.global_dt}")
+
+                if write_out:
+                    with tr.span("output"):
+                        out_cnt += 1
+                        self.out_cnt = out_cnt
+                        time_last_output = self.global_time
+                        self.output_write(out_cnt,
+                                          _time.perf_counter() - t_start)
+
+                # refinement every refine_per_steps (streamer.f90:380-411)
+                if self.it % self.refine_cfg.per_steps == 0:
+                    with tr.span("refine"):
+                        self._refine_step(time)
 
         if self.is_root:
-            self.output.status(self, _time.time() - t_start)
+            self.output.status(self, _time.perf_counter() - t_start)
         return out_cnt
+
+    def _refine_step(self, time: float):
+        """A refinement epoch of the main loop: the densities (and the
+        gas) restricted and ghost-filled (span ``restrict``), the epoch,
+        and after a change of the mesh the field and the photoionization
+        source anew."""
+        with self.tracer.span("restrict"):
+            self.restrict_and_gc_densities()
+            if self.gasdyn is not None:
+                self.cc = pr.restrict_tree(self.cc, self.mesh.pr_all(),
+                                           self.gasdyn.gas_vars)
+                self.cc = self._gc_simple(self.cc, self.gasdyn.gas_vars)
+        info = self.adjust_refinement()
+        if info.n_add > 0 or info.n_rm > 0:
+            self.cc, self.fc = self.field.compute(self.cc, self.fc, 0, time,
+                                                  True)
+            if self.photoi.enabled:
+                self._photoi_set_src(time)
 
     def _time_state_vars(self) -> List[int]:
         """Variables with time-state copies: the densities and, with

@@ -37,6 +37,7 @@ from ..core.rowops import (cc_get_interior, fc_get_faces, fc_set_faces,
 from ..solvers import mg_blocks as mgb
 from ..solvers.lsf import LsfData
 from ..solvers.multigrid import Multigrid
+from ..trace import to_list
 from ..utils import geometry
 from ..utils.lookup_table import lin_interp_list
 from ..utils.table_data import table_from_file
@@ -345,50 +346,65 @@ class FieldSolver:
     # ------------------------------------------------------------ solve
     def compute(self, cc, fc, s_in: int, time: float, have_guess: bool,
                 params: Optional[dict] = None):
-        """field_compute (``m_field.f90:405-485``)."""
-        t = self.tree
-        mg = self.mg
-        cc = self.set_rhs(cc, s_in)
-        self.set_voltage(time)
-        params = self.solve_params(params)
-        max_rhs = tree_maxabs_cc(cc, self.mesh, self.i_rhs)
-        min_dr = float(t.lvl_dr(t.highest_lvl).min())
-        residual_threshold = max(
-            1e-6,
-            max_rhs * self.st.multigrid_max_rel_residual,
-            (1e-8 if self.st.use_electrode else 1e-10)
-            * abs(self.current_voltage)
-            / (self.st.domain_len[t.ndim - 1] * min_dr))
+        """field_compute (``m_field.f90:405-485``): the tracer's span
+        ``field``, holding ``field.rhs``, ``field.fmg`` (each cycle of a
+        solve without a guess), ``field.vcycle`` (each V-cycle with the
+        read of its residual, ``sync.field_residual``) and
+        ``field.gradient`` (from_potential); the V-cycles of each solve
+        are the series ``vcycles``."""
+        tr = self.mesh.tracer
+        with tr.span("field"):
+            t = self.tree
+            mg = self.mg
+            with tr.span("field.rhs"):
+                cc = self.set_rhs(cc, s_in)
+                self.set_voltage(time)
+                params = self.solve_params(params)
+                max_rhs = tree_maxabs_cc(cc, self.mesh, self.i_rhs)
+                min_dr = float(t.lvl_dr(t.highest_lvl).min())
+                residual_threshold = max(
+                    1e-6,
+                    max_rhs * self.st.multigrid_max_rel_residual,
+                    (1e-8 if self.st.use_electrode else 1e-10)
+                    * abs(self.current_voltage)
+                    / (self.st.domain_len[t.ndim - 1] * min_dr))
+                P, R = mgb.gather_levels(mg, cc)
 
-        P, R = mgb.gather_levels(mg, cc)
-        if not have_guess:
-            residuals = []
-            for _ in range(100):
-                # the reference always passes have_guess=.true. here
-                # (field_compute, m_field.f90:448-450)
-                P, R = mgb.fas_fmg_blocks(mg, P, R, params)
-                res = float(mgb.max_leaf_residual_blocks(mg, P, R, params))
-                residuals.append(res)
+            if not have_guess:
+                residuals = []
+                for _ in range(100):
+                    # the reference always passes have_guess=.true. here
+                    # (field_compute, m_field.f90:448-450)
+                    with tr.span("field.fmg"):
+                        P, R = mgb.fas_fmg_blocks(mg, P, R, params)
+                        res = tr.host_read(mgb.max_leaf_residual_blocks(
+                            mg, P, R, params), "field_residual")
+                    residuals.append(res)
+                    if res < residual_threshold:
+                        break
+                    if len(residuals) >= 3:
+                        lo = min(residuals[-3:])
+                        hi = max(residuals[-3:])
+                        ratio = lo / hi if hi > 0 else 0.0
+                        if 0.5 < ratio < 2.0 and res < 1e8:
+                            break
+                else:
+                    raise RuntimeError(
+                        f"No convergence in initial field computation: "
+                        f"{residuals}")
+
+            n = 0
+            for n in range(1, self.st.multigrid_num_vcycles + 1):
+                with tr.span("field.vcycle"):
+                    P, R = mgb.fas_vcycle_blocks(mg, P, R, params)
+                    res = tr.host_read(mgb.max_leaf_residual_blocks(
+                        mg, P, R, params), "field_residual")
                 if res < residual_threshold:
                     break
-                if len(residuals) >= 3:
-                    lo = min(residuals[-3:])
-                    hi = max(residuals[-3:])
-                    ratio = lo / hi if hi > 0 else 0.0
-                    if 0.5 < ratio < 2.0 and res < 1e8:
-                        break
-            else:
-                raise RuntimeError(
-                    f"No convergence in initial field computation: "
-                    f"{residuals}")
-
-        for _ in range(self.st.multigrid_num_vcycles):
-            P, R = mgb.fas_vcycle_blocks(mg, P, R, params)
-            res = float(mgb.max_leaf_residual_blocks(mg, P, R, params))
-            if res < residual_threshold:
-                break
-        cc = mgb.scatter_levels(mg, cc, P, R)
-        return self.from_potential(cc, fc, params)
+            tr.sample("vcycles", n)
+            with tr.span("field.gradient"):
+                cc = mgb.scatter_levels(mg, cc, P, R)
+                return self.from_potential(cc, fc, params)
 
     def from_potential(self, cc, fc, params):
         """E = -grad phi; cell norm; ghost fill of the norm
@@ -492,6 +508,8 @@ class FieldSolver:
             sums.append(torch.sum(Ecc ** 2 * tb.d.vol.to(cc.dtype)))
         total = 0.0
         # the ranks' partial sums of each level in a sharded run
-        for s in self.mesh.reduce(torch.stack(sums), "sum").tolist():
+        for s in self.mesh.tracer.host_read(
+                self.mesh.reduce(torch.stack(sums), "sum"),
+                "compute_energy", to_list):
             total = total + s
         return 0.5 * uc.eps0 * total

@@ -32,7 +32,6 @@ first species, at their fractions of ``M``.
 from __future__ import annotations
 
 import itertools
-import time as _time
 from dataclasses import dataclass
 from typing import Callable, Dict, List
 
@@ -430,7 +429,6 @@ class FluidModel:
         self.prolong_limiter = prolong_limiter
         self.limiter = limiter
         self.field_compute = None  # wired by the simulation (m_field)
-        self.wc = None  # the host seconds by part (the simulation's wc)
         #: callable(lvl) -> bool mask [n_leaves, nc^ndim] of the cells the
         #: update may change (set_box_mask), or None
         self.mask_provider = None
@@ -805,23 +803,21 @@ class FluidModel:
     def forward_euler(self, cc, fc, dt: float, dt_lim_state, time: float,
                       s_deriv: int, s_prev: List[int], w_prev: List[float],
                       s_out: int, i_step: int, n_steps: int, params):
-        """One explicit sub-step (forward_euler, ``m_fluid.f90:21-99``).
+        """One explicit sub-step (forward_euler, ``m_fluid.f90:21-99``),
+        its flux and its sources timed as the tracer's spans ``flux`` and
+        ``source`` (wc_time_flux / wc_time_source, ``m_fluid.f90:57-75``).
 
         Returns (cc, fc, dt_lim, diag) with dt_lim a 0-d tensor."""
+        tr = self.mesh.tracer
         if i_step > 1 and self.field_compute is not None:
-            t0 = _time.time()
             cc, fc = self.field_compute(cc, fc, s_deriv, time, True, params)
-            if self.wc is not None:
-                self.wc["field"] += _time.time() - t0
-        t0 = _time.time()
-        cc, fc, dt_cfl, dt_drt = self.compute_fluxes(cc, fc, s_deriv, params)
-        t1 = _time.time()
-        cc, dt_chem, diag = self.update_densities(
-            cc, fc, dt, s_deriv, s_prev, w_prev, s_out, i_step == n_steps)
-        if self.wc is not None:
-            # wc_time_flux / wc_time_source (m_fluid.f90:57-75)
-            self.wc["flux"] += t1 - t0
-            self.wc["source"] += _time.time() - t1
+        with tr.span("flux"):
+            cc, fc, dt_cfl, dt_drt = self.compute_fluxes(cc, fc, s_deriv,
+                                                         params)
+        with tr.span("source"):
+            cc, dt_chem, diag = self.update_densities(
+                cc, fc, dt, s_deriv, s_prev, w_prev, s_out,
+                i_step == n_steps)
         if self.dielectric is not None:
             # surface charge from the fluxes, secondary and photon emission
             # (forward_euler, m_fluid.f90:77-94)

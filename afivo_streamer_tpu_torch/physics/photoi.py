@@ -190,9 +190,13 @@ class Photoionization:
     def set_src(self, cc, dt: Optional[float] = None, params=None):
         """photoi_set_src (``m_photoi.f90:140-187``): the source on the
         leaf interiors of rhs, then the Helmholtz solves or the
-        Monte-Carlo photons into photo."""
+        Monte-Carlo photons into photo; the tracer's span ``photoi``."""
         if not self.enabled:
             return cc
+        with self.mesh.tracer.span("photoi"):
+            return self._set_src(cc, dt, params)
+
+    def _set_src(self, cc, dt, params):
         t = self.tree
         nc, ndim = t.nc, t.ndim
         quench_fac = (self.quenching_pressure
@@ -235,7 +239,12 @@ class Photoionization:
         zeroed on every box, each mode is solved from its last solution by
         FMG cycles until the leaf residual is below max_rel_residual times
         max|rhs| (at most 10), and photo -= c_n phi_n on the whole leaf
-        rows, ghost cells included."""
+        rows, ghost cells included. Each mode is the tracer's span
+        ``photoi.mode``, each of its cycles a span ``photoi.fmg_cycle``
+        with the read of its residual (``sync.photoi_residual``); the
+        cycles of each mode are the series ``fmg_cycles``, a list per
+        update."""
+        tr = self.mesh.tracer
         t = self.tree
         cc[self.i_photo, self.mesh.all_ids()] = 0.0
         # the floor is the state's (JAX photoi.py:280-283)
@@ -247,15 +256,19 @@ class Photoionization:
             dtype=torch.int64, device=self.mesh.device))
         self.fmg_cycles = []
         for n, mg in enumerate(self.mgs):
-            P, R = mgb.gather_levels(mg, cc)
-            for k in range(1, MAX_FMG_CYCLES + 1):
-                P, R = mgb.fas_fmg_blocks(mg, P, R, params)
-                residu = float(mgb.max_leaf_residual_blocks(mg, P, R))
-                if residu / max_rhs < self.max_rel_residual:
-                    break
-            self.fmg_cycles.append(k)
-            cc = mgb.scatter_levels(mg, cc, P, R)
-            cc[self.i_photo, leaves] = (
-                cc[self.i_photo, leaves]
-                - float(self.coeffs[n]) * cc[self.i_modes[n], leaves])
+            with tr.span("photoi.mode"):
+                P, R = mgb.gather_levels(mg, cc)
+                for k in range(1, MAX_FMG_CYCLES + 1):
+                    with tr.span("photoi.fmg_cycle"):
+                        P, R = mgb.fas_fmg_blocks(mg, P, R, params)
+                        residu = tr.host_read(mgb.max_leaf_residual_blocks(
+                            mg, P, R), "photoi_residual")
+                    if residu / max_rhs < self.max_rel_residual:
+                        break
+                self.fmg_cycles.append(k)
+                cc = mgb.scatter_levels(mg, cc, P, R)
+                cc[self.i_photo, leaves] = (
+                    cc[self.i_photo, leaves]
+                    - float(self.coeffs[n]) * cc[self.i_modes[n], leaves])
+        tr.sample("fmg_cycles", list(self.fmg_cycles))
         return cc

@@ -18,6 +18,7 @@ import torch
 
 from .. import constants as uc
 from ..core.tree import DO_REF, KEEP_REF, RM_REF
+from ..trace import to_numpy
 from ..utils import geometry
 from .transport_data import TD_ALPHA, TD_ETA
 
@@ -144,7 +145,9 @@ class RefineCriterion:
         adx = alpha * mdx
         ref = (adx > rs.adx) & (elec > rs.min_dens)
         rm = (adx < 0.125 * rs.adx) & (mdx < rs.derefine_dx) & ~ref
-        return (ref.to(torch.int8) + 2 * rm.to(torch.int8)).cpu().numpy()
+        return self.mesh.tracer.host_read(
+            ref.to(torch.int8) + 2 * rm.to(torch.int8), "refine_flags",
+            to_numpy)
 
     def cell_flags(self, cc, ids) -> np.ndarray:
         """default_refinement for the given boxes; returns flags

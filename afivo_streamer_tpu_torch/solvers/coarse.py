@@ -24,7 +24,7 @@ electrode are part of the system.
 from __future__ import annotations
 
 import itertools
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -34,18 +34,21 @@ from ..core.rowops import as_value
 from ..core.tree import Tree, neighb_dim, neighb_low
 from ..core.ghostcell import (BC_DIRICHLET, BC_NEUMANN, BC_CONTINUOUS,
                               BC_DIRICHLET_COPY, bc_to_ghost)
+from ..trace import Tracer
 
 _MAX_DENSE = 32768  # beyond this a dense inverse is unreasonable
 
 
 def make_coarse_solver(tree: Tree, sides_bc: Callable, lam: float, device,
-                       level1_op=None, dtype=torch.float64):
+                       level1_op=None, dtype=torch.float64,
+                       tracer: Optional[Tracer] = None):
     """The level-1 solver (JAX ``make_coarse_solver``): the dense inverse up
     to 32,768 unknowns or with a per-cell operator, else the uniform-grid
-    multigrid. Its device tables are built in float64 and cast to
-    ``dtype``, the state's (JAX coarse.py:231, 494)."""
+    multigrid, whose reads to the host go through ``tracer``. Its device
+    tables are built in float64 and cast to ``dtype``, the state's (JAX
+    coarse.py:231, 494)."""
     if int(np.prod(tree.coarse_grid_size)) > _MAX_DENSE and level1_op is None:
-        return UniformCoarseMG(tree, sides_bc, lam, device, dtype)
+        return UniformCoarseMG(tree, sides_bc, lam, device, dtype, tracer)
     return CoarseSolver(tree, sides_bc, lam, device, level1_op, dtype)
 
 
@@ -244,10 +247,11 @@ class UniformCoarseMG:
     MIN_DENSE = 2048
 
     def __init__(self, tree: Tree, sides_bc: Callable, lam: float, device,
-                 dtype=torch.float64):
+                 dtype=torch.float64, tracer: Optional[Tracer] = None):
         self.tree = tree
         self.sides_bc = sides_bc
         self.lam = lam
+        self.tracer = Tracer() if tracer is None else tracer
         self.device, self.dtype = device, dtype
         ndim, nc = tree.ndim, tree.nc
         self.ndim = ndim
@@ -488,7 +492,7 @@ class UniformCoarseMG:
         rhs = rhs.reshape(self.shape)
         u = u.reshape(self.shape)
         bvals = self._boundary_values(i_phi, params, rhs)
-        rhs_scale = float(rhs.abs().max())
+        rhs_scale = self.tracer.host_read(rhs.abs().max(), "coarse_scale")
         for it in range(self.MAX_VCYCLES):
             u = self._vcycle(u, rhs, 0, bvals)
             if rhs.dtype == torch.float32:
@@ -497,7 +501,9 @@ class UniformCoarseMG:
                 if it >= 3:
                     break
                 continue
-            res = float((rhs - self._apply(u, 0, bvals)).abs().max())
+            res = self.tracer.host_read(
+                (rhs - self._apply(u, 0, bvals)).abs().max(),
+                "coarse_residual")
             if res <= self.TOL * max(rhs_scale, 1e-300):
                 break
         self.last_vcycles = it + 1

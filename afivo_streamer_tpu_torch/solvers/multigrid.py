@@ -241,10 +241,16 @@ class Multigrid:
         after setup: built once, at the first solve. With either, the solve
         must use the per-cell level-1 operator."""
         per_cell = self.eps_data is not None or self.lsf_data is not None
-        return self._get(("coarse",), lambda: make_coarse_solver(
-            self.mesh.full.tree, self.sides_bc, self.lam, self.mesh.device,
-            level1_op=self.level1_op() if per_cell else None,
-            dtype=self.mesh.dtype), ())
+
+        def make():
+            # the tracer's span plans.coarse, inside plans.build
+            with self.mesh.tracer.span("plans.coarse"):
+                return make_coarse_solver(
+                    self.mesh.full.tree, self.sides_bc, self.lam,
+                    self.mesh.device,
+                    level1_op=self.level1_op() if per_cell else None,
+                    dtype=self.mesh.dtype, tracer=self.mesh.tracer)
+        return self._get(("coarse",), make, ())
 
     def level1_op(self) -> LevelOp:
         """The per-cell operator of the whole of level 1 in the tree's
