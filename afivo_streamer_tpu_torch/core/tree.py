@@ -40,6 +40,14 @@ REFINE = 2
 
 MAX_LVL = 30  # af_max_lvl
 
+# Bits of a box's flag summary (box_flag_summary): any cell DO_REF, any
+# cell KEEP_REF, then from bit SUMMARY_STRIP0 one per neighbour offset (in
+# the order of neighbour_offsets) whether the box's edge strip toward that
+# neighbour holds a DO_REF
+SUMMARY_ANY_DO = 1
+SUMMARY_ANY_KEEP = 2
+SUMMARY_STRIP0 = 2
+
 
 def neighb_dim(d: int) -> int:
     return d // 2
@@ -53,6 +61,41 @@ def neighb_offset(d: int, ndim: int) -> np.ndarray:
     off = np.zeros(ndim, dtype=np.int64)
     off[d // 2] = -1 if d % 2 == 0 else 1
     return off
+
+
+def neighbour_offsets(ndim: int) -> List[Tuple[int, ...]]:
+    """The 3^ndim - 1 same-level neighbour offsets in {-1, 0, 1}^ndim, in
+    the order consistent_ref_flags visits them."""
+    return [off for off in itertools.product([-1, 0, 1], repeat=ndim)
+            if any(off)]
+
+
+def edge_strip(off: Sequence[int], nc: int, ref_buffer: int) -> tuple:
+    """The slices of a box's cells next to its neighbour at ``off``:
+    ``ref_buffer`` cells wide along every dimension where ``off`` is not
+    0, the whole box along the others."""
+    return tuple(slice(nc - ref_buffer, nc) if o == 1
+                 else slice(0, ref_buffer) if o == -1 else slice(None)
+                 for o in off)
+
+
+def box_flag_summary(cell_flags, ref_buffer: int) -> np.ndarray:
+    """Per-cell flags [n, [nc]^ndim] (RM_REF / KEEP_REF / DO_REF) reduced to
+    one summary per box (int64, the SUMMARY_* bits): what
+    consistent_ref_flags reads of a box's cells with this buffer width."""
+    cf = np.asarray(cell_flags)
+    if cf.size and (cf.min() < RM_REF or cf.max() > DO_REF):
+        raise ValueError("invalid cell flags")
+    ndim, nc = cf.ndim - 1, cf.shape[1]
+    cells = tuple(range(1, ndim + 1))
+    is_do = cf == DO_REF
+    out = (is_do.any(axis=cells) * SUMMARY_ANY_DO
+           | (cf == KEEP_REF).any(axis=cells) * SUMMARY_ANY_KEEP)
+    for k, off in enumerate(neighbour_offsets(ndim)):
+        strip = (slice(None),) + edge_strip(off, nc, ref_buffer)
+        out |= is_do[strip].any(axis=cells).astype(np.int64) \
+            << (SUMMARY_STRIP0 + k)
+    return out.astype(np.int64)
 
 
 def child_dix(c: int, ndim: int) -> np.ndarray:
@@ -322,8 +365,9 @@ class Tree:
         cell_flag_fn(ids) -> int array [len(ids)] + [nc]*ndim of per-cell
         flags (RM_REF / KEEP_REF / DO_REF) for the given box ids.
         """
-        ref_flags = self._consistent_ref_flags(cell_flag_fn, ref_buffer,
-                                               ref_links)
+        ref_flags = self._consistent_ref_flags(
+            lambda ids: box_flag_summary(cell_flag_fn(ids), ref_buffer),
+            ref_buffer, ref_links)
         return self._apply_flags(ref_flags)
 
     def criterion_eval_ids(self) -> np.ndarray:
@@ -342,9 +386,12 @@ class Tree:
                 parent_set.append(p)
         return np.asarray(eval_ids + parent_set, dtype=np.int64)
 
-    def _consistent_ref_flags(self, cell_flag_fn, ref_buffer,
+    def _consistent_ref_flags(self, summary_fn, ref_buffer,
                               ref_links) -> Dict[int, int]:
-        """Port of consistent_ref_flags (``m_af_core.f90:924-1012``)."""
+        """Port of consistent_ref_flags (``m_af_core.f90:924-1012``).
+
+        summary_fn(ids) -> the flag summary of each given box
+        (box_flag_summary of its cell flags with this ``ref_buffer``)."""
         flags: Dict[int, int] = {}
 
         # Evaluate criterion on all leaves, and on every parent that has at
@@ -352,49 +399,29 @@ class Tree:
         eval_ids = self.criterion_eval_ids()
         if len(eval_ids) == 0:
             return flags
-        cell_flags = np.asarray(cell_flag_fn(eval_ids))
+        summary = np.asarray(summary_fn(eval_ids)).tolist()
+        offsets = neighbour_offsets(self.ndim)
 
         def bump(bid: int, val: int) -> None:
             flags[bid] = max(flags.get(bid, -10**9), val)
 
-        # vectorized pre-pass: per-box any(DO_REF)/any(KEEP_REF) (the
-        # python per-box scan below is hot at refinement epochs)
-        cf_flat = cell_flags.reshape(len(eval_ids), -1)
-        if cf_flat.min() < RM_REF or cf_flat.max() > DO_REF:
-            raise ValueError("invalid cell flags")
-        any_do = (cf_flat == DO_REF).any(axis=1)
-        any_keep = (cf_flat == KEEP_REF).any(axis=1)
-
-        for n, bid in enumerate(eval_ids):
-            bid = int(bid)
-            cf = cell_flags[n]
+        for bid, s in zip(eval_ids.tolist(), summary):
             # cell_to_ref_flags (m_af_core.f90:1095-1148)
-            if any_do[n]:
+            if s & SUMMARY_ANY_DO:
                 flags[bid] = DO_REF
-            elif any_keep[n]:
+            elif s & SUMMARY_ANY_KEEP:
                 bump(bid, KEEP_REF)
             else:
                 bump(bid, RM_REF)
 
             # the buffer only spreads DO_REF flags: skip boxes without any
-            if ref_buffer > 0 and any_do[n]:
+            if ref_buffer > 0 and s & SUMMARY_ANY_DO:
                 # flag same-level neighbors whose adjacent cells are flagged
-                for off in itertools.product([-1, 0, 1], repeat=self.ndim):
-                    if all(o == 0 for o in off):
-                        continue
-                    nb_id = self.neighbor_mat(bid, off)
-                    if nb_id < 0:
-                        continue
-                    sl = []
-                    for k, o in enumerate(off):
-                        if o == 1:
-                            sl.append(slice(self.nc - ref_buffer, self.nc))
-                        elif o == -1:
-                            sl.append(slice(0, ref_buffer))
-                        else:
-                            sl.append(slice(None))
-                    if np.any(cf[tuple(sl)] == DO_REF):
-                        flags[nb_id] = DO_REF
+                for k, off in enumerate(offsets):
+                    if s >> (SUMMARY_STRIP0 + k) & 1:
+                        nb_id = self.neighbor_mat(bid, off)
+                        if nb_id >= 0:
+                            flags[nb_id] = DO_REF
 
         # default for unset is keep
         out = {bid: (flags.get(int(bid), KEEP_REF))

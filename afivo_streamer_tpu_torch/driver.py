@@ -76,7 +76,7 @@ from .core import rowops as ro
 from .core.batch import BoxBatch, capacity
 from .core import spatial as sp
 from .core.levels import MeshPlans
-from .core.tree import Tree
+from .core.tree import Tree, box_flag_summary
 from .io.checkpoint import read_checkpoint, write_checkpoint
 from .io.output import Output
 from .io.vtk import write_vtk
@@ -846,31 +846,32 @@ class Simulation:
         boxes: the surfaces follow the mesh, the state grows, and every
         variable with methods is prolonged into the new boxes and
         ghost-filled, level by level. The span ``epoch`` holds
-        ``epoch.flags`` (each call of the criterion, its read to the host
-        included), ``epoch.consistency`` and ``epoch.apply`` (the two phases
-        of ``Tree.adjust_refinement``), ``epoch.capacity``,
+        ``epoch.flags`` (each call of the criterion, its summary per box and
+        the read of it included), ``epoch.consistency`` and ``epoch.apply``
+        (the two phases of ``Tree.adjust_refinement``), ``epoch.capacity``,
         ``epoch.prolong`` and ``epoch.eps_halo``."""
         tr = self.tracer
         with tr.span("epoch"):
             self.refiner.time = self.global_time
             links = (self.surfaces.refinement_links()
                      if self.surfaces is not None else None)
+            buffer = self.refine_cfg.buffer_width
             if self.user.refine is not None:
                 # the user's criterion replaces the default one, called
                 # with the documented signature refine(sim, cc, ids)
                 def criterion(ids):
-                    return self._user_flags(ids)
+                    return box_flag_summary(self._user_flags(ids), buffer)
             else:
                 def criterion(ids):
-                    return self.refiner.cell_flags(self.cc, ids)
+                    return self.refiner.box_summary(self.cc, ids, buffer)
 
-            def flags_fn(ids):
+            def summary_fn(ids):
                 with tr.span("epoch.flags"):
                     return criterion(ids)
             # Tree.adjust_refinement's two phases, each in its span
             with tr.span("epoch.consistency"):
-                flags = self.tree._consistent_ref_flags(
-                    flags_fn, self.refine_cfg.buffer_width, links)
+                flags = self.tree._consistent_ref_flags(summary_fn, buffer,
+                                                        links)
             with tr.span("epoch.apply"):
                 info = self.tree._apply_flags(flags)
             tr.count("epochs")

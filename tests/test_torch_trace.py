@@ -17,7 +17,10 @@
     every step are the same in both runs of the seed;
 (e) the command line's cost breakdown (``Simulation.wc``) is the self time
     of the spans under each step by part, so that the parts add up to no
-    more than the steps' time.
+    more than the steps' time;
+(f) the refinement criterion reads its flags once per call
+    (``sync.refine_flags``), and ``refine.seed_boxes`` counts the boxes
+    its seed rule selected.
 """
 
 import gc
@@ -203,7 +206,19 @@ def run_cell(recording: bool):
         probes.mode = "mark" if recording else "off"
         sim.tracer.take()  # the set-up's
         sim.tracer.recording = recording
-        per_step, attempts = [], []
+        per_step, attempts, seed_boxes = [], [], []
+        summary = sim.refiner.box_summary
+
+        def criterion(cc, ids, ref_buffer):
+            # the boxes the seed rule selects: max_dx > init_fac * width
+            r, t = sim.refiner, sim.tree
+            max_dx = (t.dr_base[None, :]
+                      / 2.0 ** (t.lvl[ids][:, None] - 1.0)).max(axis=1)
+            seed_boxes.append(int(np.sum(
+                max_dx > r.rs.init_fac * min(r.ic.seed_width)))
+                if r.time < r.rs.init_time else 0)
+            return summary(cc, ids, ref_buffer)
+        sim.refiner.box_summary = criterion
 
         def at_step(done):
             per_step.append(dict(sim.tracer.counters))
@@ -221,6 +236,7 @@ def run_cell(recording: bool):
                "epochs": probes.epochs,
                "mesh_changes": probes.mesh_changes,
                "spans": list(probes.spans), "wc": sim.wc,
+               "seed_boxes": seed_boxes,
                "step_s": 1e-9 * sim.tracer.totals["step"][1]}
     return out
 
@@ -296,3 +312,13 @@ def test_cost_breakdown_is_the_self_time_by_part(runs):
     refine = {i for i, r in enumerate(taken) if r[0] == "refine"}
     under = {r[0] for r in taken if r[1] in refine}
     assert {"restrict", "epoch", "field", "photoi"} <= under
+
+
+def test_criterion_reads_and_seed_boxes_are_counted(runs):
+    """(f)."""
+    for run in runs.values():
+        counters = run["taken"]["counters"]
+        calls = run["seed_boxes"]
+        assert (len(calls) == counters["sync.refine_flags"]
+                == counters["epochs"] == STEPS // 2)
+        assert counters["refine.seed_boxes"] == sum(calls) > 0
